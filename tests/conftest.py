@@ -56,3 +56,8 @@ except ModuleNotFoundError:
         load_profile=lambda *a, **k: None)
     sys.modules["hypothesis"] = hyp
     sys.modules["hypothesis.strategies"] = st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA GPU; skips on hosts without one")

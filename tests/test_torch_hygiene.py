@@ -1,0 +1,104 @@
+"""Package rules of the port, each checked in a fresh subprocess:
+
+  * importing every ``repro_torch`` module and ``chip_smoke.py`` leaves
+    ``jax`` and ``repro`` out of ``sys.modules``;
+  * ``RalmEngine.from_config`` without a device raises when CUDA is
+    absent, and ``chip_smoke.py`` exits non-zero without printing a
+    result (also when it stands alone, outside the repository);
+  * a kernel wrapper handed CPU tensors runs the plain version, builds
+    nothing and launches nothing, with no ``nvcc`` in reach.
+"""
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _run(code: str, cwd=ROOT, args=None):
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_HOME"}
+    env.update(PYTHONPATH=str(ROOT / "src"), PATH="/usr/bin:/bin",
+               CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable] + (args if args is not None else ["-c", code])
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          env=env, cwd=str(cwd))
+
+
+def test_port_imports_neither_jax_nor_repro():
+    p = _run("""
+import importlib, pkgutil, runpy, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke")
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(len(names), bad)
+assert not bad, bad
+assert len(names) >= 30, names
+""")
+    assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_entry_points_refuse_to_run_without_cuda(tmp_path):
+    p = _run("""
+import pytest, torch
+from repro_torch.configs import get_arch
+from repro_torch.models import transformer as tf
+from repro_torch.serve import (DatastoreBuilder, EngineConfig, RalmEngine)
+arch = get_arch("dec_s")
+params = tf.init_params(torch.Generator().manual_seed(0), arch.reduced)
+ds = DatastoreBuilder(dim=64, nlist=4, m=8, device="cpu").build(
+    torch.randn(300, 64))
+with pytest.raises(RuntimeError, match="GPU"):
+    RalmEngine.from_config(EngineConfig(arch.reduced, arch.rag), params, ds,
+                           ds.search_config(nprobe=2, k=4))
+with pytest.raises(RuntimeError, match="GPU"):
+    DatastoreBuilder(dim=64).build(torch.randn(300, 64))
+RalmEngine.from_config(EngineConfig(arch.reduced, arch.rag), params, ds,
+                       ds.search_config(nprobe=2, k=4), device="cpu")
+""")
+    assert p.returncode == 0, p.stdout + p.stderr
+    smoke = _run("", args=["chip_smoke.py"])
+    assert smoke.returncode != 0 and '"ok"' not in smoke.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    alone = _run("", cwd=tmp_path, args=["chip_smoke.py"])
+    assert alone.returncode != 0 and '"ok"' not in alone.stdout
+
+
+def test_cpu_tensors_take_the_plain_versions_without_nvcc():
+    p = _run("""
+import torch
+from repro_torch.kernels import _build
+from repro_torch.kernels.chamvs_scan import ops as cs
+from repro_torch.kernels.decode_attn import ops as da
+from repro_torch.kernels.ivf_scan import ops as iv
+g = torch.Generator().manual_seed(0)
+q = torch.randn(3, 1, 4, 8, generator=g).bfloat16()
+k = torch.randn(5, 16, 2, 8, generator=g).bfloat16()
+slots, pos = torch.tensor([4, 0, 2]), torch.tensor([3, 15, 9])
+out = da.decode_attention(q, k, k, pos, slots=slots, kv_len=16)
+ref = da.ref_decode_attention(q, k[slots.long()], k[slots.long()], pos)
+assert torch.equal(out, ref)
+qs, cents = torch.randn(4, 8, generator=g), torch.randn(10, 8, generator=g)
+assert all(torch.equal(a, b) for a, b in zip(
+    iv.ivf_index_scan(qs, cents, 3), iv.ref_ivf_scan(qs, cents, 3)))
+luts = torch.rand(4, 3, 2, 16, generator=g)
+codes = torch.randint(0, 16, (2, 10, 6, 2), generator=g).to(torch.uint8)
+ids = torch.arange(120, dtype=torch.int32).view(2, 10, 6)
+lens = torch.randint(0, 7, (2, 10), generator=g).int()
+probe = iv.ivf_index_scan(qs, cents, 3)[1]
+d, i = cs.fused_scan(luts, codes, ids, lens, probe, 5)
+p = probe.long()
+rd, ri = cs.ref_chamvs_scan(luts, codes[:, p], ids[:, p], lens[:, p], 5)
+assert torch.equal(d, rd) and torch.equal(i, ri)
+assert _build._lib is None
+assert all(kern.launches == 0 for kern in _build.kernels().values())
+assert sorted(_build.kernels()) == ["chamvs_scan_launch",
+    "decode_attn_launch", "ivf_scan_launch"]
+""")
+    assert p.returncode == 0, p.stdout + p.stderr
