@@ -13,18 +13,28 @@ failure raises, so the run exits non-zero):
      nprobe 32), scaled down in vector count (printed as cuts).
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card at the serve phase's shapes, then timed with CUDA events
-     (L2 flushed before every run) beside the plain version, a
-     PyTorch library call where one computes the same function, and the
-     least time the card could take for the work.
+     (L2 flushed before every run, the stream held while the run is
+     enqueued, so host launch gaps are not timed) beside the plain
+     version, a PyTorch library call where one computes the same
+     function, and the least time the card could take for the work.
+     The staged scan's kernels run at shard 0's staged shapes: adc_scan
+     over the wave's 1024 (query, probe) entries, shared_scan of the
+     wave's LUTs over the union of its probed lists, and the
+     hierarchical top-k over the wave's staged ADC distance rows.
   4. serve: 8 requests x 4 rows through RalmEngine.from_config (wave
      decode, fused scan, async retrieval), 64 greedy tokens each, driven
      three times (tokens/s as median and range); before each run the
      kernels' launch counters are zeroed, and just after they must match
-     the engine's wave and scan dispatch counts. Then: a profile of the
-     decode waves, one sampled request drawing from a CUDA generator, and
-     the accuracy witness: the same traffic with exact (flat L2) search
-     over every key in place of the PQ index, with the rate at which
-     each search's top-1 / top-K holds the true prefix's own key.
+     the engine's wave and scan dispatch counts. Then serve.staged: the
+     same traffic through a staged deployment (search_config(fused=False):
+     one adc_scan launch per shard per flush), three runs alternating
+     with three more fused runs, whose tokens must all equal the fused
+     runs'. After the timed runs: one sampled request drawing from a
+     CUDA generator, a profile of the fused and of the staged decode
+     waves, and the accuracy witness: the same traffic with exact
+     (flat L2) search over every key in place of the PQ index, with the
+     rate at which each search's top-1 / top-K holds the true prefix's
+     own key.
 
 The last two lines are the kernel report and the device line, each one
 JSON object. Without a GPU (or outside the repository) it exits non-zero
@@ -62,9 +72,23 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def bound(nbytes: float, flops: float):
+    """The least time (ms) the card could take to move ``nbytes`` and do
+    ``flops`` float32 operations, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
 class Timer:
     """Median of CUDA-event times over ``iters`` runs after a warm-up,
-    with the L2 cache flushed (a 128 MB write) before every run."""
+    with the L2 cache flushed (a 128 MB write) before every run. Before
+    each run a spin kernel holds the stream for ``HOLD_CYCLES`` (~10 ms)
+    while the host enqueues the start event, the run and the end event,
+    so the time is the device's, without the host's launch gaps (a
+    short kernel's wrapper takes tens of microseconds of Python)."""
+
+    HOLD_CYCLES = 20_000_000
 
     def __init__(self, torch, iters: int = 25, warmup: int = 3):
         self.torch = torch
@@ -78,6 +102,7 @@ class Timer:
         times = []
         for _ in range(self.iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -208,14 +233,13 @@ def kernel_decode_attn(torch, dev, timer, cfg, sizes, report):
     n_valid = int(valid.sum())
     nbytes = 2 * n_valid * KV * D * 2 + 2 * q.numel() * 2 + W * 8
     flops = 4 * n_valid * H * D
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    bound_ms, bound_by = bound(nbytes, flops)
     report["decode_attn"] = dict(
         name="decode_attn", route="cuda",
         source="src/repro_torch/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn/kernel.py:109",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-        else "operations", library_ms=lib_ms)
+        bound_by=bound_by, library_ms=lib_ms)
     log("kernel.decode_attn", t0, shape=f"W={W},H={H},KV={KV},D={D},"
         f"S={S},P={P}", max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
         err_vs_f32=f"{err32:.3e}",
@@ -254,13 +278,12 @@ def kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report):
     nlist = cents.shape[0]
     nbytes = (nlist * D + nq * D) * 4 + nq * nprobe * 8
     flops = 2 * nq * nlist * D + 3 * nq * nlist
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    bound_ms, bound_by = bound(nbytes, flops)
     report["ivf_scan"] = dict(
         name="ivf_scan", route="cuda", source="src/repro_torch/csrc/ivf_scan.cu",
         replaces="src/repro/kernels/ivf_scan/kernel.py:51",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-        else "operations", library_ms=None)
+        bound_by=bound_by, library_ms=None)
     log("kernel.ivf_scan", t0, shape=f"nq={nq},nlist={nlist},D={D},"
         f"nprobe={nprobe}", id_mismatch_near_ties=int(mism.sum()),
         max_abs_err=f"{err:.3e}", max_rel_err=f"{rel:.3e}", ms=f"{ms:.4f}",
@@ -305,14 +328,13 @@ def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
     n_luts = nq * (1 if luts.stride(1) == 0 else nprobe)
     nbytes = rows * m + n_luts * m * ksub * 4 + S * nq * kk * (8 + 4)
     flops = rows * m
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    bound_ms, bound_by = bound(nbytes, flops)
     report["fused_scan"] = dict(
         name="fused_scan", route="cuda",
         source="src/repro_torch/csrc/chamvs_scan.cu",
         replaces="src/repro/kernels/chamvs_scan/kernel.py:93",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-        else "operations", library_ms=None)
+        bound_by=bound_by, library_ms=None)
     log("kernel.fused_scan", t0, shape=f"S={S},nq={nq},nprobe={nprobe},"
         f"cap={st.codes.shape[2]},m={m},kk={kk}",
         mean_len=f"{float(lens.mean()):.1f}", ids_equal=True,
@@ -321,22 +343,170 @@ def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
         bound_ms=f"{bound_ms:.4f}")
 
 
+def kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
+    """adc_scan at the staged serve shape of shard 0; returns the wave's
+    staged ADC distance rows [nq, nprobe * cap] (+inf past each list's
+    length) for the hierarchical top-k phase."""
+    from repro_torch.core import ivfpq
+    from repro_torch.kernels.pq_adc import ops as pq
+    from repro_torch.kernels.pq_adc import ref as pq_ref
+
+    t0 = time.perf_counter()
+    # what the staged scan hands pq_adc_topk for shard 0: one entry per
+    # (query, probe), the gathered probed lists' codes and lengths
+    icfg, shard = ds.index_cfg, ds.shards[0]
+    nq, nprobe = probe_ids.shape
+    B, cap, m, ksub = nq * nprobe, icfg.list_cap, icfg.m, icfg.ksub
+    p = probe_ids.long()
+    luts = ivfpq.compute_luts(ds.params, queries, probe_ids, icfg
+                              ).reshape(B, m, ksub)
+    codes = shard.codes[p].reshape(B, cap, m)
+    lens = shard.list_len[p].reshape(B)
+    k = min(kk, cap)
+    dk, ik = pq.pq_adc_topk(luts, codes, lens, k)
+    dp, ip = pq_ref.ref_pq_adc_topk(luts, codes, lens, k)
+    torch.cuda.synchronize()
+    if not torch.equal(ik, ip):
+        raise AssertionError(f"adc_scan ids differ: "
+                             f"{int((ik != ip).sum())} of {ik.numel()}")
+    if not torch.equal(dk, dp):
+        raise AssertionError("adc_scan distances differ from the plain "
+                             "version's (both sum in index order)")
+    fin = torch.isfinite(dp)
+    err = (dk - dp)[fin].abs().max().item()
+    ms = timer(lambda: pq.pq_adc_topk(luts, codes, lens, k))
+    plain_ms = timer(lambda: pq_ref.ref_pq_adc_topk(luts, codes, lens,
+                                                            k))
+    rows = float(lens.double().sum())
+    # codes of the valid rows, one LUT per entry (the staged scan's
+    # input), lens, and the (dist, row) outputs
+    nbytes = rows * m + B * m * ksub * 4 + B * 4 + B * k * 8
+    bound_ms, bound_by = bound(nbytes, rows * m)
+    report["adc_scan"] = dict(
+        name="adc_scan", route="cuda", source="src/repro_torch/csrc/pq_adc.cu",
+        replaces="src/repro/kernels/pq_adc/kernel.py:101",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+    log("kernel.adc_scan", t0, shape=f"B={B},n={cap},m={m},ksub={ksub},k={k}",
+        mean_len=f"{rows / B:.1f}", ids_equal=True, dists_bit_equal=True,
+        max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms="none",
+        bound_ms=f"{bound_ms:.4f}")
+    d = pq_ref.ref_adc_batch(luts, codes)
+    valid = torch.arange(cap, device=dev)[None, :] < lens[:, None]
+    return torch.where(valid, d, torch.full_like(d, float("inf"))
+                       ).reshape(nq, -1)
+
+
+def kernel_shared_scan(torch, dev, timer, ds, queries, probe_ids, report):
+    """shared_scan: the wave's non-residual LUTs against the valid code
+    rows of the union of the lists the wave probes in shard 0."""
+    import torch.nn.functional as F
+    from repro_torch.core import ivfpq
+    from repro_torch.kernels.pq_adc import ops as pq
+    from repro_torch.kernels.pq_adc import ref as pq_ref
+
+    t0 = time.perf_counter()
+    icfg, shard = ds.index_cfg, ds.shards[0]
+    if icfg.residual:
+        raise AssertionError("shared_scan needs a non-residual index")
+    luts = ivfpq.compute_luts(ds.params, queries, probe_ids, icfg
+                              )[:, 0].contiguous()           # [q, m, ksub]
+    q, m, ksub = luts.shape
+    lists = torch.unique(probe_ids.long())
+    valid = (torch.arange(icfg.list_cap, device=dev)[None, :]
+             < shard.list_len[lists][:, None])
+    codes = shard.codes[lists][valid].contiguous()           # [n, m]
+    n = codes.shape[0]
+    out = pq.pq_shared_scan(luts, codes)
+    want = pq_ref.ref_shared_scan(luts, codes).T
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError("shared_scan distances differ from the plain "
+                             "version's (both sum in index order)")
+    err = (out - want).abs().max().item()
+    # the library yardstick: one embedding_bag call computes the same
+    # sums (in its own order) from codes offset into a stacked table
+    weight = luts.reshape(q, m * ksub).T.contiguous()        # [m*ksub, q]
+    idx = codes.long() + torch.arange(m, device=dev) * ksub
+    lib_err = (F.embedding_bag(idx, weight, mode="sum") - out).abs().max(
+    ).item()
+    ms = timer(lambda: pq.pq_shared_scan(luts, codes))
+    plain_ms = timer(lambda: pq_ref.ref_shared_scan(luts, codes))
+    lib_ms = timer(lambda: F.embedding_bag(idx, weight, mode="sum"))
+    nbytes = n * m + q * m * ksub * 4 + n * q * 4
+    bound_ms, bound_by = bound(nbytes, n * q * m)
+    report["shared_scan"] = dict(
+        name="shared_scan", route="cuda",
+        source="src/repro_torch/csrc/pq_adc.cu",
+        replaces="src/repro/kernels/pq_adc/kernel.py:158",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms)
+    log("kernel.shared_scan", t0, shape=f"q={q},n={n},m={m},ksub={ksub}",
+        lists=int(lists.numel()), bit_equal=True, max_abs_err=f"{err:.3e}",
+        embedding_bag_err=f"{lib_err:.3e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", embedding_bag_ms=f"{lib_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}")
+
+
+def kernel_hierarchical_topk(torch, dev, timer, d, k, num_blocks, report):
+    """approx_topk over the wave's staged ADC distance rows; also the
+    share of rows on which the approximate result is the exact one."""
+    from repro_torch.core.approx_topk_math import truncated_queue_len
+    from repro_torch.kernels.topk import ops as tk
+    from repro_torch.kernels.topk import ref as tk_ref
+
+    t0 = time.perf_counter()
+    B, n = d.shape
+    kp = truncated_queue_len(k, num_blocks)
+    dk, ik = tk.approx_topk(d, k, num_blocks=num_blocks)
+    dp, ip = tk_ref.ref_hierarchical_topk(d, k, num_blocks, kp)
+    de, ie = tk_ref.ref_exact_topk(d, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
+        raise AssertionError(f"hierarchical_topk differs from the plain "
+                             f"version: {int((ik != ip).sum())} ids")
+    fin = torch.isfinite(dp)
+    err = (dk - dp)[fin].abs().max().item() if bool(fin.any()) else 0.0
+    exact_rows = ((ik == ie) & (dk == de)).all(dim=1).float().mean().item()
+    ms = timer(lambda: tk.approx_topk(d, k, num_blocks=num_blocks))
+    plain_ms = timer(lambda: tk_ref.ref_hierarchical_topk(d, k, num_blocks,
+                                                             kp))
+    lib_ms = timer(lambda: torch.topk(d, k, dim=1, largest=False))
+    nbytes = B * n * 4 + B * k * 8
+    bound_ms, bound_by = bound(nbytes, B * n)
+    report["hierarchical_topk"] = dict(
+        name="hierarchical_topk", route="cuda",
+        source="src/repro_torch/csrc/topk.cu",
+        replaces="src/repro/kernels/topk/kernel.py:34",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms)
+    log("kernel.hierarchical_topk", t0, shape=f"B={B},n={n},k={k},"
+        f"num_blocks={num_blocks},k_prime={kp}",
+        inf_share=f"{float(torch.isinf(d).float().mean()):.3f}",
+        equal_to_plain=True, rows_equal_to_exact=f"{exact_rows:.4f}",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        torch_topk_ms=f"{lib_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}")
+
+
 # ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
 
-def serve(torch, dev, arch, cfg, params, corpus, ds, sizes):
-    import numpy as np
-    from repro_torch.kernels import _build
-    from repro_torch.serve import EngineConfig, RalmEngine, RalmRequest
+def checked_engine(torch, dev, arch, cfg, params, ds, sizes, fused):
+    """The serve phase's engine through RalmEngine.from_config (async
+    retrieval, fused or staged scan), wrapped so that finiteness and
+    id-range checks accumulate on the device (no syncs); ``check()``
+    raises if any of them failed."""
+    from repro_torch.serve import EngineConfig, RalmEngine
 
-    t0 = time.perf_counter()
-    search_cfg = ds.search_config(nprobe=sizes["nprobe"], k=arch.rag.k)
+    search_cfg = ds.search_config(nprobe=sizes["nprobe"], k=arch.rag.k,
+                                  fused=fused)
     eng = RalmEngine.from_config(
         EngineConfig(model=cfg, rag=arch.rag, max_seq=sizes["max_seq"],
                      async_retrieval=True, retrieval_measure=False),
         params, ds, search_cfg, device=dev)
-    # finiteness / id-range checks accumulate on the device (no syncs)
     ok = torch.ones((), dtype=torch.bool, device=dev)
     n_vec = ds.num_vectors
     backend, retriever = eng.backend, eng.retriever
@@ -360,71 +530,148 @@ def serve(torch, dev, arch, cfg, params, corpus, ds, sizes):
         ok = ok & ((ids == -1) | ((ids >= 0) & (ids < n_vec))).all()
         return resolve(ids, kind)
 
+    def check():
+        if not bool(ok):
+            raise AssertionError("non-finite logits or out-of-range ids")
+
     backend.prefill, backend.decode_wave = checked_prefill, checked_decode
     retriever.resolve = checked_resolve
+    return eng, search_cfg, check
+
+
+def drive(torch, eng, cfg, prompts, truth, steps, label):
+    """One run of the traffic, with the launch counters zeroed just
+    before and read just after. Every kernel must have launched exactly
+    as the engine dispatched: decode attention once per layer per wave,
+    the IVF probe once per search flush, and the scan kernel of the
+    deployment (fused scan, or adc_scan per shard) once per scan
+    dispatch; no other kernel."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.serve import RalmRequest
+
+    stats = eng.retriever.service.stats
+    pipeline = eng.retriever.service.pipeline
+    waves0, scans0 = eng.decode_dispatches, stats.scan_dispatches
+    flushes0, batched0 = stats.num_batches, stats.batched_rows
+
+    def pool_rows():
+        st = eng.pool.stats if eng.pool is not None else None
+        return (st.wave_rows, st.waves) if st is not None else (0, 0)
+
+    rows0 = pool_rows()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t1 = time.perf_counter()
+    rids = [eng.submit(RalmRequest(prompt=torch.from_numpy(p), steps=steps))
+            for p in prompts]
+    done = eng.step()                       # admission + prefill + step 0
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    done += eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {n: k.launches for n, k in _build.kernels().items()}
+    waves = eng.decode_dispatches - waves0
+    scans = stats.scan_dispatches - scans0
+    flushes = stats.num_batches - flushes0
+    rows1 = pool_rows()
+    wave_rows = (rows1[0] - rows0[0]) / max(rows1[1] - rows0[1], 1)
+    by_id = {r.request_id: r.tokens for r in done}
+    out = np.stack([by_id[r] for r in rids])            # [R, B, T0 + steps]
+    R, B = len(prompts), prompts[0].shape[0]
+    gen = out[:, :, prompts[0].shape[1]:].reshape(R * B, steps)
+    acc = float((gen == truth).mean())
+    tokens = R * B * steps
+    log(label, t1, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{tokens / wall:.1f}", generated_tokens=tokens,
+        first_step_s=f"{t_first:.3f}",
+        decode_ms_per_wave=f"{(wall - t_first) / max(waves, 1) * 1e3:.2f}",
+        decode_waves=waves, mean_wave_rows=f"{wave_rows:.2f}",
+        search_flushes=flushes, scan_dispatches=scans,
+        coalescing=f"{(stats.batched_rows - batched0) / max(flushes, 1):.1f}",
+        continuation_accuracy=f"{acc:.4f}", launches=launches)
+    scan_kernel = ("chamvs_scan_launch" if pipeline.cfg.fused
+                   else "adc_scan_launch")
+    want = dict.fromkeys(launches, 0)
+    want.update({"decode_attn_launch": cfg.n_layers * waves,
+                 "ivf_scan_launch": flushes, scan_kernel: scans})
+    if scans != pipeline.scan_dispatches * flushes or flushes <= 0 or \
+            waves <= 0 or launches != want:
+        raise AssertionError(f"launches {launches} != expected {want} "
+                             f"({flushes} flushes, {scans} scans)")
+    return dict(tps=tokens / wall, acc=acc, gen=gen, launches=launches,
+                ms_wave=(wall - t_first) / waves * 1e3)
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def serve(torch, dev, arch, cfg, params, corpus, ds, sizes):
+    """The fused deployment, driven ``repeats`` times."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    eng, search_cfg, check = checked_engine(torch, dev, arch, cfg, params,
+                                            ds, sizes, fused=True)
     R, B, T0 = sizes["requests"], sizes["rows"], sizes["prompt_len"]
     steps = sizes["steps"]
     prompts = [corpus[r * B:(r + 1) * B, :T0] for r in range(R)]
     truth = corpus[:R * B, T0:T0 + steps]
-    stats = eng.retriever.service.stats
     log("serve.setup", t0, requests=R, rows_per_request=B, prompt_len=T0,
         steps=steps, k=arch.rag.k, nprobe=search_cfg.nprobe,
         kprime=search_cfg.k_prime(ds.num_shards), repeats=sizes["repeats"])
-
-    def drive():
-        """One run of the traffic, with the launch counters zeroed just
-        before and read just after."""
-        waves0, scans0 = eng.decode_dispatches, stats.scan_dispatches
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        t1 = time.perf_counter()
-        rids = [eng.submit(RalmRequest(prompt=torch.from_numpy(p),
-                                       steps=steps)) for p in prompts]
-        done = eng.step()                   # admission + prefill + step 0
-        torch.cuda.synchronize()
-        t_first = time.perf_counter() - t1
-        done += eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        launches = {n: k.launches for n, k in _build.kernels().items()}
-        waves = eng.decode_dispatches - waves0
-        scans = stats.scan_dispatches - scans0
-        by_id = {r.request_id: r.tokens for r in done}
-        out = np.stack([by_id[r] for r in rids])        # [R, B, T0 + steps]
-        gen = out[:, :, T0:].reshape(R * B, steps)
-        acc = float((gen == truth).mean())
-        tokens = R * B * steps
-        log("serve.run", t1, wall_s=f"{wall:.3f}",
-            tokens_per_s=f"{tokens / wall:.1f}", generated_tokens=tokens,
-            first_step_s=f"{t_first:.3f}",
-            decode_ms_per_wave=f"{(wall - t_first) / max(waves, 1) * 1e3:.2f}",
-            decode_waves=waves,
-            mean_wave_rows=f"{eng.pool.stats.mean_wave():.2f}",
-            scan_dispatches=scans,
-            coalescing=f"{stats.coalescing_factor():.1f}",
-            continuation_accuracy=f"{acc:.4f}", launches=launches)
-        want = {"decode_attn_launch": cfg.n_layers * waves,
-                "ivf_scan_launch": scans, "chamvs_scan_launch": scans}
-        if scans <= 0 or waves <= 0 or launches != want:
-            raise AssertionError(f"launches {launches} != expected {want}")
-        return dict(tps=tokens / wall, acc=acc, gen=gen, launches=launches,
-                    ms_wave=(wall - t_first) / waves * 1e3)
-
-    runs = [drive() for _ in range(sizes["repeats"])]
-    if not bool(ok):
-        raise AssertionError("non-finite logits or out-of-range ids")
+    runs = [drive(torch, eng, cfg, prompts, truth, steps, "serve.run")
+            for _ in range(sizes["repeats"])]
+    check()
     tps = sorted(r["tps"] for r in runs)
     ms_wave = sorted(r["ms_wave"] for r in runs)
-    log("serve.summary", t0, tokens_per_s_median=f"{tps[len(tps) // 2]:.1f}",
+    log("serve.summary", t0, tokens_per_s_median=f"{median(tps):.1f}",
         tokens_per_s_range=f"{tps[0]:.1f}-{tps[-1]:.1f}",
-        decode_ms_per_wave_median=f"{ms_wave[len(ms_wave) // 2]:.2f}",
+        decode_ms_per_wave_median=f"{median(ms_wave):.2f}",
         decode_ms_per_wave_range=f"{ms_wave[0]:.2f}-{ms_wave[-1]:.2f}",
         continuation_accuracy=[f"{r['acc']:.4f}" for r in runs],
         tokens_equal_across_runs=all(np.array_equal(r["gen"], runs[0]["gen"])
                                      for r in runs))
-    profile_waves(torch, eng, prompts, steps=16)
-    sampled_request(torch, eng, prompts[0], cfg.vocab_size, steps=16)
-    return eng, prompts, runs[0]["launches"]
+    return eng, prompts, truth, runs
+
+
+def serve_staged(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
+                 fused_eng):
+    """The same traffic through a staged deployment
+    (``search_config(fused=False)``): the IVF probe, then per shard the
+    gather of the probed lists and one adc_scan launch. Same ids and
+    bit-identical distances as the fused scan, so the tokens must equal
+    the fused runs'. Staged and fused runs alternate, ``repeats`` each,
+    so that the two rates share the call's host. Returns the staged
+    engine and its first run's launch counts."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    eng, _, check = checked_engine(torch, dev, arch, cfg, params, ds, sizes,
+                                   fused=False)
+    staged, fused = [], []
+    for _ in range(sizes["repeats"]):
+        staged.append(drive(torch, eng, cfg, prompts, truth, sizes["steps"],
+                            "serve.staged"))
+        fused.append(drive(torch, fused_eng, cfg, prompts, truth,
+                           sizes["steps"], "serve.run"))
+    check()
+    if not all(np.array_equal(r["gen"], f["gen"])
+               for r in staged for f in fused):
+        raise AssertionError("staged tokens differ from the fused runs'")
+    tps = sorted(r["tps"] for r in staged)
+    ms_wave = sorted(r["ms_wave"] for r in staged)
+    log("serve.staged_summary", t0, tokens_equal_to_fused=True,
+        shards=ds.num_shards, tokens_per_s_median=f"{median(tps):.1f}",
+        tokens_per_s_range=f"{tps[0]:.1f}-{tps[-1]:.1f}",
+        decode_ms_per_wave_median=f"{median(ms_wave):.2f}",
+        decode_ms_per_wave_range=f"{ms_wave[0]:.2f}-{ms_wave[-1]:.2f}",
+        fused_tokens_per_s_median=f"{median([r['tps'] for r in fused]):.1f}",
+        fused_decode_ms_per_wave_median=(
+            f"{median([r['ms_wave'] for r in fused]):.2f}"))
+    return eng, staged[0]["launches"]
 
 
 def sampled_request(torch, eng, prompt, vocab, steps):
@@ -524,7 +771,7 @@ def accuracy_witness(torch, eng, arch, cfg, keys, ds, corpus, prompts,
         raise AssertionError("exact-search witness generated nothing right")
 
 
-def profile_waves(torch, eng, prompts, steps):
+def profile_waves(torch, eng, prompts, steps, label="serve.profile"):
     """Where the decode time goes: the same traffic, admitted and
     prefilled outside the window, then ``steps - 1`` decode waves under
     torch.profiler. Device busy share = the summed time of the events
@@ -548,13 +795,71 @@ def profile_waves(torch, eng, prompts, steps):
                     or getattr(e, "self_cuda_time_total", 0.0)), e.count,
                    e.key) for e in dev)[::-1]
     busy_us = sum(r[0] for r in rows)
-    log("serve.profile", t0, decode_waves=steps - 1,
+    log(label, t0, decode_waves=steps - 1,
         wall_ms=f"{wall * 1e3:.1f}", device_busy_ms=f"{busy_us / 1e3:.1f}",
         device_busy_share=f"{busy_us / 1e6 / wall:.3f}",
         device_events=len(rows))
     for us, count, key in rows[:12]:
         print(f"  device {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}",
               flush=True)
+
+
+def run_phases(torch, dev, sizes):
+    """Set-up, the kernel phases and the serve phases on ``dev`` at
+    ``sizes``; returns the kernel report rows."""
+    arch, cfg, params, corpus, keys, ds = setup(dev, sizes)
+
+    timer = Timer(torch)
+    report = {}
+    W = sizes["requests"] * sizes["rows"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    pick = torch.randint(0, keys.shape[0], (W,), generator=g, device=dev)
+    queries = (keys[pick] + 0.01 * torch.randn(
+        (W, keys.shape[1]), generator=g, device=dev)).contiguous()
+    kernel_decode_attn(torch, dev, timer, cfg, sizes, report)
+    probe_ids = kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report)
+    kk = ds.search_config(nprobe=sizes["nprobe"],
+                          k=arch.rag.k).k_prime(ds.num_shards)
+    kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report)
+    staged_d = kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk,
+                               report)
+    kernel_shared_scan(torch, dev, timer, ds, queries, probe_ids, report)
+    kernel_hierarchical_topk(torch, dev, timer, staged_d, arch.rag.k, 16,
+                             report)
+    del staged_d
+    torch.cuda.empty_cache()
+
+    eng, prompts, truth, runs = serve(torch, dev, arch, cfg, params, corpus,
+                                      ds, sizes)
+    staged_eng, staged = serve_staged(torch, dev, arch, cfg, params, ds,
+                                      sizes, prompts, truth, eng)
+    # after every timed serve run: a profiled window leaves the profiler's
+    # hooks behind, which slows the host side of later waves
+    sampled_request(torch, eng, prompts[0], cfg.vocab_size, steps=16)
+    profile_waves(torch, eng, prompts, steps=16)
+    profile_waves(torch, staged_eng, prompts, steps=16,
+                  label="serve.staged_profile")
+    del staged_eng
+    torch.cuda.empty_cache()
+    accuracy_witness(torch, eng, arch, cfg, keys, ds, corpus, prompts, sizes)
+    # launches: each kernel's count in one run of the serve path that
+    # reaches it; shared_scan and hierarchical_topk have no serving
+    # caller in either package, only their entry points
+    fused = runs[0]["launches"]
+    for name, sym, path, counts in (
+            ("decode_attn", "decode_attn_launch", "serve.run", fused),
+            ("ivf_scan", "ivf_scan_launch", "serve.run", fused),
+            ("fused_scan", "chamvs_scan_launch", "serve.run", fused),
+            ("adc_scan", "adc_scan_launch", "serve.staged", staged),
+            ("shared_scan", "shared_scan_launch",
+             "no serve path (entry point pq_shared_scan)", fused),
+            ("hierarchical_topk", "hierarchical_topk_launch",
+             "no serve path (entry point approx_topk)", fused)):
+        report[name]["launches"] = counts[sym]
+        report[name]["launches_in"] = path
+    return [report[k] for k in ("decode_attn", "ivf_scan", "fused_scan",
+                                "adc_scan", "shared_scan",
+                                "hierarchical_topk")]
 
 
 def main() -> int:
@@ -580,34 +885,10 @@ def main() -> int:
     for ln in ptx:
         print(f"  ptxas {ln}", flush=True)
 
-    sizes = dict(FULL)
-    arch, cfg, params, corpus, keys, ds = setup(dev, sizes)
-
-    timer = Timer(torch)
-    report = {}
-    W = sizes["requests"] * sizes["rows"]
-    g = torch.Generator(device=dev).manual_seed(2)
-    pick = torch.randint(0, keys.shape[0], (W,), generator=g, device=dev)
-    queries = (keys[pick] + 0.01 * torch.randn(
-        (W, keys.shape[1]), generator=g, device=dev)).contiguous()
-    kernel_decode_attn(torch, dev, timer, cfg, sizes, report)
-    probe_ids = kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report)
-    kk = ds.search_config(nprobe=sizes["nprobe"],
-                          k=arch.rag.k).k_prime(ds.num_shards)
-    kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report)
-    torch.cuda.empty_cache()
-
-    eng, prompts, launches = serve(torch, dev, arch, cfg, params, corpus,
-                                   ds, sizes)
-    accuracy_witness(torch, eng, arch, cfg, keys, ds, corpus, prompts, sizes)
-    for name, sym in (("decode_attn", "decode_attn_launch"),
-                      ("ivf_scan", "ivf_scan_launch"),
-                      ("fused_scan", "chamvs_scan_launch")):
-        report[name]["launches"] = launches[sym]
-    log("total", t_all, peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    print(json.dumps({"kernels": [report[k] for k in
-                                  ("decode_attn", "ivf_scan", "fused_scan")]}),
-          flush=True)
+    kernels = run_phases(torch, dev, dict(FULL))
+    log("total", t_all,
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

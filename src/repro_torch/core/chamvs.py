@@ -1,11 +1,13 @@
 """ChamVS search configuration and the per-shard scan (twin of
 ``repro.core.chamvs``).
 
-The serving path is the fused scan (``kernels/chamvs_scan``): one launch
-covers ADC + top-k' for every shard of a retrieval wave.
-``shard_search`` is the reference's *staged* per-shard pipeline in its
-plain form, kept as the CPU oracle of the fused path; its kernel leg
-needs the ``adc_scan`` kernel, which is not ported yet.
+The serving default is the fused scan (``kernels/chamvs_scan``): one
+launch covers ADC + top-k' for every shard of a retrieval wave.
+``shard_search`` is the reference's *staged* per-shard pipeline
+(``ChamVSConfig.fused=False``): each memory node gathers its probed
+lists and scans them with ``kernels/pq_adc`` — the kernel on the card,
+the plain version on the CPU. Both give the fused scan's ids and
+distances.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from repro_torch.core import ivfpq
 from repro_torch.core.approx_topk_math import truncated_queue_len
 from repro_torch.core.ivfpq import IVFPQConfig, IVFPQParams, IVFPQShard
 from repro_torch.kernels.common import topk_smallest
+from repro_torch.kernels.pq_adc.ops import pq_adc_topk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +32,7 @@ class ChamVSConfig:
     k: int = 100
     eps: float = 0.01             # approx-queue failure budget (paper: 1%)
     fused: bool = True            # one fused scan over all shards per wave;
-    #                               False = the staged per-shard oracle
+    #                               False = one staged scan per shard
 
     def k_prime(self, num_shards: int) -> int:
         """Truncated per-shard queue length (paper §4.2.2): each shard
@@ -43,18 +46,22 @@ def shard_search(params: IVFPQParams, shard: IVFPQShard,
                  queries: torch.Tensor, probe_ids: torch.Tensor,
                  cfg: ChamVSConfig, kk: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One memory node's work, staged: LUTs -> gather probed lists -> ADC
-    -> mask -> top-kk. Returns (dists [nq, kk], global ids [nq, kk])."""
+    """One memory node's work, staged: LUTs -> gather the probed lists ->
+    ADC + local top-k per (query, probe) -> global ids -> top-kk.
+    Returns (dists [nq, kk], global ids [nq, kk])."""
     icfg = cfg.ivfpq
     nq, nprobe = probe_ids.shape
+    B, cap = nq * nprobe, icfg.list_cap
     p = probe_ids.long()
     luts = ivfpq.compute_luts(params, queries, probe_ids, icfg)
-    codes, ids, lens = shard.codes[p], shard.ids[p], shard.list_len[p]
-    valid = (torch.arange(icfg.list_cap, device=lens.device)[None, None, :]
-             < lens[..., None])
-    d = ivfpq.adc_scan_ref(luts, codes)
-    d = torch.where(valid, d, torch.full_like(d, float("inf")))
-    return topk_smallest(d.reshape(nq, -1), ids.reshape(nq, -1), kk)
+    d_l, i_l = pq_adc_topk(luts.reshape(B, icfg.m, icfg.ksub),
+                           shard.codes[p].reshape(B, cap, icfg.m),
+                           shard.list_len[p].reshape(B), k=min(kk, cap))
+    # local row -> global id through the probed lists' id tables
+    gid = torch.gather(shard.ids[p].reshape(B, cap), 1,
+                       i_l.clamp(min=0).long())
+    gid = torch.where(i_l < 0, torch.full_like(gid, -1), gid)
+    return topk_smallest(d_l.reshape(nq, -1), gid.reshape(nq, -1), kk)
 
 
 def stack_shards(shards: List[IVFPQShard]) -> IVFPQShard:

@@ -17,13 +17,10 @@
 // reads. A thread sums its row's m terms in index order 0..m-1 in
 // float32 (the plain version sums in the same order, bit for bit).
 //
-// Selection: candidates whose key (distance, arrival index = probe * cap
-// + row) beats the current kk-th key are appended to a shared buffer;
-// when the buffer fills, queue and buffer are bitonic-sorted together in
-// shared memory and the first kk kept. The k smallest keys of a strict
-// order are one set, so the result is the first kk of a stable sort of
-// all candidates in arrival order — exactly the reference queue — with
-// +inf slots reported as id -1.
+// Selection: the shared queue of topk_queue.cuh under the key
+// (distance, arrival index = probe * cap + row), which is exactly the
+// reference queue's stable arrival order, with the global id as payload
+// and +inf slots reported as id -1.
 //
 // Bound on the H100: memory. It must read the probed lists' codes,
 // S * nq * nprobe * mean_len * m bytes, and the LUTs; a global id is read
@@ -33,58 +30,13 @@
 // the queue's threshold has settled.
 #include <math.h>
 
-#include "common.cuh"
+#include "topk_queue.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSort = 2048;       // queue + candidate buffer, power of two
-constexpr int kIntMax = 0x7fffffff;
-
-__device__ void merge_queue(float* sd, int* sa, int* sg, int kk, int* cnt,
-                            float* tau_d, int* tau_a) {
-  const int t = threadIdx.x;
-  const int n = kk + *cnt;
-  int n2 = 1;
-  while (n2 < n) n2 <<= 1;
-  __syncthreads();
-  for (int i = n + t; i < n2; i += kThreads) {
-    sd[i] = INFINITY;
-    sa[i] = kIntMax;
-    sg[i] = -1;
-  }
-  __syncthreads();
-  for (int k = 2; k <= n2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = t; i < n2; i += kThreads) {
-        const int o = i ^ j;
-        if (o > i) {
-          const bool up = (i & k) == 0;
-          const bool gt = key_less(sd[o], sa[o], sd[i], sa[i]);
-          const bool lt = key_less(sd[i], sa[i], sd[o], sa[o]);
-          if (up ? gt : lt) {
-            const float td = sd[i];
-            sd[i] = sd[o];
-            sd[o] = td;
-            const int ta = sa[i];
-            sa[i] = sa[o];
-            sa[o] = ta;
-            const int tg = sg[i];
-            sg[i] = sg[o];
-            sg[o] = tg;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (t == 0) {
-    *tau_d = sd[kk - 1];
-    *tau_a = sa[kk - 1];
-    *cnt = 0;
-  }
-  __syncthreads();
-}
+using Queue = SmemQueue<kThreads, kSort, true>;
 
 __global__ void __launch_bounds__(kThreads)
 chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
@@ -100,22 +52,11 @@ chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
   float* sd = lut + m * ksub;                         // [kSort]
   int* sa = reinterpret_cast<int*>(sd + kSort);       // [kSort]
   int* sg = sa + kSort;                               // [kSort]
-  __shared__ int cnt;
-  __shared__ float tau_d;
-  __shared__ int tau_a;
+  __shared__ QueueScalars qs;
+  const Queue queue{sd, sa, sg, kk, &qs};
 
   const int q = blockIdx.x, s = blockIdx.y, t = threadIdx.x;
-  const int bufcap = kSort - kk;
-  for (int i = t; i < kk; i += kThreads) {
-    sd[i] = INFINITY;
-    sa[i] = kIntMax;
-    sg[i] = -1;
-  }
-  if (t == 0) {
-    cnt = 0;
-    tau_d = INFINITY;
-    tau_a = kIntMax;
-  }
+  queue.init();
 
   const bool vec = (m & 15) == 0;
   for (int p = 0; p < nprobe; ++p) {
@@ -150,28 +91,19 @@ chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
         } else {
           for (int j = 0; j < m; ++j) d += lut[j * ksub + row[j]];
         }
+        // the id is read only for a row that enters the buffer
         const int a = p * cap + r;
-        if (key_less(d, a, tau_d, tau_a)) {
-          const int slot = kk + atomicAdd(&cnt, 1);
-          sd[slot] = d;
-          sa[slot] = a;
-          sg[slot] = gbase[r];
-        }
+        if (queue.beats(d, a)) queue.push(d, a, gbase[r]);
       }
-      __syncthreads();
-      const int c = cnt;
-      __syncthreads();
-      if (c > bufcap - kThreads) merge_queue(sd, sa, sg, kk, &cnt, &tau_d, &tau_a);
+      queue.end_round(1);
     }
   }
-  __syncthreads();
-  if (cnt > 0) merge_queue(sd, sa, sg, kk, &cnt, &tau_d, &tau_a);
+  queue.finish();
 
   const long long o = ((long long)s * nq + q) * kk;
   for (int i = t; i < kk; i += kThreads) {
-    const float d = sd[i];
-    out_d[o + i] = d;
-    out_i[o + i] = isinf(d) ? -1 : sg[i];
+    out_d[o + i] = sd[i];
+    out_i[o + i] = queue.id(i);
   }
 }
 

@@ -23,7 +23,7 @@
 // probe ids, so the products stay on the FMA pipes.
 #include <math.h>
 
-#include "common.cuh"
+#include "topk_queue.cuh"
 
 namespace {
 

@@ -9,7 +9,6 @@ or raises.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -17,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.chamvs_scan.ref import ref_chamvs_scan
 
-_P, _I, _L = _build.P, _build.I, ctypes.c_longlong
+_P, _I, _L = _build.P, _build.I, _build.L
 
 #: the CUDA entry point; ``KERNEL.launches`` counts scan launches
 KERNEL = _build.Kernel("chamvs_scan_launch",

@@ -66,12 +66,9 @@ def _probe_stage(params: IVFPQParams, queries: torch.Tensor,
 def _scan_stage(params: IVFPQParams, shards: Tuple[IVFPQShard, ...],
                 queries: torch.Tensor, *, cfg: ChamVSConfig, kk: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """STAGED scan, the plain oracle: per-shard ADC + top-kk.
+    """STAGED scan, the paper's layout: the IVF probe, then one
+    ``shard_search`` (gather + ADC/top-k launch) per shard.
     Returns stacked candidates (dists [S, nq, kk], ids [S, nq, kk])."""
-    if queries.is_cuda:
-        raise NotImplementedError(
-            "the staged scan's kernel (adc_scan) is not ported; serve the "
-            "fused scan (ChamVSConfig.fused=True) on the GPU")
     probe_ids = _probe_stage(params, queries, cfg)
     per = [shard_search(params, s, queries, probe_ids, cfg, kk)
            for s in shards]
@@ -97,7 +94,7 @@ def _merge_stage(dists: torch.Tensor, ids: torch.Tensor, *, k: int
 class LocalPipeline:
     """Single-process scan/merge over a list of shards; ``cfg.fused``
     picks the fused scan over a ``stack_shards`` stack (default) or the
-    staged per-shard oracle."""
+    staged per-shard scans (one launch per shard)."""
 
     def __init__(self, params: IVFPQParams, shards: List[IVFPQShard],
                  cfg: ChamVSConfig):

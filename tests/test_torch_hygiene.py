@@ -77,6 +77,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.chamvs_scan import ops as cs
 from repro_torch.kernels.decode_attn import ops as da
 from repro_torch.kernels.ivf_scan import ops as iv
+from repro_torch.kernels.pq_adc import ops as pq
+from repro_torch.kernels.topk import ops as tk
 g = torch.Generator().manual_seed(0)
 q = torch.randn(3, 1, 4, 8, generator=g).bfloat16()
 k = torch.randn(5, 16, 2, 8, generator=g).bfloat16()
@@ -96,9 +98,24 @@ d, i = cs.fused_scan(luts, codes, ids, lens, probe, 5)
 p = probe.long()
 rd, ri = cs.ref_chamvs_scan(luts, codes[:, p], ids[:, p], lens[:, p], 5)
 assert torch.equal(d, rd) and torch.equal(i, ri)
+bl, slab = luts[:, 0].contiguous(), codes[0, 0]      # [4, 2, 16], [6, 2]
+bn = torch.tensor([6, 0, 2, 5], dtype=torch.int32)
+d, i = pq.pq_adc_topk(bl, slab.expand(4, 6, 2), bn, 4)
+rd, ri = pq.ref_pq_adc_topk(bl, slab.expand(4, 6, 2), bn, 4)
+assert torch.equal(d, rd) and torch.equal(i, ri)
+assert torch.equal(pq.pq_shared_scan(bl, slab),
+                   pq.ref_shared_scan(bl, slab).T)
+row = torch.randn(3, 64, generator=g)
+assert all(torch.equal(a, b) for a, b in zip(
+    tk.approx_topk(row, 6, num_blocks=4),
+    tk.ref_hierarchical_topk(row, 6, 4, tk.truncated_queue_len(6, 4))))
+assert all(torch.equal(a, b) for a, b in zip(
+    tk.approx_topk(row[:, :63], 6, num_blocks=4),
+    tk.ref_exact_topk(row[:, :63], 6)))
 assert _build._lib is None
 assert all(kern.launches == 0 for kern in _build.kernels().values())
-assert sorted(_build.kernels()) == ["chamvs_scan_launch",
-    "decode_attn_launch", "ivf_scan_launch"]
+assert sorted(_build.kernels()) == ["adc_scan_launch", "chamvs_scan_launch",
+    "decode_attn_launch", "hierarchical_topk_launch", "ivf_scan_launch",
+    "shared_scan_launch"]
 """)
     assert p.returncode == 0, p.stdout + p.stderr

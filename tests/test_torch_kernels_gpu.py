@@ -5,10 +5,11 @@ These run only where there is a card (they skip elsewhere):
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Each kernel's wrapper is called on CUDA tensors and held against the
-plain version on the same inputs: the fused scan bit for bit (same
-float32 summation order), the IVF probe up to near-ties of its FMA
-order, decode attention against a float32 oracle (only the final bf16
-rounding differs) and against the bf16-rounding plain version.
+plain version on the same inputs: the fused scan, the staged ADC scan
+and the shared scan bit for bit (same float32 summation order), the
+hierarchical top-k array for array, the IVF probe up to near-ties of its
+FMA order, decode attention against a float32 oracle (only the final
+bf16 rounding differs) and against the bf16-rounding plain version.
 """
 import pytest
 import torch
@@ -18,6 +19,8 @@ from repro_torch.core.kmeans import _pairwise_sq_l2
 from repro_torch.kernels.chamvs_scan import ops as cs
 from repro_torch.kernels.decode_attn import ops as da
 from repro_torch.kernels.ivf_scan import ops as iv
+from repro_torch.kernels.pq_adc import ops as pq
+from repro_torch.kernels.topk import ops as tk
 
 pytestmark = pytest.mark.gpu
 
@@ -190,3 +193,131 @@ def test_fused_scan_matches_sequential_adc(dev):
     dk, ik = cs.fused_scan(luts, codes, ids, lens, probe, 64)
     d_all = adc_scan_ref(luts[0], codes[0, :1])[0]          # [64]
     assert torch.equal(dk[0, 0], torch.sort(d_all, stable=True).values)
+
+
+# ---------------------------------------------------------------------------
+# staged ADC scan (adc_scan)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,n,m,ksub,k,dup,shared_lut", [
+    (64, 1000, 32, 256, 63, False, False),     # ragged lens
+    (16, 300, 8, 16, 100, True, False),        # ties, scalar code path
+    (8, 14976, 32, 256, 63, False, True),      # serve width, one LUT
+    (5, 40, 12, 256, 200, False, False),       # k > n
+])
+def test_adc_scan_kernel(dev, B, n, m, ksub, k, dup, shared_lut):
+    g = _gen(dev, 6)
+    codes = torch.randint(0, ksub, (B, n, m), generator=g, device=dev
+                          ).to(torch.uint8)
+    if dup:                            # every row twice -> exact ties
+        codes[:, 1::2] = codes[:, 0::2]
+    lens = torch.randint(0, n + 1, (B,), generator=g, device=dev).int()
+    lens[0], lens[1], lens[-1] = 0, min(k - 1, n), n   # empty, < k, full
+    if shared_lut:                     # stride-0 entries: one LUT for all
+        luts = torch.rand((1, m, ksub), generator=g, device=dev
+                          ).expand(B, m, ksub)
+    else:
+        luts = torch.rand((B, m, ksub), generator=g, device=dev)
+    before = pq.ADC_KERNEL.launches
+    dk, ik = pq.pq_adc_topk(luts, codes, lens, k)
+    dp, ip = pq.ref_pq_adc_topk(luts, codes, lens, k)
+    torch.cuda.synchronize()
+    assert pq.ADC_KERNEL.launches == before + 1
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+    assert bool((ik[0] == -1).all())
+
+
+# ---------------------------------------------------------------------------
+# shared scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q,n,m,ksub", [
+    (1, 5000, 32, 256), (32, 20000, 32, 256), (128, 3001, 32, 256),
+    (32, 777, 8, 16),                  # scalar code path, 8 queries/block
+])
+def test_shared_scan_kernel(dev, q, n, m, ksub):
+    g = _gen(dev, 7)
+    luts = torch.randn((q, m, ksub), generator=g, device=dev)
+    codes = torch.randint(0, ksub, (n, m), generator=g, device=dev
+                          ).to(torch.uint8)
+    before = pq.SHARED_KERNEL.launches
+    out = pq.pq_shared_scan(luts, codes)
+    want = pq.ref_shared_scan(luts, codes).T
+    torch.cuda.synchronize()
+    assert pq.SHARED_KERNEL.launches == before + 1
+    assert torch.equal(out, want)
+    small = pq.pq_shared_scan(luts, codes, tile_n=256)     # many row chunks
+    assert torch.equal(small, want)
+
+
+# ---------------------------------------------------------------------------
+# hierarchical top-k
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,n,k,num_blocks,k_prime", [
+    (32, 479232, 100, 16, None),       # the smoke's staged ADC rows
+    (16, 8192, 10, 4, None),
+    (8, 4096, 1, 8, None),
+    (8, 4096, 63, 2, None),
+    (8, 2048, 40, 8, 3),               # explicit k' below the sizing
+])
+def test_hierarchical_topk_kernel(dev, B, n, k, num_blocks, k_prime):
+    g = _gen(dev, 8)
+    d = torch.randn((B, n), generator=g, device=dev)
+    d[:, n // 3:n // 3 + 500] = float("inf")           # padding rows
+    d[1] = float("inf")
+    d[2, ::2] = 0.5                                    # ties
+    kp = k_prime or tk.truncated_queue_len(k, num_blocks)
+    kp = min(max(kp, 1), k)
+    before = tk.KERNEL.launches
+    dk, ik = tk.approx_topk(d, k, num_blocks=num_blocks, k_prime=k_prime)
+    dp, ip = tk.ref_hierarchical_topk(d, k, num_blocks, kp)
+    torch.cuda.synchronize()
+    assert tk.KERNEL.launches == before + 1
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+    assert bool((ik[1] == -1).all())
+
+
+@pytest.mark.parametrize("n,num_blocks,k", [(500, 16, 10), (64, 16, 10),
+                                            (30, 4, 40)])
+def test_hierarchical_topk_degenerate_tiling_is_exact(dev, n, num_blocks, k):
+    """Tilings the hierarchy cannot split run the same kernel with one
+    block per row and k' = k: the exact top-k, in one launch."""
+    g = _gen(dev, 9)
+    d = torch.randn((4, n), generator=g, device=dev)
+    d[3, ::3] = 0.25
+    before = tk.KERNEL.launches
+    dk, ik = tk.approx_topk(d, k, num_blocks=num_blocks)
+    de, ie = tk.ref_exact_topk(d, k)
+    torch.cuda.synchronize()
+    assert tk.KERNEL.launches == before + 1
+    assert torch.equal(ik, ie) and torch.equal(dk, de)
+
+
+def test_new_wrappers_reject_what_they_cannot_run(dev):
+    luts = torch.rand((4, 8, 16), device=dev)
+    codes = torch.zeros((4, 32, 8), dtype=torch.uint8, device=dev)
+    lens = torch.full((4,), 32, dtype=torch.int32, device=dev)
+    for bad in (dict(luts=luts.double()), dict(luts=luts.bfloat16()),
+                dict(luts=luts[:, :4]), dict(codes=codes.transpose(1, 2)
+                                             .contiguous().transpose(1, 2)),
+                dict(lens=lens.long()), dict(codes=codes[:3])):
+        args = dict(luts=luts, codes=codes, lens=lens) | bad
+        with pytest.raises(ValueError):
+            pq.pq_adc_topk(args["luts"], args["codes"], args["lens"], 5)
+    with pytest.raises(ValueError):
+        pq.pq_adc_topk(luts, codes, lens, pq.MAX_K + 1)
+    slab = codes[0]
+    for bad_luts, bad_codes in ((luts.bfloat16(), slab),
+                                (luts, slab[:, :4]),
+                                (luts, slab.T.contiguous().T),
+                                (luts.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), slab)):
+        with pytest.raises(ValueError):
+            pq.pq_shared_scan(bad_luts, bad_codes)
+    d = torch.randn((4, 256), device=dev)
+    for bad in (d.double(), d.T.contiguous().T):
+        with pytest.raises(ValueError):
+            tk.approx_topk(bad, 5, num_blocks=4)

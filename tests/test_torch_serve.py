@@ -94,6 +94,35 @@ def test_greedy_tokens_match_jax_engine(tiny_ralm, async_retrieval):
         assert st.max_coalesced == 5
 
 
+@pytest.mark.parametrize("async_retrieval", [False, True])
+def test_staged_scan_tokens_match_jax_engine(tiny_ralm, async_retrieval):
+    """A staged deployment (``search_config(fused=False)``: the IVF probe,
+    then one ``pq_adc_topk`` scan per shard) gives the JAX engine's
+    greedy tokens with ``kernel_fused=False``, and counts one scan
+    dispatch per shard per flush."""
+    t = tiny_ralm
+    jeng = JaxEngine.from_config(
+        JaxEngineConfig(model=t["cfg"], rag=t["rag"],
+                        async_retrieval=async_retrieval, kernel_fused=False),
+        t["params"], t["ds"], t["ds"].search_config(nprobe=4, k=8))
+    teng = RalmEngine.from_config(
+        EngineConfig(model=t["tcfg"], rag=t["trag"],
+                     async_retrieval=async_retrieval),
+        t["tparams"], t["tds"],
+        t["tds"].search_config(nprobe=4, k=8, fused=False), device="cpu")
+    pipeline = teng.retriever.service.pipeline
+    assert not pipeline.cfg.fused and pipeline.stacked is None
+    jout = _run(jeng, JaxRequest, jnp.asarray, t["corpus"])
+    tout = _run(teng, RalmRequest, torch.from_numpy, t["corpus"])
+    for j, o in zip(jout, tout):
+        np.testing.assert_array_equal(o, j)
+    st = teng.retriever.service.stats
+    S = t["tds"].num_shards
+    assert S == 2 and st.scan_dispatches == S * st.num_batches
+    if async_retrieval:
+        assert st.num_batches == 8
+
+
 def test_torch_twin_of_serve_ralm_example():
     """``examples/serve_ralm.py`` with the port alone: the port's own
     init and datastore build, two request batches in flight; the
