@@ -16,7 +16,8 @@ failure raises, so the run exits non-zero):
      (L2 flushed before every run, the stream held while the run is
      enqueued, so host launch gaps are not timed) beside the plain
      version, a PyTorch library call where one computes the same
-     function, and the least time the card could take for the work.
+     function, and the least time the card could take for the work
+     (decode attention also beside a copy of as many bytes).
      The staged scan's kernels run at shard 0's staged shapes: adc_scan
      over the wave's 1024 (query, probe) entries, shared_scan of the
      wave's LUTs over the union of its probed lists, and the
@@ -63,8 +64,8 @@ def log(phase: str, t0: float, **kv) -> None:
           " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def nvidia_smi(query: str = "name,power.limit") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     if out.returncode != 0:
@@ -170,6 +171,7 @@ def setup(dev, sizes):
 
 def kernel_decode_attn(torch, dev, timer, cfg, sizes, report):
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn import ops as da
     from repro_torch.kernels.decode_attn.ref import decode_validity
 
@@ -221,31 +223,64 @@ def kernel_decode_attn(torch, dev, timer, cfg, sizes, report):
     extra = [case(8, 4, 128, S, 0, False, 1, S - 1, S),            # G=2
              case(H, KV, D, 64, 64, True, 0, 700, None),           # ring
              case(H, KV, D, S, 48, False, 100, S - 1, S)]          # window
-    ms = timer(lambda: da.decode_attention(q, k, v, pos, **kw))
-    plain_ms = timer(lambda: da.ref_decode_attention(
-        q, *da._gather_rows(q, k, v, slots, kw["kv_len"], False), pos))
-    valid = decode_validity(pos, S, 0, False)
-    mask = valid[:, None, None, :]
-    qs = q.transpose(1, 2)                       # [W, H, 1, D]
-    ks, vs = plain[0].transpose(1, 2), plain[1].transpose(1, 2)
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask))
-    n_valid = int(valid.sum())
-    nbytes = 2 * n_valid * KV * D * 2 + 2 * q.numel() * 2 + W * 8
-    flops = 4 * n_valid * H * D
-    bound_ms, bound_by = bound(nbytes, flops)
+    def timed(q, k, v, slots, pos, kw, plain, S):
+        """Kernel, plain version, SDPA (the one-call yardstick), a copy
+        that moves as many bytes as the kernel must (the streaming
+        yardstick: it reads half of them and writes the other half), the
+        bytes and the bound at one linear-cache case."""
+        ms = timer(lambda: da.decode_attention(q, k, v, pos, **kw))
+        plain_ms = timer(lambda: da.ref_decode_attention(
+            q, *da._gather_rows(q, k, v, slots, kw["kv_len"], False), pos))
+        valid = decode_validity(pos, S, 0, False)
+        mask = valid[:, None, None, :]
+        qs = q.transpose(1, 2)                       # [W, H, 1, D]
+        ks, vs = plain[0].transpose(1, 2), plain[1].transpose(1, 2)
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask))
+        n_valid = int(valid.sum())
+        nbytes = 2 * n_valid * KV * D * 2 + 2 * q.numel() * 2 + W * 8
+        src = torch.empty(nbytes // 4, dtype=torch.bfloat16, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = timer(lambda: dst.copy_(src))
+        return (ms, plain_ms, lib_ms, copy_ms, nbytes) + \
+            bound(nbytes, 4 * n_valid * H * D)
+
+    ms, plain_ms, lib_ms, copy_ms, nbytes, bound_ms, bound_by = timed(
+        q, k, v, slots, pos, kw, plain, S)
+    # the serve's first kv_len crop: prompts of 448 tokens, the pool's
+    # 16-slot quantum -> positions 448..463 read 464 slots
+    crop = case(H, KV, D, S, 0, False, sizes["prompt_len"],
+                sizes["prompt_len"] + 15, sizes["prompt_len"] + 16)
+    ms_c, plain_c, lib_c, copy_c, nbytes_c, bound_c, _ = timed(
+        *crop[:7], crop[5]["kv_len"])
+    sms = _build.sm_count(dev)
+    split = da.pick_split(W, KV, S, sms)
+    split_c = da.pick_split(W, KV, crop[5]["kv_len"], sms)
     report["decode_attn"] = dict(
         name="decode_attn", route="cuda",
         source="src/repro_torch/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn/kernel.py:109",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=lib_ms)
+        max_abs_err=max(err, crop[7]), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+        ms_kv464=ms_c, library_ms_kv464=lib_c, bound_ms_kv464=bound_c)
     log("kernel.decode_attn", t0, shape=f"W={W},H={H},KV={KV},D={D},"
         f"S={S},P={P}", max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
         err_vs_f32=f"{err32:.3e}",
-        extra_cases_err=[f"{c[7]:.3e}" for c in extra],
+        extra_cases_err=[f"{c[7]:.3e}" for c in extra + [crop]],
+        split=split, blocks=W * KV * -(-S // split),
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        sdpa_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.4f}")
+        sdpa_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bytes=nbytes, copy_same_bytes_ms=f"{copy_ms:.4f}",
+        kernel_tb_s=f"{nbytes / ms / 1e9:.3f}",
+        copy_tb_s=f"{nbytes / copy_ms / 1e9:.3f}")
+    kv_c = crop[5]["kv_len"]
+    log("kernel.decode_attn_kv464", t0, kv_len=kv_c, split=split_c,
+        blocks=W * KV * -(-kv_c // split_c), max_abs_err=f"{crop[7]:.3e}",
+        ms=f"{ms_c:.4f}", plain_ms=f"{plain_c:.4f}", sdpa_ms=f"{lib_c:.4f}",
+        bound_ms=f"{bound_c:.4f}", bytes=nbytes_c,
+        copy_same_bytes_ms=f"{copy_c:.4f}",
+        kernel_tb_s=f"{nbytes_c / ms_c / 1e9:.3f}",
+        copy_tb_s=f"{nbytes_c / copy_c / 1e9:.3f}")
 
 
 def kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report):
@@ -295,6 +330,7 @@ def kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report):
 def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
     from repro_torch.core import ivfpq
     from repro_torch.core.chamvs import stack_shards
+    from repro_torch.kernels import _build
     from repro_torch.kernels.chamvs_scan import ops as cs
 
     t0 = time.perf_counter()
@@ -329,6 +365,16 @@ def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
     nbytes = rows * m + n_luts * m * ksub * 4 + S * nq * kk * (8 + 4)
     flops = rows * m
     bound_ms, bound_by = bound(nbytes, flops)
+    # a second yardstick: the shared-memory lookups. A warp looks up one
+    # sub-space of 32 consecutive rows; the LUT row's 256 floats spread
+    # over the 32 banks, so it takes as many wavefronts (one a clock per
+    # SM) as the most distinct codes that share a bank. Counted on query
+    # 0's rows in the kernel's order, at the card's top SM clock.
+    sms = _build.sm_count(dev)
+    groups = cs.scan_groups(S, nq, nprobe, st.codes.shape[2], kk, sms)
+    waves = lookup_wavefronts(torch, st.codes, st.list_len, probe_ids[0])
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    floor_ms = rows * m / 32 * waves / (sms * clock_hz) * 1e3
     report["fused_scan"] = dict(
         name="fused_scan", route="cuda",
         source="src/repro_torch/csrc/chamvs_scan.cu",
@@ -340,7 +386,31 @@ def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
         mean_len=f"{float(lens.mean()):.1f}", ids_equal=True,
         max_abs_err=f"{err:.3e}", max_rel_err=f"{rel:.3e}", ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", library_ms="none",
-        bound_ms=f"{bound_ms:.4f}")
+        bound_ms=f"{bound_ms:.4f}", groups=groups, blocks=S * nq * groups,
+        wavefronts_per_warp_lookup=f"{waves:.3f}",
+        sm_clock_mhz=f"{clock_hz / 1e6:.0f}",
+        lookup_floor_ms=f"{floor_ms:.4f}")
+
+
+def lookup_wavefronts(torch, codes, list_len, probes):
+    """Mean shared-memory wavefronts of one warp's LUT lookup over the
+    rows one query scans (its probed lists' valid rows in every shard,
+    probe after probe, 32 consecutive rows to a warp)."""
+    S, _, cap, m = codes.shape
+    p = probes.long()
+    valid = torch.arange(cap, device=codes.device) < list_len[:, p, None]
+    rows = codes[:, p][valid]                                 # [n, m]
+    w = rows.shape[0] // 32
+    total, count = 0.0, 0
+    for c in range(0, w, 4096):                 # 4096 warps at a time
+        x = rows[c * 32:min(w, c + 4096) * 32].view(-1, 32, m).long()
+        present = torch.zeros((x.shape[0], m, 256), dtype=torch.bool,
+                              device=codes.device)
+        present.scatter_(2, x.transpose(1, 2), True)
+        per_bank = present.view(x.shape[0], m, 8, 32).sum(2)
+        total += float(per_bank.amax(-1).double().sum())
+        count += x.shape[0] * m
+    return total / count
 
 
 def kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):

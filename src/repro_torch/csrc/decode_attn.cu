@@ -1,4 +1,5 @@
-// Split-KV (flash-decoding) decode attention over the slotted KV pool.
+// Decode attention over the slotted KV pool, in one launch per wave and
+// layer.
 //
 // Replaces: src/repro/kernels/decode_attn/kernel.py:109 fused_decode_attention
 //           (body _decode_attn_kernel, kernel.py:50).
@@ -9,196 +10,333 @@
 // layer), over the first S slots of it (the engine's kv_len crop, or
 // the ring size). Validity per slot is the reference's: linear caches
 // hold position i at slot i (valid iff i <= pos, and i > pos - window
-// with a window); ring caches hold pos - ((pos - i) mod S). Each row
-// visits only its own valid slot range, which is at least as fine as
-// the reference's whole-block skip (block start > max position in the
-// row tile), and skips nothing that contributes.
+// with a window); ring caches hold pos - ((pos - i) mod S). Each block
+// reads only the valid slots of its split, which is at least as fine as
+// the reference's whole-block skip, and skips nothing that contributes.
 //
-// Pass 1, grid (W, KV, NS): one block per (row, KV head, KV split of
-// split_len slots). Four warps take slots round robin; a warp computes
-// the G = H/KV query heads' scores of one slot (lanes split the head
-// dim, a shuffle sum), and keeps a float32 online softmax (m, l, acc)
-// per head. The warps' states merge in shared memory into one partial
-// per block. Pass 2, grid (W, H): merge the NS partials of each head
-// and write out / max(l, 1e-20) in bf16. Everything stays float32 until
-// that final division, as in the reference kernel (kernel.py:101-104).
-//
-// Bound on the H100: memory. It must read K and V once,
-// 2 * W * kv_len * KV * D * 2 bytes per layer, against ~4 flops per
-// byte; the splits give W * KV * NS blocks so the read is spread over
-// all SMs, and a warp reads one slot's D bf16 values as one coalesced
-// 128-byte (D=64) row.
+// Bound on the H100: memory. The kernel must read K and V once,
+// 2 * W * kv_len * KV * D * 2 bytes per layer (32 MB at the serve shape,
+// ~9.5 us at 3.35 TB/s), against ~4 flops per byte. Latency is what held
+// the earlier design back: each warp walked its slots one at a time with
+// 256 bytes in flight, so the whole grid kept ~1 MB in flight where the
+// card needs ~3 MB, and a second launch merged the splits. This design:
+//  - grid (splits, KV, W): a block owns (row w, KV head, a split of the
+//    slots), and the wrapper sizes the splits so that the grid is about
+//    eight blocks an SM, all resident at once (one wave, no tail). The
+//    split length does not have to divide S: the last split is ragged.
+//  - the block streams its split through shared memory in tiles of 32
+//    slots, two stages deep: while it computes on one tile, the K and V
+//    head rows of the next are in flight as 16-byte cp.async copies
+//    (8 KB a tile at D=64).
+//  - per tile, the scores of all its slots (D/8 lanes a slot, one
+//    16-byte chunk each, a shuffle sum) for the G <= 8 query heads of the
+//    KV head, then one online-softmax step (the tile's max, one expf per
+//    score, its sum) and P.V from shared memory. Each access reads whole
+//    128-byte rows per quarter-warp, so the plain [slot][D] layout has no
+//    bank conflicts without a swizzle.
+//  - the splits merge inside the launch: each block writes its (m, l,
+//    acc) partial, and the last block of each (row, KV head) to finish
+//    (last_block in common.cuh) merges them and writes the bf16 output.
+// Everything stays float32 until that final division, as in the
+// reference kernel (kernel.py:101-104).
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
-#define NEG_INF_F (-1e30f)
-
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kMaxG = 8;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;   // slots a stage holds: one score per lane
+constexpr float kNegInf = -1e30f;
 
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_attn_split_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ kc,
-                         const __nv_bfloat16* __restrict__ vc,
-                         const int32_t* __restrict__ slots,
-                         const int32_t* __restrict__ pos,
-                         float* __restrict__ part_m,
-                         float* __restrict__ part_l,
-                         float* __restrict__ part_acc, int S_pool, int S,
-                         int KV, int G, int window, int ring, int split_len,
-                         int NS, float scale) {
-  constexpr int E = D / 32;  // head-dim elements per lane
-  __shared__ float sm_m[kWarps][kMaxG];
-  __shared__ float sm_l[kWarps][kMaxG];
-  __shared__ float sm_acc[kWarps][kMaxG][D];
-
-  const int w = blockIdx.x, kvh = blockIdx.y, sp = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = pos[w];
-  const long long row = slots[w];
-
-  int lo = 0, hi = S - 1;
-  if (!ring) {
-    hi = min(hi, p);
-    if (window > 0) lo = max(lo, p - window + 1);
+__device__ __forceinline__ bool slot_valid(int s, int p, int S, int window,
+                                           int ring) {
+  if (ring) {
+    const int ps = p - floor_mod(p - s, S);
+    return ps >= 0 && (window <= 0 || ps > p - window);
   }
-  const int s0 = max(lo, sp * split_len);
-  const int s1 = min(hi, sp * split_len + split_len - 1);
+  return s <= p && (window <= 0 || s > p - window);
+}
 
-  float qf[kMaxG][E], acc[kMaxG][E], m[kMaxG], l[kMaxG];
-  const __nv_bfloat16* qrow = q + ((long long)w * KV * G + kvh * G) * D;
+__device__ __forceinline__ void unpack8(uint4 raw, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = NEG_INF_F;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; e += 2) {
-      float2 f = make_float2(0.f, 0.f);
-      if (g < G)
-        f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            qrow + g * D + lane * E + e));
-      qf[g][e] = f.x;
-      qf[g][e + 1] = f.y;
-      acc[g][e] = 0.f;
-      acc[g][e + 1] = 0.f;
-    }
-  }
-
-  const long long slot_stride = (long long)KV * D;
-  const __nv_bfloat16* kbase =
-      kc + row * S_pool * slot_stride + (long long)kvh * D + lane * E;
-  const __nv_bfloat16* vbase =
-      vc + row * S_pool * slot_stride + (long long)kvh * D + lane * E;
-
-  for (int s = s0 + warp; s <= s1; s += kWarps) {
-    if (ring) {  // warp-uniform branch: every lane holds the same slot
-      const int ps = p - floor_mod(p - s, S);
-      if (ps < 0 || (window > 0 && ps <= p - window)) continue;
-    }
-    float kf[E], vf[E];
-#pragma unroll
-    for (int e = 0; e < E; e += 2) {
-      float2 k2 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(kbase + s * slot_stride + e));
-      float2 v2 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(vbase + s * slot_stride + e));
-      kf[e] = k2.x;
-      kf[e + 1] = k2.y;
-      vf[e] = v2.x;
-      vf[e + 1] = v2.y;
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      float dot = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) dot += qf[g][e] * kf[e];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      const float sc = dot * scale;
-      const float m_new = fmaxf(m[g], sc);
-      const float corr = expf(m[g] - m_new);
-      const float pe = expf(sc - m_new);
-      l[g] = l[g] * corr + pe;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] = acc[g][e] * corr + pe * vf[e];
-      m[g] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[warp][g][lane * E + e] = acc[g][e];
-  }
-  __syncthreads();
-
-  const long long base = (((long long)w * KV + kvh) * NS + sp) * G;
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
-    const int g = idx / D, d = idx % D;
-    float M = NEG_INF_F;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) M = fmaxf(M, sm_m[k][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      const float c = expf(sm_m[k][g] - M);
-      L += sm_l[k][g] * c;
-      A += sm_acc[k][g][d] * c;
-    }
-    if (d == 0) {
-      part_m[base + g] = M;
-      part_l[base + g] = L;
-    }
-    part_acc[(base + g) * D + d] = A;
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
   }
 }
 
-__global__ void decode_attn_combine_kernel(const float* __restrict__ part_m,
-                                           const float* __restrict__ part_l,
-                                           const float* __restrict__ part_acc,
-                                           __nv_bfloat16* __restrict__ out,
-                                           int KV, int G, int D, int NS) {
-  const int w = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
-  const int kvh = h / G, g = h % G;
-  const long long base = ((long long)w * KV + kvh) * NS * G + g;
-  float M = NEG_INF_F;
-  for (int sp = 0; sp < NS; ++sp) M = fmaxf(M, part_m[base + (long long)sp * G]);
-  float L = 0.f, A = 0.f;
-  for (int sp = 0; sp < NS; ++sp) {
-    const long long i = base + (long long)sp * G;
-    const float c = expf(part_m[i] - M);
-    L += part_l[i] * c;
-    A += part_acc[i * D + d] * c;
+// D: head dim (64 or 128); GM: the most query heads per KV head this
+// instance takes (a power of two >= G).
+template <int D, int GM>
+__global__ void __launch_bounds__(kThreads)
+decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ kc,
+                   const __nv_bfloat16* __restrict__ vc,
+                   const int32_t* __restrict__ slots,
+                   const int32_t* __restrict__ pos,
+                   float* __restrict__ part_m, float* __restrict__ part_l,
+                   float* __restrict__ part_acc, int* __restrict__ counters,
+                   __nv_bfloat16* __restrict__ out, int S_pool, int S,
+                   int KV, int G, int window, int ring, int split_len,
+                   int NS, float scale) {
+  constexpr int LPS = D / 8;           // lanes per slot, 16 bytes each
+  constexpr int SPW = 32 / LPS;        // slots per warp pass
+  constexpr int PAIRS = D / 2;         // bf16 pairs of a head row
+  constexpr int J = kThreads / PAIRS;  // slot subsets of the P.V sum
+  constexpr int kStage = kTile * D;    // bf16 values of one K (or V) tile
+  static_assert(kTile == 32, "the softmax step takes one score per lane");
+  static_assert(J * GM * D * 4 <= 2 * kStage * 2, "red must fit in sk");
+  __shared__ __align__(16) __nv_bfloat16 sk[2 * kStage];
+  __shared__ __align__(16) __nv_bfloat16 sv[2 * kStage];
+  __shared__ float sp[GM][kTile];      // scores, then softmax weights
+  __shared__ float s_m[GM], s_l[GM], s_c[GM];
+  float* red = reinterpret_cast<float*>(sk);  // [J][GM][D] after the loop
+
+  const int split = blockIdx.x, kvh = blockIdx.y, w = blockIdx.z;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int p = pos[w];
+  const long long row = slots[w];
+  // the split's slots that can be valid, [a, a + n)
+  int a = split * split_len, b = min(S, a + split_len) - 1;
+  if (!ring) {
+    b = min(b, p);
+    if (window > 0) a = max(a, p - window + 1);
   }
-  out[((long long)w * KV * G + h) * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+  const int n = b - a + 1;
+  const int ntiles = n > 0 ? (n + kTile - 1) / kTile : 0;
+  const long long ws = (long long)KV * D;
+  const long long first = (row * S_pool + a) * ws + (long long)kvh * D;
+
+  // K and V head rows of tile `ti` into stage `st`; a ring slot that
+  // holds no valid position is zero-filled instead
+  auto issue = [&](int ti, int st) {
+    const int j0 = ti * kTile, cnt = min(kTile, n - j0);
+    for (int c = t; c < cnt * LPS; c += kThreads) {
+      const int j = c / LPS, ch = c % LPS;
+      __nv_bfloat16* dk = sk + st * kStage + j * D + ch * 8;
+      __nv_bfloat16* dv = sv + st * kStage + j * D + ch * 8;
+      if (!ring || slot_valid(a + j0 + j, p, S, window, 1)) {
+        const long long src = first + (j0 + j) * ws + ch * 8;
+        cp_async16(dk, kc + src);
+        cp_async16(dv, vc + src);
+      } else {
+        *reinterpret_cast<uint4*>(dk) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(dv) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    cp_async_commit();
+  };
+  if (ntiles > 0) issue(0, 0);
+
+  const int ch = lane % LPS;
+  float qf[GM][8];
+  const __nv_bfloat16* qrow = q + ((long long)w * KV + kvh) * G * D + ch * 8;
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+    unpack8(g < G ? *reinterpret_cast<const uint4*>(qrow + g * D)
+                  : make_uint4(0, 0, 0, 0),
+            qf[g]);
+  if (t < GM) {
+    s_m[t] = kNegInf;
+    s_l[t] = 0.f;
+  }
+  const int pair = t % PAIRS, js = t / PAIRS;
+  float acc[GM][2];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) acc[g][0] = acc[g][1] = 0.f;
+
+  for (int ti = 0; ti < ntiles; ++ti) {
+    const int st = ti & 1;
+    if (ti + 1 < ntiles) {
+      issue(ti + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int j0 = ti * kTile, cnt = min(kTile, n - j0);
+    const __nv_bfloat16* tk = sk + st * kStage;
+    const __nv_bfloat16* tv = sv + st * kStage;
+
+    // scores of the whole tile
+    for (int jj = warp * SPW; jj < cnt; jj += kWarps * SPW) {
+      const int j = jj + lane / LPS;
+      float kf[8];
+      unpack8(j < cnt ? *reinterpret_cast<const uint4*>(tk + j * D + ch * 8)
+                      : make_uint4(0, 0, 0, 0),
+              kf);
+      const bool valid =
+          j < cnt && slot_valid(a + j0 + j, p, S, window, ring);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dot = fmaf(qf[g][e], kf[e], dot);
+#pragma unroll
+        for (int off = LPS / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (ch == 0 && j < cnt) sp[g][j] = valid ? dot * scale : kNegInf;
+      }
+    }
+    __syncthreads();
+
+    // one online-softmax step for the tile, a warp per query head
+    for (int g = warp; g < G; g += kWarps) {
+      const float sc = lane < cnt ? sp[g][lane] : kNegInf;
+      float mx = sc;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = s_m[g];
+      const float m_new = fmaxf(m_old, mx);
+      const float e = sc > kNegInf ? expf(sc - m_new) : 0.f;
+      sp[g][lane] = e;
+      float sum = e;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        s_c[g] = corr;
+        s_l[g] = s_l[g] * corr + sum;
+        s_m[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // P.V: a thread takes one bf16 pair of every head and 1/J of the slots
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g < G) {
+        acc[g][0] *= s_c[g];
+        acc[g][1] *= s_c[g];
+      }
+    }
+    for (int j = js; j < cnt; j += J) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(tv + j * D + 2 * pair));
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        if (g < G) {
+          const float pw = sp[g][j];
+          acc[g][0] = fmaf(pw, v.x, acc[g][0]);
+          acc[g][1] = fmaf(pw, v.y, acc[g][1]);
+        }
+      }
+    }
+    __syncthreads();   // the stage is refilled two tiles on
+  }
+
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+    reinterpret_cast<float2*>(red + (js * GM + g) * D)[pair] =
+        make_float2(acc[g][0], acc[g][1]);
+  __syncthreads();
+
+  const long long wk = (long long)w * KV + kvh;
+  if (NS == 1) {
+    for (int idx = t; idx < G * D; idx += kThreads) {
+      const int g = idx / D, d = idx % D;
+      float A = 0.f;
+#pragma unroll
+      for (int k = 0; k < J; ++k) A += red[(k * GM + g) * D + d];
+      out[(wk * G + g) * D + d] = __float2bfloat16(A / fmaxf(s_l[g], 1e-20f));
+    }
+    return;
+  }
+  const long long base = (wk * NS + split) * G;
+  for (int idx = t; idx < G * D; idx += kThreads) {
+    const int g = idx / D, d = idx % D;
+    float A = 0.f;
+#pragma unroll
+    for (int k = 0; k < J; ++k) A += red[(k * GM + g) * D + d];
+    part_acc[(base + g) * D + d] = A;
+    if (d == 0) {
+      part_m[base + g] = s_m[g];
+      part_l[base + g] = s_l[g];
+    }
+  }
+  if (!last_block(counters + wk, NS)) return;
+
+  // the last block of (w, kvh) merges the NS partials; a split that saw no
+  // valid slot left l = 0 (and acc = 0) and weighs nothing
+  for (int idx = t; idx < G * D; idx += kThreads) {
+    const int g = idx / D, d = idx % D;
+    const long long p0 = wk * NS * G + g;
+    float M = kNegInf;
+    for (int i = 0; i < NS; ++i) {
+      const float li = __ldcg(part_l + p0 + (long long)i * G);
+      const float mi = __ldcg(part_m + p0 + (long long)i * G);
+      M = li > 0.f ? fmaxf(M, mi) : M;
+    }
+    float L = 0.f, A = 0.f;
+    for (int i = 0; i < NS; ++i) {
+      const long long pi = p0 + (long long)i * G;
+      const float li = __ldcg(part_l + pi);
+      const float c = li > 0.f ? expf(__ldcg(part_m + pi) - M) : 0.f;
+      L += li * c;
+      A += __ldcg(part_acc + pi * D + d) * c;
+    }
+    out[(wk * G + g) * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+  }
+}
+
+template <int D, int GM>
+void launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
+            const __nv_bfloat16* kc, const __nv_bfloat16* vc,
+            const int32_t* slots, const int32_t* pos, float* pm, float* pl,
+            float* pa, int* counters, __nv_bfloat16* out, int S_pool, int S,
+            int KV, int G, int window, int ring, int split_len, int NS,
+            float scale) {
+  decode_attn_kernel<D, GM><<<grid, kThreads, 0, st>>>(
+      q, kc, vc, slots, pos, pm, pl, pa, counters, out, S_pool, S, KV, G,
+      window, ring, split_len, NS, scale);
+}
+
+template <int D>
+void launch_d(int G, dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
+              const __nv_bfloat16* kc, const __nv_bfloat16* vc,
+              const int32_t* slots, const int32_t* pos, float* pm, float* pl,
+              float* pa, int* counters, __nv_bfloat16* out, int S_pool,
+              int S, int KV, int window, int ring, int split_len, int NS,
+              float scale) {
+  if (G <= 1)
+    launch<D, 1>(grid, st, q, kc, vc, slots, pos, pm, pl, pa, counters, out,
+                 S_pool, S, KV, G, window, ring, split_len, NS, scale);
+  else if (G <= 2)
+    launch<D, 2>(grid, st, q, kc, vc, slots, pos, pm, pl, pa, counters, out,
+                 S_pool, S, KV, G, window, ring, split_len, NS, scale);
+  else if (G <= 4)
+    launch<D, 4>(grid, st, q, kc, vc, slots, pos, pm, pl, pa, counters, out,
+                 S_pool, S, KV, G, window, ring, split_len, NS, scale);
+  else
+    launch<D, 8>(grid, st, q, kc, vc, slots, pos, pm, pl, pa, counters, out,
+                 S_pool, S, KV, G, window, ring, split_len, NS, scale);
 }
 
 }  // namespace
 
 // q [W, KV*G, D] bf16; kc/vc [P, S_pool, KV, D] bf16 (one layer of the
-// pool); slots/pos [W] int32; part_m/part_l [W, KV, NS, G] f32 and
-// part_acc [W, KV, NS, G, D] f32 scratch; out [W, KV*G, D] bf16.
+// pool); slots/pos [W] int32; the first S slots of each row are read in
+// NS splits of split_len slots (split_len * NS >= S); part_m/part_l
+// [W, KV, NS, G] f32 and part_acc [W, KV, NS, G, D] f32 scratch (unused
+// when NS = 1); counters [W * KV] int32, zero; out [W, KV*G, D] bf16.
 RT_EXPORT int decode_attn_launch(const void* q, const void* kc, const void* vc,
                                  const void* slots, const void* pos,
                                  void* part_m, void* part_l, void* part_acc,
-                                 void* out, int W, int S_pool, int S, int KV,
-                                 int G, int D, int window, int ring,
-                                 int split_len, int NS, float scale,
+                                 void* counters, void* out, int W, int S_pool,
+                                 int S, int KV, int G, int D, int window,
+                                 int ring, int split_len, int NS, float scale,
                                  void* stream) {
+  if (G < 1 || G > 8 || (D != 64 && D != 128) || split_len < 1 ||
+      (long long)split_len * NS < S || S < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G > kMaxG || (D != 64 && D != 128)) return cudaErrorInvalidValue;
-  dim3 grid1(W, KV, NS);
+  dim3 grid(NS, KV, W);
   auto* qb = static_cast<const __nv_bfloat16*>(q);
   auto* kb = static_cast<const __nv_bfloat16*>(kc);
   auto* vb = static_cast<const __nv_bfloat16*>(vc);
@@ -207,18 +345,13 @@ RT_EXPORT int decode_attn_launch(const void* q, const void* kc, const void* vc,
   auto* pm = static_cast<float*>(part_m);
   auto* pl = static_cast<float*>(part_l);
   auto* pa = static_cast<float*>(part_acc);
+  auto* cn = static_cast<int*>(counters);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
   if (D == 64)
-    decode_attn_split_kernel<64><<<grid1, kWarps * 32, 0, st>>>(
-        qb, kb, vb, sl, ps, pm, pl, pa, S_pool, S, KV, G, window, ring,
-        split_len, NS, scale);
+    launch_d<64>(G, grid, st, qb, kb, vb, sl, ps, pm, pl, pa, cn, ob, S_pool,
+                 S, KV, window, ring, split_len, NS, scale);
   else
-    decode_attn_split_kernel<128><<<grid1, kWarps * 32, 0, st>>>(
-        qb, kb, vb, sl, ps, pm, pl, pa, S_pool, S, KV, G, window, ring,
-        split_len, NS, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 grid2(W, KV * G);
-  decode_attn_combine_kernel<<<grid2, D, 0, st>>>(
-      pm, pl, pa, static_cast<__nv_bfloat16*>(out), KV, G, D, NS);
+    launch_d<128>(G, grid, st, qb, kb, vb, sl, ps, pm, pl, pa, cn, ob, S_pool,
+                  S, KV, window, ring, split_len, NS, scale);
   return cudaGetLastError();
 }

@@ -6,9 +6,9 @@
 // keys in ascending order, slots [kk, kk + cnt) a buffer of candidates.
 // Each round every thread offers at most `per_thread` candidates; a
 // candidate is kept only if its key beats the queue's kk-th key (tau).
-// When the buffer could overflow in the next round (or first holds kk
-// candidates), queue and buffer are bitonic-sorted together and the
-// first kk kept. The kk smallest keys of
+// Once the buffer holds kk candidates (or could overflow in the next
+// round), queue and buffer are bitonic-sorted together and the first kk
+// kept. The kk smallest keys of
 // a strict total order are one fixed set whatever order they are offered
 // in, so the result is the first kk of a stable ascending sort of every
 // candidate in arrival order: the reference's queue (kernels/common.py
@@ -79,17 +79,15 @@ struct SmemQueue {
   }
 
   // Called by every thread at the end of a round in which each thread
-  // offered at most per_thread candidates: merges when the next round
-  // could overflow the buffer, and once early, as soon as the buffer
-  // holds kk candidates while the queue is still unfilled (tau_a is
-  // the sentinel), so that the threshold tightens after a small sort.
+  // offered at most per_thread candidates: merges as soon as the buffer
+  // holds kk candidates (or the next round could overflow it), so that
+  // each sort stays small and the threshold tightens early (a merge that
+  // waits for a full buffer sorts all kSort slots).
   __device__ void end_round(int per_thread) const {
     __syncthreads();
     const int c = s->cnt;
-    const bool unfilled = s->tau_a == kQueueIntMax;
     __syncthreads();
-    if (c > kSort - kk - per_thread * kThreads || (unfilled && c >= kk))
-      merge();
+    if (c >= kk || c > kSort - kk - per_thread * kThreads) merge();
   }
 
   // Called by every thread after the last round: folds in what is left.

@@ -32,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lib: Optional[ctypes.CDLL] = None
 _build_log: List[str] = []
 _kernels: Dict[str, "Kernel"] = {}
+_sms: Dict[int, int] = {}
+_counters: Dict[tuple, torch.Tensor] = {}
 
 
 def find_nvcc() -> str:
@@ -165,3 +167,28 @@ def reset_launches() -> None:
 def stream_ptr(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a C pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the kernels size their
+    grids by it)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def merge_counters(symbol: str, t: torch.Tensor, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for the in-kernel merge of the
+    kernel ``symbol`` (``last_block`` in ``csrc/common.cuh``) on ``t``'s
+    device and current stream. Allocated once per (kernel, device,
+    stream), and again when a launch needs more: every launch leaves the
+    counters it used at 0, so the launches that follow one another on the
+    stream share them."""
+    key = (symbol, t.device.index, stream_ptr(t))
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=t.device)
+        _counters[key] = buf
+    return buf

@@ -4,8 +4,9 @@ frontend.
 ``fused_scan`` takes the stacked shard tables and the probe ids. A CPU
 tensor runs the plain version on the reference's gathered
 ``[S, nq, nprobe, cap, m]`` copy of the probed lists; a CUDA tensor
-launches ``csrc/chamvs_scan.cu``, which indexes the probed lists itself,
-or raises.
+launches ``csrc/chamvs_scan.cu``, which indexes the probed lists itself
+and splits each (shard, query)'s rows between ``scan_groups`` blocks
+whose top-kk lists it merges inside the one launch, or raises.
 """
 from __future__ import annotations
 
@@ -20,8 +21,18 @@ _P, _I, _L = _build.P, _build.I, _build.L
 
 #: the CUDA entry point; ``KERNEL.launches`` counts scan launches
 KERNEL = _build.Kernel("chamvs_scan_launch",
-                       [_P, _L, _L] + [_P] * 6 + [_I] * 8 + [_P])
+                       [_P, _L, _L] + [_P] * 9 + [_I] * 9 + [_P])
 MAX_KK = 1792
+
+
+def scan_groups(S: int, nq: int, nprobe: int, cap: int, kk: int,
+                sms: int) -> int:
+    """Blocks that share each (shard, query)'s probed rows: enough for two
+    resident blocks on each of the ``sms`` SMs, but no more than leave a
+    block ~4 K rows when the lists are full, and no more than make the
+    in-kernel merge offer ~16 K partial entries."""
+    return max(1, min(2 * sms // (S * nq), nprobe * cap // 4096,
+                      16384 // kk))
 
 
 def fused_scan(luts: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor,
@@ -70,10 +81,16 @@ def _launch(luts, codes, ids, lens, probe_ids, kk):
     probe = probe_ids.to(device=dev, dtype=torch.int32).contiguous()
     out_d = torch.empty((S, nq, kk), device=dev, dtype=torch.float32)
     out_i = torch.empty((S, nq, kk), device=dev, dtype=torch.int32)
+    groups = scan_groups(S, nq, nprobe, cap, kk, _build.sm_count(dev))
+    parts = S * nq * kk * groups if groups > 1 else 0
+    part_d = torch.empty(parts, device=dev, dtype=torch.float32)
+    part_a = torch.empty(parts, device=dev, dtype=torch.int32)
+    counters = _build.merge_counters(KERNEL.symbol, luts, S * nq)
     KERNEL(luts.data_ptr(), luts.stride(0), luts.stride(1),
            codes.data_ptr(), ids.data_ptr(), lens.data_ptr(),
            probe.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-           S, nq, nprobe, nlist, cap, m, ksub, kk, _build.stream_ptr(luts))
+           part_d.data_ptr(), part_a.data_ptr(), counters.data_ptr(), S, nq,
+           nprobe, nlist, cap, m, ksub, kk, groups, _build.stream_ptr(luts))
     return out_d, out_i
 
 

@@ -4,7 +4,8 @@
 decides: a CPU tensor runs the plain version (crop to ``kv_len``, gather
 the wave's pool rows, grouped attention); a CUDA tensor launches the
 split-KV kernel of ``csrc/decode_attn.cu``, which reads the pool rows
-through ``slots`` itself, or raises.
+through ``slots`` itself and merges its splits inside the one launch, or
+raises.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ _P, _I, _F = _build.P, _build.I, _build.F
 
 #: the CUDA entry point; ``KERNEL.launches`` counts wave launches
 KERNEL = _build.Kernel("decode_attn_launch",
-                       [_P] * 9 + [_I] * 10 + [_F, _P])
+                       [_P] * 10 + [_I] * 10 + [_F, _P])
+TILE = 32          # slots the kernel stages at a time (kTile)
 
 
 def _gather_rows(q, k_cache, v_cache, slots, kv_len, ring):
@@ -47,8 +49,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     q [W, 1, H, D]; caches [P, S, KV, D] — pool rows, of which wave row
     ``w`` reads row ``slots[w]`` (``slots=None``: row ``w``); position
-    [W]; ``kv_len`` crops linear caches to their valid prefix. Returns
-    [W, 1, H, D] in the cache dtype.
+    [W]; ``kv_len`` crops linear caches to their valid prefix;
+    ``spec.tile_n`` sets the CUDA kernel's slots per block (by default
+    ``pick_split`` chooses). Returns [W, 1, H, D] in the cache dtype.
 
     Shapes, dtypes and layouts are checked on the host; the values of
     ``slots`` and ``position`` are not (that would cost a device sync
@@ -61,6 +64,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise RuntimeError(f"decode_attention: no kernel for {q.device}")
     k, v = _gather_rows(q, k_cache, v_cache, slots, kv_len, ring)
     return ref_decode_attention(q, k, v, position, window=window, ring=ring)
+
+
+def pick_split(W: int, KV: int, S: int, sms: int,
+               tile_n: Optional[int] = None) -> int:
+    """Slots per block of the CUDA kernel: ``tile_n`` when the spec sets
+    it, else ``S`` cut into as many splits of whole 32-slot tiles as give
+    the grid of ``W * KV * splits`` blocks about eight blocks on each of
+    the ``sms`` SMs, which all fit on the card at once (one wave). The
+    split need not divide ``S``: the kernel masks the ragged last one."""
+    if tile_n is not None:
+        return max(1, int(tile_n))
+    tiles = -(-S // TILE)
+    splits = max(1, min(tiles, round(8 * sms / max(1, W * KV))))
+    return TILE * -(-tiles // splits)
 
 
 def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
@@ -78,9 +95,9 @@ def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
                          f"H/KV <= 8, got D={D}, G={G}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or \
-                t.device != q.device:
-            raise ValueError(f"{name} must be a contiguous bfloat16 tensor "
-                             f"on {q.device}")
+                t.device != q.device or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"bfloat16 tensor on {q.device}")
     S = S_pool
     if kv_len is not None and not ring and kv_len < S_pool:
         S = int(kv_len)
@@ -92,18 +109,20 @@ def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
     pos = position.to(device=q.device, dtype=torch.int32).contiguous()
     if slots.shape != (W,) or pos.shape != (W,):
         raise ValueError("slots and position must be [W]")
-    split = spec.pick_block_seq(S)
-    NS = S // split
+    split = pick_split(W, KV, S, _build.sm_count(q.device), spec.tile_n)
+    NS = -(-S // split)
     part_m = torch.empty((W, KV, NS, G), device=q.device, dtype=torch.float32)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((W, KV, NS, G, D), device=q.device,
                            dtype=torch.float32)
+    counters = _build.merge_counters(KERNEL.symbol, q, W * KV)
     out = torch.empty_like(q)
     KERNEL(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
            slots.data_ptr(), pos.data_ptr(), part_m.data_ptr(),
-           part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-           W, S_pool, S, KV, G, D, int(window), int(bool(ring)), split, NS,
-           float(D ** -0.5), _build.stream_ptr(q))
+           part_l.data_ptr(), part_acc.data_ptr(), counters.data_ptr(),
+           out.data_ptr(), W, S_pool, S, KV, G, D, int(window),
+           int(bool(ring)), split, NS, float(D ** -0.5),
+           _build.stream_ptr(q))
     return out
 
 

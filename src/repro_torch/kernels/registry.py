@@ -19,7 +19,7 @@ class KernelSpec:
     """Tile overrides for one kernel call (``None`` = heuristic)."""
 
     tile_q: Optional[int] = None   # query-tile rows
-    tile_n: Optional[int] = None   # scan-axis tile / decode KV split length
+    tile_n: Optional[int] = None   # scan-axis tile / decode KV split
     tile_c: Optional[int] = None   # centroid-tile columns
 
     @staticmethod
@@ -51,8 +51,9 @@ class KernelSpec:
     def pick_block_seq(self, s: int) -> int:
         """KV-block length over a cache seq axis of ``s`` slots: the
         largest divisor of ``s`` that is <= ``tile_n`` (default 128). It
-        is the reference kernel's skip granularity and the port's
-        split-KV chunk length."""
+        is the reference kernel's skip granularity, which
+        ``count_skipped_blocks`` replicates; the port's decode kernel
+        sizes its splits with ``decode_attn.ops.pick_split`` instead."""
         want = self.tile_n if self.tile_n is not None else 128
         return self._divisor_at_most(s, want)
 

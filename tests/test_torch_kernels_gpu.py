@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.ivfpq import adc_scan_ref
 from repro_torch.core.kmeans import _pairwise_sq_l2
+from repro_torch.kernels import registry
 from repro_torch.kernels.chamvs_scan import ops as cs
 from repro_torch.kernels.decode_attn import ops as da
 from repro_torch.kernels.ivf_scan import ops as iv
@@ -51,8 +52,13 @@ def _gen(dev, seed):
     (8, 8, 64, 512, 48, False, 512),      # linear + window
 ])
 def test_decode_attention_kernel(dev, H, KV, D, S, window, ring, kv_len):
-    g = _gen(dev, 0)
-    W, P = 13, 20
+    _check_decode(dev, _gen(dev, 0), H, KV, D, S, window, ring, kv_len)
+
+
+def _check_decode(dev, g, H, KV, D, S, window, ring, kv_len, W=13, P=20,
+                  spec=registry.DEFAULT):
+    """One launch against the f32 oracle (2^-8 of the output range) and
+    the bf16-rounding plain version (2^-5)."""
     k = torch.randn((P, S, KV, D), generator=g, device=dev).bfloat16()
     v = torch.randn((P, S, KV, D), generator=g, device=dev).bfloat16()
     q = torch.randn((W, 1, H, D), generator=g, device=dev).bfloat16()
@@ -62,7 +68,7 @@ def test_decode_attention_kernel(dev, H, KV, D, S, window, ring, kv_len):
     slots[-1], pos[-1] = P - 1, 0                      # a wave pad row
     kw = dict(window=window, ring=ring, slots=slots, kv_len=kv_len)
     before = da.KERNEL.launches
-    out = da.decode_attention(q, k, v, pos, **kw)
+    out = da.decode_attention(q, k, v, pos, spec=spec, **kw)
     torch.cuda.synchronize()
     assert da.KERNEL.launches == before + 1
     kg, vg = da._gather_rows(q, k, v, slots, kv_len, ring)
@@ -73,6 +79,35 @@ def test_decode_attention_kernel(dev, H, KV, D, S, window, ring, kv_len):
     assert (out.float() - exact).abs().max().item() <= 2 ** -8 * scale + 1e-5
     assert (out.float() - plain.float()).abs().max().item() <= \
         2 ** -5 * scale + 1e-3
+    return out
+
+
+@pytest.mark.parametrize("G,D,S,window,ring,kv_len,tile_n", [
+    (1, 64, 512, 0, False, 464, None),     # the serve's cropped kv_len
+    (1, 64, 497, 0, False, None, 64),      # ragged last split and tile
+    (2, 64, 200, 0, False, None, 48),      # split not a whole tile
+    (4, 64, 464, 40, False, 464, 16),      # window, many splits
+    (8, 64, 128, 0, False, 40, None),      # kv_len inside one tile
+    (1, 128, 200, 24, True, None, 64),     # ring with window, D=128
+    (2, 128, 497, 0, False, None, None),
+    (4, 128, 96, 48, True, None, 32),      # ring
+    (8, 128, 464, 0, False, 30, None),     # kv_len inside one tile
+])
+def test_decode_attention_tiles(dev, G, D, S, window, ring, kv_len, tile_n):
+    """Split lengths that do not divide S (or the 32-slot tile), every G
+    at both head dims, ring and window, and kv_len below one tile."""
+    KV = 8 // G if G < 8 else 1
+    _check_decode(dev, _gen(dev, 10 + G), KV * G, KV, D, S, window, ring,
+                  kv_len, W=9, P=12, spec=registry.KernelSpec(tile_n=tile_n))
+
+
+def test_decode_attention_back_to_back_launches(dev):
+    """Two launches in a row on one stream with different inputs, each
+    right: the in-kernel merge leaves its counters at 0."""
+    g = _gen(dev, 11)
+    for S, kv_len in ((512, 464), (512, 496), (300, None)):
+        _check_decode(dev, g, 8, 8, 64, S, 0, False, kv_len, W=32, P=33,
+                      spec=registry.KernelSpec(tile_n=32))
 
 
 def test_decode_attention_without_slots(dev):
@@ -193,6 +228,56 @@ def test_fused_scan_matches_sequential_adc(dev):
     dk, ik = cs.fused_scan(luts, codes, ids, lens, probe, 64)
     d_all = adc_scan_ref(luts[0], codes[0, :1])[0]          # [64]
     assert torch.equal(dk[0, 0], torch.sort(d_all, stable=True).values)
+
+
+def _check_scan(dev, g, S, nq, nprobe, nlist, cap, m, ksub, kk, residual,
+                dup):
+    """One launch, held bit for bit against the plain version."""
+    codes, ids, lens = _tables(dev, g, S, nlist, cap, m, ksub, dup)
+    probe = torch.stack([torch.randperm(nlist, generator=g, device=dev)
+                         [:nprobe] for _ in range(nq)]).int()
+    if residual:
+        luts = torch.rand((nq, nprobe, m, ksub), generator=g, device=dev)
+    else:
+        luts = torch.rand((nq, 1, m, ksub), generator=g, device=dev
+                          ).expand(nq, nprobe, m, ksub)
+    before = cs.KERNEL.launches
+    dk, ik = cs.fused_scan(luts, codes, ids, lens, probe, kk)
+    p = probe.long()
+    dp, ip = cs.ref_chamvs_scan(luts, codes[:, p], ids[:, p], lens[:, p], kk)
+    torch.cuda.synchronize()
+    assert cs.KERNEL.launches == before + 1
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("S,nq,nprobe,nlist,cap,m,ksub,kk,residual,dup", [
+    (1, 3, 7, 16, 3000, 32, 256, 63, False, True),     # 5 groups, 7 probes
+    (2, 3, 5, 8, 4000, 12, 256, 40, True, False),      # m=12, residual
+    (1, 2, 5, 8, 5000, 32, 256, cs.MAX_KK, True, False),  # large queue
+    (2, 4, 7, 12, 2500, 64, 256, 100, False, False),   # m=64
+    (1, 5, 9, 20, 2100, 16, 256, 10, True, True),      # m=16, ties
+])
+def test_fused_scan_split_groups(dev, S, nq, nprobe, nlist, cap, m, ksub, kk,
+                                 residual, dup):
+    """Rows split between blocks mid-probe and merged in the launch: lists
+    longer than one round of rows, kk at MAX_KK, shared and per-probe
+    LUTs, the byte path (every m but 32, and the large queue)."""
+    groups = cs.scan_groups(S, nq, nprobe, cap, kk,
+                            torch.cuda.get_device_properties(dev)
+                            .multi_processor_count)
+    assert groups > 1 and nprobe % groups
+    _check_scan(dev, _gen(dev, 12), S, nq, nprobe, nlist, cap, m, ksub, kk,
+                residual, dup)
+
+
+def test_fused_scan_back_to_back_launches(dev):
+    """Two launches in a row on one stream with different inputs, each
+    equal to the plain version: the merge counters reset."""
+    g = _gen(dev, 13)
+    for residual in (False, True, False):
+        _check_scan(dev, g, 2, 32, 32, 64, 2000, 32, 256, 63, residual,
+                    False)
 
 
 # ---------------------------------------------------------------------------
