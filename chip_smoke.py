@@ -18,10 +18,15 @@ failure raises, so the run exits non-zero):
      version, a PyTorch library call where one computes the same
      function, and the least time the card could take for the work
      (decode attention also beside a copy of as many bytes).
-     The staged scan's kernels run at shard 0's staged shapes: adc_scan
-     over the wave's 1024 (query, probe) entries, shared_scan of the
-     wave's LUTs over the union of its probed lists, and the
-     hierarchical top-k over the wave's staged ADC distance rows.
+     The IVF probe also runs at SYN-512's published nlist (32 768
+     seeded random centroids of 512 floats; a log line only). The staged
+     scan's kernels run at shard 0's staged shapes: adc_scan over the
+     wave's 1024 (query, probe) entries, read in place as the staged
+     scan reads them (the report row) and through the reference's
+     gathered signature, timed beside the gather the staged scan no
+     longer makes; shared_scan of the wave's LUTs over the union of its
+     probed lists, and the hierarchical top-k over the wave's staged ADC
+     distance rows.
   4. serve: 8 requests x 4 rows through RalmEngine.from_config (wave
      decode, fused scan, async retrieval), 64 greedy tokens each, driven
      three times (tokens/s as median and range); before each run the
@@ -35,7 +40,7 @@ failure raises, so the run exits non-zero):
      waves, and the accuracy witness: the same traffic with exact
      (flat L2) search over every key in place of the PQ index, with the
      rate at which each search's top-1 / top-K holds the true prefix's
-     own key.
+     own key. Each profile prints the device time per decode wave.
 
 The last two lines are the kernel report and the device line, each one
 JSON object. Without a GPU (or outside the repository) it exits non-zero
@@ -283,20 +288,15 @@ def kernel_decode_attn(torch, dev, timer, cfg, sizes, report):
         copy_tb_s=f"{nbytes_c / copy_c / 1e9:.3f}")
 
 
-def kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report):
+def check_probe(torch, queries, cents, dk, ik, dp, ip):
+    """The IVF probe's ids against the plain version's: they may differ
+    only where the two candidates' distances tie within 1e-5 relative
+    (the kernel's FMA order differs from the GEMM's); the distances agree
+    within 1e-5 relative. Returns (id mismatches, max abs, max rel err)."""
     from repro_torch.core.kmeans import _pairwise_sq_l2
-    from repro_torch.kernels.ivf_scan import ops as iv
 
-    t0 = time.perf_counter()
-    cents = ds.params.coarse_centroids
-    nprobe = sizes["nprobe"]
-    dk, ik = iv.ivf_index_scan(queries, cents, nprobe)
-    dp, ip = iv.ref_ivf_scan(queries, cents, nprobe)
-    torch.cuda.synchronize()
     full = _pairwise_sq_l2(queries, cents)
     mism = ik != ip
-    # ids may differ only where the two candidates' distances tie within
-    # 1e-5 relative (the kernel's FMA order differs from the GEMM's)
     dk_of = torch.gather(full, 1, ik.long())
     dp_of = torch.gather(full, 1, ip.long())
     near = (dk_of - dp_of).abs() <= 1e-5 * dp_of.abs()
@@ -306,25 +306,73 @@ def kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report):
     rel = ((dk - dp).abs() / dp.abs().clamp(min=1e-30)).max().item()
     if rel > 1e-5:
         raise AssertionError(f"ivf_scan distances differ: rel {rel}")
-    err = (dk - dp).abs().max().item()
+    return int(mism.sum()), (dk - dp).abs().max().item(), rel
+
+
+def probe_bound(nq, nlist, D, nprobe):
+    """The IVF probe's bound: the centroids and queries read once, the
+    (dist, id) outputs written once; 2 D + 3 operations a pair."""
+    nbytes = (nlist * D + nq * D) * 4 + nq * nprobe * 8
+    return bound(nbytes, 2 * nq * nlist * D + 3 * nq * nlist)
+
+
+def kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_scan import ops as iv
+
+    t0 = time.perf_counter()
+    cents = ds.params.coarse_centroids
+    nprobe = sizes["nprobe"]
+    dk, ik = iv.ivf_index_scan(queries, cents, nprobe)
+    dp, ip = iv.ref_ivf_scan(queries, cents, nprobe)
+    torch.cuda.synchronize()
+    mism, err, rel = check_probe(torch, queries, cents, dk, ik, dp, ip)
     ms = timer(lambda: iv.ivf_index_scan(queries, cents, nprobe))
     plain_ms = timer(lambda: iv.ref_ivf_scan(queries, cents, nprobe))
     nq, D = queries.shape
     nlist = cents.shape[0]
-    nbytes = (nlist * D + nq * D) * 4 + nq * nprobe * 8
-    flops = 2 * nq * nlist * D + 3 * nq * nlist
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = probe_bound(nq, nlist, D, nprobe)
+    tq, per_block, splits = iv.probe_grid(nq, nlist, _build.sm_count(dev))
     report["ivf_scan"] = dict(
         name="ivf_scan", route="cuda", source="src/repro_torch/csrc/ivf_scan.cu",
         replaces="src/repro/kernels/ivf_scan/kernel.py:51",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None)
     log("kernel.ivf_scan", t0, shape=f"nq={nq},nlist={nlist},D={D},"
-        f"nprobe={nprobe}", id_mismatch_near_ties=int(mism.sum()),
+        f"nprobe={nprobe}", id_mismatch_near_ties=mism,
         max_abs_err=f"{err:.3e}", max_rel_err=f"{rel:.3e}", ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", library_ms="none",
-        bound_ms=f"{bound_ms:.4f}")
+        bound_ms=f"{bound_ms:.4f}", queries_per_block=tq,
+        centroids_per_block=per_block, blocks=-(-nq // tq) * splits)
     return ik
+
+
+def kernel_ivf_scan_nlist32768(torch, dev, timer, sizes):
+    """The IVF probe at SYN-512's published nlist (32 768 centroids of
+    512 floats, 64 MB): 32 seeded queries against seeded random
+    centroids. A log line only; the report row is the serve shape's."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_scan import ops as iv
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(4)
+    nq, nlist, D, nprobe = 32, 32768, 512, sizes["nprobe"]
+    cents = torch.randn((nlist, D), generator=g, device=dev)
+    queries = torch.randn((nq, D), generator=g, device=dev)
+    dk, ik = iv.ivf_index_scan(queries, cents, nprobe)
+    dp, ip = iv.ref_ivf_scan(queries, cents, nprobe)
+    torch.cuda.synchronize()
+    mism, err, rel = check_probe(torch, queries, cents, dk, ik, dp, ip)
+    ms = timer(lambda: iv.ivf_index_scan(queries, cents, nprobe))
+    plain_ms = timer(lambda: iv.ref_ivf_scan(queries, cents, nprobe))
+    bound_ms, bound_by = probe_bound(nq, nlist, D, nprobe)
+    tq, per_block, splits = iv.probe_grid(nq, nlist, _build.sm_count(dev))
+    log("kernel.ivf_scan_nlist32768", t0, shape=f"nq={nq},nlist={nlist},"
+        f"D={D},nprobe={nprobe}", id_mismatch_near_ties=mism,
+        max_abs_err=f"{err:.3e}", max_rel_err=f"{rel:.3e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, queries_per_block=tq,
+        centroids_per_block=per_block, blocks=-(-nq // tq) * splits)
 
 
 def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
@@ -414,44 +462,64 @@ def lookup_wavefronts(torch, codes, list_len, probes):
 
 
 def kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
-    """adc_scan at the staged serve shape of shard 0; returns the wave's
-    staged ADC distance rows [nq, nprobe * cap] (+inf past each list's
-    length) for the hierarchical top-k phase."""
+    """adc_scan at the staged serve shape of shard 0, through the entry
+    the staged scan calls (``probed_adc_topk``: the shard's lists and
+    the LUTs read in place), and through the reference's gathered
+    signature (``pq_adc_topk``) on the copies the staged scan used to
+    make; returns the wave's staged ADC distance rows [nq, nprobe * cap]
+    (+inf past each list's length) for the hierarchical top-k phase."""
     from repro_torch.core import ivfpq
+    from repro_torch.kernels import _build
     from repro_torch.kernels.pq_adc import ops as pq
     from repro_torch.kernels.pq_adc import ref as pq_ref
 
     t0 = time.perf_counter()
-    # what the staged scan hands pq_adc_topk for shard 0: one entry per
-    # (query, probe), the gathered probed lists' codes and lengths
     icfg, shard = ds.index_cfg, ds.shards[0]
     nq, nprobe = probe_ids.shape
     B, cap, m, ksub = nq * nprobe, icfg.list_cap, icfg.m, icfg.ksub
     p = probe_ids.long()
-    luts = ivfpq.compute_luts(ds.params, queries, probe_ids, icfg
-                              ).reshape(B, m, ksub)
-    codes = shard.codes[p].reshape(B, cap, m)
-    lens = shard.list_len[p].reshape(B)
+    luts4 = ivfpq.compute_luts(ds.params, queries, probe_ids, icfg)
     k = min(kk, cap)
+
+    def gather():
+        """What the staged scan gathered before it read in place."""
+        return (luts4.reshape(B, m, ksub), shard.codes[p].reshape(B, cap, m),
+                shard.list_len[p].reshape(B), shard.ids[p].reshape(B, cap))
+
+    luts, codes, lens, _ = gather()
+    di, ii = pq.probed_adc_topk(luts4, shard.codes, shard.list_len,
+                                probe_ids, k)
     dk, ik = pq.pq_adc_topk(luts, codes, lens, k)
     dp, ip = pq_ref.ref_pq_adc_topk(luts, codes, lens, k)
     torch.cuda.synchronize()
-    if not torch.equal(ik, ip):
-        raise AssertionError(f"adc_scan ids differ: "
-                             f"{int((ik != ip).sum())} of {ik.numel()}")
-    if not torch.equal(dk, dp):
-        raise AssertionError("adc_scan distances differ from the plain "
-                             "version's (both sum in index order)")
+    di, ii = di.reshape(B, k), ii.reshape(B, k)
+    for name, d, i in (("in place", di, ii), ("gathered", dk, ik)):
+        if not torch.equal(i, ip):
+            raise AssertionError(f"adc_scan ({name}) ids differ: "
+                                 f"{int((i != ip).sum())} of {i.numel()}")
+        if not torch.equal(d, dp):
+            raise AssertionError(f"adc_scan ({name}) distances differ from "
+                                 "the plain version's (both sum in index "
+                                 "order)")
     fin = torch.isfinite(dp)
-    err = (dk - dp)[fin].abs().max().item()
-    ms = timer(lambda: pq.pq_adc_topk(luts, codes, lens, k))
-    plain_ms = timer(lambda: pq_ref.ref_pq_adc_topk(luts, codes, lens,
-                                                            k))
+    err = max((di - dp)[fin].abs().max().item(),
+              (dk - dp)[fin].abs().max().item())
+    ms = timer(lambda: pq.probed_adc_topk(luts4, shard.codes,
+                                          shard.list_len, probe_ids, k))
+    gathered_ms = timer(lambda: pq.pq_adc_topk(luts, codes, lens, k))
+    gather_ms = timer(gather)
+    plain_ms = timer(lambda: pq_ref.ref_pq_adc_topk(luts, codes, lens, k))
     rows = float(lens.double().sum())
-    # codes of the valid rows, one LUT per entry (the staged scan's
-    # input), lens, and the (dist, row) outputs
-    nbytes = rows * m + B * m * ksub * 4 + B * 4 + B * k * 8
+    # codes of the valid rows, the distinct LUTs (one per query when the
+    # probe axis is a stride-0 view, else one per entry), the probe ids,
+    # the lens, and the (dist, row) outputs; the gathered entry reads one
+    # LUT per entry
+    n_luts = nq * (1 if luts4.stride(1) == 0 else nprobe)
+    tail = B * 4 + B * 4 + B * k * 8
+    nbytes = rows * m + n_luts * m * ksub * 4 + tail
     bound_ms, bound_by = bound(nbytes, rows * m)
+    g_bound_ms, _ = bound(rows * m + B * m * ksub * 4 + tail, rows * m)
+    chunk_rows = pq.adc_chunk_rows(B, cap, _build.sm_count(dev))
     report["adc_scan"] = dict(
         name="adc_scan", route="cuda", source="src/repro_torch/csrc/pq_adc.cu",
         replaces="src/repro/kernels/pq_adc/kernel.py:101",
@@ -461,7 +529,11 @@ def kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
         mean_len=f"{rows / B:.1f}", ids_equal=True, dists_bit_equal=True,
         max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", library_ms="none",
-        bound_ms=f"{bound_ms:.4f}")
+        bound_ms=f"{bound_ms:.4f}", gathered_ms=f"{gathered_ms:.4f}",
+        gathered_bound_ms=f"{g_bound_ms:.4f}",
+        gather_ms=f"{gather_ms:.4f}", chunk_rows=chunk_rows,
+        blocks=int((torch.clamp((lens.double() / chunk_rows).ceil(), min=1)
+                    ).sum()))
     d = pq_ref.ref_adc_batch(luts, codes)
     valid = torch.arange(cap, device=dev)[None, :] < lens[:, None]
     return torch.where(valid, d, torch.full_like(d, float("inf"))
@@ -867,6 +939,7 @@ def profile_waves(torch, eng, prompts, steps, label="serve.profile"):
     busy_us = sum(r[0] for r in rows)
     log(label, t0, decode_waves=steps - 1,
         wall_ms=f"{wall * 1e3:.1f}", device_busy_ms=f"{busy_us / 1e3:.1f}",
+        device_ms_per_wave=f"{busy_us / 1e3 / (steps - 1):.3f}",
         device_busy_share=f"{busy_us / 1e6 / wall:.3f}",
         device_events=len(rows))
     for us, count, key in rows[:12]:
@@ -888,6 +961,7 @@ def run_phases(torch, dev, sizes):
         (W, keys.shape[1]), generator=g, device=dev)).contiguous()
     kernel_decode_attn(torch, dev, timer, cfg, sizes, report)
     probe_ids = kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report)
+    kernel_ivf_scan_nlist32768(torch, dev, timer, sizes)
     kk = ds.search_config(nprobe=sizes["nprobe"],
                           k=arch.rag.k).k_prime(ds.num_shards)
     kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report)

@@ -4,10 +4,10 @@
 The serving default is the fused scan (``kernels/chamvs_scan``): one
 launch covers ADC + top-k' for every shard of a retrieval wave.
 ``shard_search`` is the reference's *staged* per-shard pipeline
-(``ChamVSConfig.fused=False``): each memory node gathers its probed
-lists and scans them with ``kernels/pq_adc`` — the kernel on the card,
-the plain version on the CPU. Both give the fused scan's ids and
-distances.
+(``ChamVSConfig.fused=False``): each memory node scans its probed lists
+with ``kernels/pq_adc`` — the kernel on the card, which reads the lists
+in place, the plain version on the CPU. Both give the fused scan's ids
+and distances.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from repro_torch.core import ivfpq
 from repro_torch.core.approx_topk_math import truncated_queue_len
 from repro_torch.core.ivfpq import IVFPQConfig, IVFPQParams, IVFPQShard
 from repro_torch.kernels.common import topk_smallest
-from repro_torch.kernels.pq_adc.ops import pq_adc_topk
+from repro_torch.kernels.pq_adc.ops import probed_adc_topk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,21 +46,25 @@ def shard_search(params: IVFPQParams, shard: IVFPQShard,
                  queries: torch.Tensor, probe_ids: torch.Tensor,
                  cfg: ChamVSConfig, kk: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One memory node's work, staged: LUTs -> gather the probed lists ->
-    ADC + local top-k per (query, probe) -> global ids -> top-kk.
-    Returns (dists [nq, kk], global ids [nq, kk])."""
+    """One memory node's work, staged: LUTs -> ADC + local top-k per
+    (query, probe) over the probed lists -> global ids -> top-kk.
+    Returns (dists [nq, kk], global ids [nq, kk]).
+
+    The reference gathers the probed lists' codes and ids and reshapes
+    the LUTs per entry (``repro/core/chamvs.py``); here the scan reads
+    the lists and the LUTs where they lie, and only the B x k winning
+    rows' ids are gathered."""
     icfg = cfg.ivfpq
-    nq, nprobe = probe_ids.shape
-    B, cap = nq * nprobe, icfg.list_cap
-    p = probe_ids.long()
+    nq = probe_ids.shape[0]
     luts = ivfpq.compute_luts(params, queries, probe_ids, icfg)
-    d_l, i_l = pq_adc_topk(luts.reshape(B, icfg.m, icfg.ksub),
-                           shard.codes[p].reshape(B, cap, icfg.m),
-                           shard.list_len[p].reshape(B), k=min(kk, cap))
-    # local row -> global id through the probed lists' id tables
-    gid = torch.gather(shard.ids[p].reshape(B, cap), 1,
-                       i_l.clamp(min=0).long())
-    gid = torch.where(i_l < 0, torch.full_like(gid, -1), gid)
+    d_l, i_l = probed_adc_topk(luts, shard.codes, shard.list_len, probe_ids,
+                               k=min(kk, icfg.list_cap))
+    # local row -> global id: entry (q, p)'s row r is id slot
+    # probe_ids[q, p] * cap + r of the shard's flat id table
+    flat = probe_ids.long()[..., None] * icfg.list_cap + \
+        i_l.clamp(min=0).long()
+    gid = torch.where(i_l < 0, torch.full_like(i_l, -1),
+                      shard.ids.reshape(-1)[flat])
     return topk_smallest(d_l.reshape(nq, -1), gid.reshape(nq, -1), kk)
 
 

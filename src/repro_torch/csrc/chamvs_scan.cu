@@ -49,6 +49,7 @@
 //    path in the same kernel.
 #include <math.h>
 
+#include "adc_rows.cuh"
 #include "topk_queue.cuh"
 
 namespace {
@@ -66,18 +67,6 @@ __device__ __forceinline__ int probe_of(const int* pref, int nprobe, int v) {
     else hi = mid;
   }
   return lo;
-}
-
-// Copies an n-float LUT into shared memory; the caller synchronises.
-__device__ __forceinline__ void load_lut(float* dst, const float* src,
-                                         int n) {
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (n & 3) == 0) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = threadIdx.x; i < n / 4; i += kThreads) d4[i] = __ldg(s4 + i);
-  } else {
-    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = __ldg(src + i);
-  }
 }
 
 // V: 16-byte code chunks per row (m = 16 V, ksub = 256); 0 = byte path.
@@ -132,7 +121,7 @@ chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
   queue.init();
   const bool shared_lut = lut_ps == 0;
   const float* lq = luts + (long long)q * lut_qs;
-  if (shared_lut) load_lut(lut, lq, m * ksub);
+  if (shared_lut) load_lut<kThreads>(lut, lq, m * ksub);
   __syncthreads();
 
   // this block's even share of the virtual rows
@@ -150,7 +139,7 @@ chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
       const int p = probe_of(pref, nprobe, v);
       end = min(hi, pref[p + 1]);
       __syncthreads();
-      load_lut(lut, lq + p * lut_ps, m * ksub);
+      load_lut<kThreads>(lut, lq + p * lut_ps, m * ksub);
       __syncthreads();
     }
     for (int r0 = v; r0 < end; r0 += kRound) {
@@ -177,28 +166,11 @@ chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
           }
         }
       }
-      // the kRows rows' sums advance together, one sub-space at a time, so
-      // their float32 chains interleave; each still adds in index order
       float dist[kRows];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) dist[i] = 0.f;
       if (V > 0) {
-#pragma unroll
-        for (int k = 0; k < (V > 0 ? V : 1); ++k) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-#pragma unroll
-            for (int by = 0; by < 4; ++by) {
-#pragma unroll
-              for (int i = 0; i < kRows; ++i) {
-                const unsigned w =
-                    reinterpret_cast<const unsigned*>(&c[i][k])[e];
-                dist[i] += lut[(k * 16 + e * 4 + by) * 256 +
-                               ((w >> (8 * by)) & 0xffu)];
-              }
-            }
-          }
-        }
+        lookup_rows(lut, c, dist);
       } else {
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {

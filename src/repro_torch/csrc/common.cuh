@@ -18,6 +18,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
+// The same copy, or 16 zero bytes when `full` is false (then nothing is
+// read from gmem, which must still be a valid address).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 16 : 0));
+}
+
 // Closes the group of cp.async this thread issued since the last commit.
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

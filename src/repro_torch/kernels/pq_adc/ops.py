@@ -1,11 +1,14 @@
 """PQ ADC scans: the CUDA kernels' wrappers (twin of
 ``repro.kernels.pq_adc.ops``).
 
-``pq_adc_topk`` is the staged per-shard unit (``core.chamvs.shard_search``
-with ``fused=False``): ADC over a batch of probed list slices plus a
-local top-k per entry. ``pq_shared_scan`` scans one shared code slab
-against a batch of non-residual LUTs. A CPU tensor runs the plain
-version; a CUDA tensor launches ``csrc/pq_adc.cu`` or raises.
+``probed_adc_topk`` is the staged per-shard unit
+(``core.chamvs.shard_search`` with ``fused=False``): ADC over a shard's
+probed lists, read in place, plus a local top-k per (query, probe)
+entry. ``pq_adc_topk`` is the reference's signature of the same scan
+over a gathered batch of list slices; both launch the one ``adc_scan``
+kernel. ``pq_shared_scan`` scans one shared code slab against a batch of
+non-residual LUTs. A CPU tensor runs the plain version; a CUDA tensor
+launches ``csrc/pq_adc.cu`` or raises.
 """
 from __future__ import annotations
 
@@ -20,11 +23,12 @@ _P, _I, _L = _build.P, _build.I, _build.L
 
 #: the CUDA entry points; ``.launches`` counts launches
 ADC_KERNEL = _build.Kernel("adc_scan_launch",
-                           [_P, _L] + [_P] * 4 + [_I] * 6 + [_P])
+                           [_P, _L, _L] + [_P] * 8 + [_I] * 8 + [_P])
 SHARED_KERNEL = _build.Kernel("shared_scan_launch",
                               [_P] * 3 + [_I] * 7 + [_P])
-MAX_K = 1792                    # queue slots left beside one round's buffer
-QUEUE_BYTES = 2048 * 8          # adc_scan's queue: 2048 (dist, row) slots
+MAX_K = 1792                    # as the fused scan's MAX_KK
+QUEUE_BYTES = 4096 * 8          # adc_scan's largest queue: (dist, row) slots
+MIN_CHUNK_ROWS = 4096           # adc_scan: the fewest rows a block takes
 MAX_TILE_Q = 8                  # shared_scan queries per block
 SHARED_LUT_BYTES = 64 << 10     # one block's LUTs: three blocks share an SM
 SMEM_LIMIT = 227 << 10          # shared memory a block may use on the H100
@@ -50,6 +54,14 @@ def _vec(codes: torch.Tensor, m: int) -> int:
     return int(m % 16 == 0 and codes.data_ptr() % 16 == 0)
 
 
+def adc_chunk_rows(B: int, n: int, sms: int) -> int:
+    """adc_scan's most rows a block: a full list of ``n`` rows spreads
+    over enough blocks that all ``B`` full lists would fill the ``sms``
+    SMs 8 blocks deep, but a block takes ``MIN_CHUNK_ROWS`` rows at
+    least, so that its LUT load and merges stay a small share of it."""
+    return max(1, min(n, max(MIN_CHUNK_ROWS, -(-n * B // (8 * sms)))))
+
+
 def pq_adc_topk(luts: torch.Tensor, codes: torch.Tensor, lens: torch.Tensor,
                 k: int, tile_n: Optional[int] = None,
                 spec: Optional[registry.KernelSpec] = None
@@ -69,28 +81,82 @@ def pq_adc_topk(luts: torch.Tensor, codes: torch.Tensor, lens: torch.Tensor,
     if _on_cpu("pq_adc_topk", luts):
         return ref_pq_adc_topk(luts, codes, lens, k)
     B, n, m = codes.shape
-    dev = luts.device
     if luts.dim() != 3 or luts.shape[:2] != (B, m) or lens.shape != (B,):
         raise ValueError(f"pq_adc_topk shapes: luts {tuple(luts.shape)} "
                          f"codes {tuple(codes.shape)} lens "
                          f"{tuple(lens.shape)}")
-    ksub = luts.shape[2]
+    return _launch_adc(luts, luts.stride(0), 0, 1, codes, None, lens, k)
+
+
+def probed_adc_topk(luts: torch.Tensor, codes: torch.Tensor,
+                    list_len: torch.Tensor, probe_ids: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ADC + local top-k over a shard's probed lists, read in place.
+
+    luts [nq, nprobe, m, ksub] (any strides over the first two axes: a
+    non-residual index's stride-0 probe axis is read as one LUT per
+    query) | codes [nlist, cap, m] uint8 | list_len [nlist] int32 |
+    probe_ids [nq, nprobe] -> (dists [nq, nprobe, k], row idx
+    [nq, nprobe, k] int32): entry (q, p) is ``pq_adc_topk`` over the
+    first ``list_len[l]`` rows of list ``l = probe_ids[q, p]``. On the
+    CPU it gathers the lists at those row bases and runs the plain
+    version. The probe ids are trusted (< nlist), not checked on the
+    device: the IVF probe makes them."""
+    nq, nprobe = probe_ids.shape
+    nlist, cap, m = codes.shape
+    ksub = luts.shape[-1]
+    if luts.dim() != 4 or luts.shape[:3] != (nq, nprobe, m) or \
+            list_len.shape != (nlist,):
+        raise ValueError(f"probed_adc_topk shapes: luts {tuple(luts.shape)} "
+                         f"codes {tuple(codes.shape)} list_len "
+                         f"{tuple(list_len.shape)} probe_ids "
+                         f"{tuple(probe_ids.shape)}")
+    if _on_cpu("probed_adc_topk", luts):
+        lists = probe_ids.reshape(-1).long()
+        rows = lists[:, None] * cap + torch.arange(cap)        # row bases
+        d, i = ref_pq_adc_topk(luts.reshape(nq * nprobe, m, ksub),
+                               codes.reshape(nlist * cap, m)[rows],
+                               list_len[lists], k)
+        return d.reshape(nq, nprobe, k), i.reshape(nq, nprobe, k)
+    lists = probe_ids.to(device=luts.device, dtype=torch.int32).contiguous()
+    d, i = _launch_adc(luts, luts.stride(0), luts.stride(1), nprobe, codes,
+                       lists, list_len, k)
+    return d.reshape(nq, nprobe, k), i.reshape(nq, nprobe, k)
+
+
+def _launch_adc(luts, lut_qs, lut_ps, per_q, codes, lists, lens, k):
+    """One adc_scan launch over B entries: entry b's LUT at
+    ``lut_qs * (b // per_q) + lut_ps * (b % per_q)``, its list
+    ``lists[b]`` (``b`` when None) of ``codes [*, n, m]``."""
+    dev = luts.device
+    n, m = codes.shape[1], codes.shape[2]
+    ksub = luts.shape[-1]
+    B = lists.numel() if lists is not None else codes.shape[0]
     if not 1 <= k <= MAX_K or n >= 2 ** 31:
-        raise ValueError(f"pq_adc_topk: k={k} (1..{MAX_K}), n={n} (< 2^31)")
-    if luts.dtype != torch.float32 or luts.stride(2) != 1 or \
-            luts.stride(1) != ksub or luts.device != dev:
+        raise ValueError(f"adc_scan: k={k} (1..{MAX_K}), n={n} (< 2^31)")
+    if luts.dtype != torch.float32 or luts.stride(-1) != 1 or \
+            luts.stride(-2) != ksub or luts.device != dev:
         raise ValueError("luts must be float32 with contiguous [m, ksub] "
                          "blocks")
     if m * ksub * 4 + QUEUE_BYTES > SMEM_LIMIT:
-        raise ValueError(f"pq_adc_topk: an m={m} x ksub={ksub} LUT does not "
+        raise ValueError(f"adc_scan: an m={m} x ksub={ksub} LUT does not "
                          "fit in shared memory")
     _check("codes", codes, torch.uint8, dev)
     _check("lens", lens, torch.int32, dev)
     out_d = torch.empty((B, k), device=dev, dtype=torch.float32)
     out_i = torch.empty((B, k), device=dev, dtype=torch.int32)
-    ADC_KERNEL(luts.data_ptr(), luts.stride(0), codes.data_ptr(),
-               lens.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), B, n, m,
-               ksub, k, _vec(codes, m), _build.stream_ptr(luts))
+    rows = adc_chunk_rows(B, n, _build.sm_count(dev))
+    chunks = -(-n // rows)
+    parts = B * chunks * k if chunks > 1 else 0
+    part_d = torch.empty(parts, device=dev, dtype=torch.float32)
+    part_a = torch.empty(parts, device=dev, dtype=torch.int32)
+    counters = _build.merge_counters(ADC_KERNEL.symbol, luts, B)
+    ADC_KERNEL(luts.data_ptr(), lut_qs, lut_ps, codes.data_ptr(),
+               lists.data_ptr() if lists is not None else None,
+               lens.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+               part_d.data_ptr(), part_a.data_ptr(), counters.data_ptr(), B,
+               n, per_q, m, ksub, k, rows, _vec(codes, m),
+               _build.stream_ptr(luts))
     return out_d, out_i
 
 

@@ -30,12 +30,6 @@ class KernelSpec:
             t -= 1
         return t
 
-    def pick_tile_q(self, nq: int) -> int:
-        """Query-tile rows: largest of 8/4/1 dividing the batch."""
-        if self.tile_q is not None:
-            return self._divisor_at_most(nq, self.tile_q)
-        return 8 if nq % 8 == 0 else (4 if nq % 4 == 0 else 1)
-
     def pick_tile_c(self, nlist: int) -> int:
         """Centroid-tile columns for the IVF scan."""
         if self.tile_c is not None:

@@ -133,16 +133,13 @@ def test_decode_attention_rejects_what_it_cannot_run(dev):
 # IVF probe
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("nq,nlist,D,nprobe", [
-    (32, 256, 512, 32), (5, 7, 64, 7), (9, 300, 96, 128), (64, 1000, 512, 1),
-    (3, 20, 64, 32),                                   # nprobe > nlist
-])
-def test_ivf_scan_kernel(dev, nq, nlist, D, nprobe):
-    g = _gen(dev, 2)
+def _check_ivf(dev, g, nq, nlist, D, nprobe, spec=registry.DEFAULT):
+    """One launch against the plain version: ids equal up to near-ties
+    (1e-5 relative) of the two summation orders."""
     cents = torch.randn((nlist, D), generator=g, device=dev)
     queries = torch.randn((nq, D), generator=g, device=dev)
     before = iv.KERNEL.launches
-    dk, ik = iv.ivf_index_scan(queries, cents, nprobe)
+    dk, ik = iv.ivf_index_scan(queries, cents, nprobe, spec=spec)
     dp, ip = iv.ref_ivf_scan(queries, cents, nprobe)
     torch.cuda.synchronize()
     assert iv.KERNEL.launches == before + 1
@@ -157,6 +154,28 @@ def test_ivf_scan_kernel(dev, nq, nlist, D, nprobe):
     assert torch.allclose(dk[valid], dp[valid], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("nq,nlist,D,nprobe,tile_c", [
+    (32, 256, 512, 32, None), (5, 7, 64, 7, None), (9, 300, 96, 128, None),
+    (64, 1000, 512, 1, None),
+    (3, 20, 64, 32, None),                             # nprobe > nlist
+    (32, 32768, 512, 32, None),                        # SYN-512's nlist
+    (9, 1000, 96, 128, 32),            # nprobe 128 over 32-centroid splits
+    (40, 5000, 64, 100, 32),           # 157 splits: a four-level merge
+])
+def test_ivf_scan_kernel(dev, nq, nlist, D, nprobe, tile_c):
+    _check_ivf(dev, _gen(dev, 2), nq, nlist, D, nprobe,
+               registry.KernelSpec(tile_c=tile_c))
+
+
+def test_ivf_scan_back_to_back_launches(dev):
+    """Launches in a row on one stream with different inputs and grids,
+    each right: the merge leaves its counters at 0."""
+    g = _gen(dev, 14)
+    for nq, nlist, nprobe in ((32, 32768, 32), (32, 32768, 64),
+                              (32, 256, 32), (7, 4000, 16)):
+        _check_ivf(dev, g, nq, nlist, 512, nprobe)
+
+
 def test_ivf_scan_ties_go_to_lower_id(dev):
     g = _gen(dev, 3)
     base = torch.randn((16, 64), generator=g, device=dev)
@@ -168,6 +187,23 @@ def test_ivf_scan_ties_go_to_lower_id(dev):
     assert bool((ik[..., 1] == ik[..., 0] + 16).all())
     assert bool((ik[..., 2] == ik[..., 0] + 32).all())
     assert bool((dk.view(8, 4, 3).diff(dim=-1) == 0).all())
+
+
+@pytest.mark.parametrize("copies,tile_c", [(3, None), (8, 32), (8, 64)])
+def test_ivf_scan_ties_across_splits(dev, copies, tile_c):
+    """Groups of equal centroids 40 ids apart, cut by 32- and 64-centroid
+    splits: each group comes out whole, in id order."""
+    g = _gen(dev, 3)
+    base = torch.randn((40, 64), generator=g, device=dev)
+    cents = base.repeat(copies, 1).contiguous()
+    queries = torch.randn((8, 64), generator=g, device=dev)
+    nprobe = 4 * copies
+    dk, ik = iv.ivf_index_scan(queries, cents, nprobe,
+                               spec=registry.KernelSpec(tile_c=tile_c))
+    ik = ik.view(8, 4, copies)
+    step = 40 * torch.arange(copies, device=dev)
+    assert bool((ik == ik[..., :1] + step).all())
+    assert bool((dk.view(8, 4, copies).diff(dim=-1) == 0).all())
 
 
 # ---------------------------------------------------------------------------
@@ -311,6 +347,66 @@ def test_adc_scan_kernel(dev, B, n, m, ksub, k, dup, shared_lut):
     assert torch.equal(ik, ip)
     assert torch.equal(dk, dp)
     assert bool((ik[0] == -1).all())
+
+
+def _check_probed(dev, g, nq, nprobe, nlist, cap, m, ksub, k, residual,
+                  long_list=False):
+    """The in-place wrapper against the gathered one and the plain
+    version, bit for bit, one launch each."""
+    codes = torch.randint(0, ksub, (nlist, cap, m), generator=g, device=dev
+                          ).to(torch.uint8)
+    lens = torch.randint(0, cap + 1, (nlist,), generator=g, device=dev).int()
+    lens[0], lens[1] = 0, min(k - 1, cap)              # empty, < k
+    if long_list:
+        lens[2] = cap - 1                              # ends mid-round
+    probe = torch.stack([torch.randperm(nlist, generator=g, device=dev)
+                         [:nprobe] for _ in range(nq)]).int()
+    probe[0, :3] = torch.tensor([0, 1, 2], device=dev)
+    if residual:
+        luts = torch.rand((nq, nprobe, m, ksub), generator=g, device=dev)
+    else:
+        luts = torch.rand((nq, 1, m, ksub), generator=g, device=dev
+                          ).expand(nq, nprobe, m, ksub)
+    before = pq.ADC_KERNEL.launches
+    dk, ik = pq.probed_adc_topk(luts, codes, lens, probe, k)
+    p = probe.reshape(-1).long()
+    g_luts = luts.reshape(nq * nprobe, m, ksub)
+    dg, ig = pq.pq_adc_topk(g_luts, codes[p], lens[p], k)
+    dp, ip = pq.ref_pq_adc_topk(g_luts, codes[p], lens[p], k)
+    torch.cuda.synchronize()
+    assert pq.ADC_KERNEL.launches == before + 2
+    assert torch.equal(ik.reshape(-1, k), ig) and torch.equal(ig, ip)
+    assert torch.equal(dk.reshape(-1, k), dg) and torch.equal(dg, dp)
+    assert bool((ik[0, 0] == -1).all())
+
+
+@pytest.mark.parametrize("nq,nprobe,nlist,cap,m,ksub,k,residual", [
+    (32, 32, 64, 3000, 32, 256, 63, False),      # the serve's shapes, small
+    (4, 8, 16, 1000, 32, 256, 100, True),        # residual LUTs
+    (3, 5, 8, 700, 12, 256, 40, False),          # byte path
+    (2, 3, 6, 500, 8, 16, pq.MAX_K, False),      # the large queue
+])
+def test_adc_scan_in_place_equals_gathered(dev, nq, nprobe, nlist, cap, m,
+                                           ksub, k, residual):
+    _check_probed(dev, _gen(dev, 15), nq, nprobe, nlist, cap, m, ksub, k,
+                  residual)
+
+
+def test_adc_scan_long_entry_split_mid_round(dev):
+    """Lists of up to 30 000 rows over few entries: chunks of at least
+    MIN_CHUNK_ROWS rows, eight a full list, the last ending mid-round."""
+    assert pq.adc_chunk_rows(2 * 4, 30000, 132) == pq.MIN_CHUNK_ROWS
+    _check_probed(dev, _gen(dev, 16), 2, 4, 6, 30000, 32, 256, 63, False,
+                  long_list=True)
+
+
+def test_adc_scan_back_to_back_launches(dev):
+    """Launches in a row on one stream with different inputs, each equal
+    to the plain version: the merge counters reset."""
+    g = _gen(dev, 17)
+    for residual, cap in ((False, 9000), (True, 5000), (False, 9000)):
+        _check_probed(dev, g, 8, 16, 32, cap, 32, 256, 63, residual,
+                      long_list=True)
 
 
 # ---------------------------------------------------------------------------
