@@ -25,8 +25,9 @@ failure raises, so the run exits non-zero):
      scan reads them (the report row) and through the reference's
      gathered signature, timed beside the gather the staged scan no
      longer makes; shared_scan of the wave's LUTs over the union of its
-     probed lists, and the hierarchical top-k over the wave's staged ADC
-     distance rows.
+     probed lists (beside its shared-memory lookup floor), and the
+     hierarchical top-k over the wave's staged ADC distance rows (one
+     launch a call, beside a read of the same bytes).
   4. serve: 8 requests x 4 rows through RalmEngine.from_config (wave
      decode, fused scan, async retrieval), 64 greedy tokens each, driven
      three times (tokens/s as median and range); before each run the
@@ -413,14 +414,14 @@ def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
     nbytes = rows * m + n_luts * m * ksub * 4 + S * nq * kk * (8 + 4)
     flops = rows * m
     bound_ms, bound_by = bound(nbytes, flops)
-    # a second yardstick: the shared-memory lookups. A warp looks up one
-    # sub-space of 32 consecutive rows; the LUT row's 256 floats spread
-    # over the 32 banks, so it takes as many wavefronts (one a clock per
-    # SM) as the most distinct codes that share a bank. Counted on query
-    # 0's rows in the kernel's order, at the card's top SM clock.
+    # a second yardstick: the shared-memory lookups, counted on query 0's
+    # rows in the kernel's order, at the card's top SM clock
     sms = _build.sm_count(dev)
     groups = cs.scan_groups(S, nq, nprobe, st.codes.shape[2], kk, sms)
-    waves = lookup_wavefronts(torch, st.codes, st.list_len, probe_ids[0])
+    p0 = probe_ids[0].long()                # query 0's rows, probe by probe
+    valid = (torch.arange(st.codes.shape[2], device=dev)
+             < st.list_len[:, p0, None])
+    waves = lookup_wavefronts(torch, st.codes[:, p0][valid])
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     floor_ms = rows * m / 32 * waves / (sms * clock_hz) * 1e3
     report["fused_scan"] = dict(
@@ -440,20 +441,19 @@ def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
         lookup_floor_ms=f"{floor_ms:.4f}")
 
 
-def lookup_wavefronts(torch, codes, list_len, probes):
-    """Mean shared-memory wavefronts of one warp's LUT lookup over the
-    rows one query scans (its probed lists' valid rows in every shard,
-    probe after probe, 32 consecutive rows to a warp)."""
-    S, _, cap, m = codes.shape
-    p = probes.long()
-    valid = torch.arange(cap, device=codes.device) < list_len[:, p, None]
-    rows = codes[:, p][valid]                                 # [n, m]
+def lookup_wavefronts(torch, rows):
+    """Mean shared-memory wavefronts of one warp's LUT lookup into one
+    sub-space's 256 floats, over code rows [n, m] in a kernel's order (32
+    consecutive rows to a warp): a lookup takes as many wavefronts (one a
+    clock per SM) as the most distinct codes that share one of the 32
+    banks."""
+    m = rows.shape[1]
     w = rows.shape[0] // 32
     total, count = 0.0, 0
     for c in range(0, w, 4096):                 # 4096 warps at a time
         x = rows[c * 32:min(w, c + 4096) * 32].view(-1, 32, m).long()
         present = torch.zeros((x.shape[0], m, 256), dtype=torch.bool,
-                              device=codes.device)
+                              device=rows.device)
         present.scatter_(2, x.transpose(1, 2), True)
         per_bank = present.view(x.shape[0], m, 8, 32).sum(2)
         total += float(per_bank.amax(-1).double().sum())
@@ -545,6 +545,7 @@ def kernel_shared_scan(torch, dev, timer, ds, queries, probe_ids, report):
     rows of the union of the lists the wave probes in shard 0."""
     import torch.nn.functional as F
     from repro_torch.core import ivfpq
+    from repro_torch.kernels import _build
     from repro_torch.kernels.pq_adc import ops as pq
     from repro_torch.kernels.pq_adc import ref as pq_ref
 
@@ -578,6 +579,14 @@ def kernel_shared_scan(torch, dev, timer, ds, queries, probe_ids, report):
     lib_ms = timer(lambda: F.embedding_bag(idx, weight, mode="sum"))
     nbytes = n * m + q * m * ksub * 4 + n * q * 4
     bound_ms, bound_by = bound(nbytes, n * q * m)
+    # the shared-memory lookups: n * q * m terms of 4 bytes, a warp's 32
+    # rows a lookup (counted on these rows, at the card's top SM clock)
+    sms = _build.sm_count(dev)
+    waves = lookup_wavefronts(torch, codes)
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    floor_ms = n * q * m / 32 * waves / (sms * clock_hz) * 1e3
+    tq = pq.shared_tile_q(q, m, ksub)
+    rows = pq.shared_rows(n, -(-q // tq), sms)
     report["shared_scan"] = dict(
         name="shared_scan", route="cuda",
         source="src/repro_torch/csrc/pq_adc.cu",
@@ -588,26 +597,39 @@ def kernel_shared_scan(torch, dev, timer, ds, queries, probe_ids, report):
         lists=int(lists.numel()), bit_equal=True, max_abs_err=f"{err:.3e}",
         embedding_bag_err=f"{lib_err:.3e}", ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", embedding_bag_ms=f"{lib_ms:.4f}",
-        bound_ms=f"{bound_ms:.4f}")
+        bound_ms=f"{bound_ms:.4f}",
+        wavefronts_per_warp_lookup=f"{waves:.3f}",
+        sm_clock_mhz=f"{clock_hz / 1e6:.0f}",
+        lookup_floor_ms=f"{floor_ms:.4f}", queries_per_block=tq,
+        query_tiles=-(-q // tq), rows_per_block=rows,
+        blocks=-(-q // tq) * -(-n // rows))
 
 
 def kernel_hierarchical_topk(torch, dev, timer, d, k, num_blocks, report):
     """approx_topk over the wave's staged ADC distance rows; also the
     share of rows on which the approximate result is the exact one."""
     from repro_torch.core.approx_topk_math import truncated_queue_len
+    from repro_torch.kernels import _build
     from repro_torch.kernels.topk import ops as tk
     from repro_torch.kernels.topk import ref as tk_ref
 
     t0 = time.perf_counter()
     B, n = d.shape
     kp = truncated_queue_len(k, num_blocks)
+    before = tk.KERNEL.launches
     dk, ik = tk.approx_topk(d, k, num_blocks=num_blocks)
+    per_call = tk.KERNEL.launches - before
     dp, ip = tk_ref.ref_hierarchical_topk(d, k, num_blocks, kp)
     de, ie = tk_ref.ref_exact_topk(d, k)
     torch.cuda.synchronize()
     if not (torch.equal(ik, ip) and torch.equal(dk, dp)):
         raise AssertionError(f"hierarchical_topk differs from the plain "
                              f"version: {int((ik != ip).sum())} ids")
+    if per_call != 1:
+        raise AssertionError(f"hierarchical_topk: {per_call} launches a "
+                             "call, not one")
+    pieces = tk.topk_pieces(B, num_blocks, n // num_blocks, k,
+                            _build.sm_count(dev))
     fin = torch.isfinite(dp)
     err = (dk - dp)[fin].abs().max().item() if bool(fin.any()) else 0.0
     exact_rows = ((ik == ie) & (dk == de)).all(dim=1).float().mean().item()
@@ -615,6 +637,8 @@ def kernel_hierarchical_topk(torch, dev, timer, d, k, num_blocks, report):
     plain_ms = timer(lambda: tk_ref.ref_hierarchical_topk(d, k, num_blocks,
                                                              kp))
     lib_ms = timer(lambda: torch.topk(d, k, dim=1, largest=False))
+    # the streaming yardstick: one read of the same bytes
+    read_ms = timer(lambda: torch.amin(d, dim=1))
     nbytes = B * n * 4 + B * k * 8
     bound_ms, bound_by = bound(nbytes, B * n)
     report["hierarchical_topk"] = dict(
@@ -628,8 +652,9 @@ def kernel_hierarchical_topk(torch, dev, timer, d, k, num_blocks, report):
         inf_share=f"{float(torch.isinf(d).float().mean()):.3f}",
         equal_to_plain=True, rows_equal_to_exact=f"{exact_rows:.4f}",
         ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        torch_topk_ms=f"{lib_ms:.4f}",
-        bound_ms=f"{bound_ms:.4f}")
+        torch_topk_ms=f"{lib_ms:.4f}", read_same_bytes_ms=f"{read_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", pieces_per_column_block=pieces,
+        blocks=B * num_blocks * pieces, kernel_launches_per_call=per_call)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,15 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
                "l"(gmem), "r"(full ? 16 : 0));
 }
 
+// A 4-byte asynchronous copy (through L1), or 4 zero bytes when `full` is
+// false (gmem must still be a valid address).
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 4 : 0));
+}
+
 // Closes the group of cp.async this thread issued since the last commit.
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -41,19 +41,24 @@
 //
 // shared_scan replaces: src/repro/kernels/pq_adc/kernel.py:158
 //           shared_scan (body _shared_scan_kernel, kernel.py:142).
-// A block takes a tile of up to kMaxTileQ queries (as many LUTs as fit
-// in 64 KB of shared memory, so that three blocks share an SM) and a
-// chunk of rows; each thread reads its row's codes once and forms every
-// (row, query) output of the tile as the index-order sum of m lookups.
-// The TPU kernel builds a [tile_n, m * ksub] one-hot matrix for its
-// matrix unit (kernel.py:145-155); no one-hot matrix exists here. Query
-// tiles vary fastest across the grid, so the blocks that read one chunk
-// of codes run together and share it through L2.
-// Bound on the H100: the n * q * 4-byte output and the n * m code bytes
-// against n * q * m float32 adds put it on memory, but each add is a
-// shared-memory lookup at random banks, so the lookups set its time.
-// The tensor-core form (a one-hot product in fp32 via TF32 would change
-// the sums) is later work.
+// dists[n, q] = sum_j luts[q, j, codes[n, j]] for a query batch against
+// one shared code slab. The TPU kernel builds a [tile_n, m * ksub]
+// one-hot matrix for its matrix unit (kernel.py:145-155), because the TPU
+// has no byte-addressable table; shared memory is one, so no one-hot
+// matrix exists here. The one-hot product would also lose on this card:
+// it spends 2 m ksub operations an output (1.08 TFLOP at q = 32, n = 2 M,
+// m = 32), 1.1 ms in one bf16 pass, and float32 LUT values need three.
+// Bound on the H100: the n * q * 4-byte output is most of the bytes, but
+// the n * q * m lookups move 4 bytes each from shared memory, at most
+// 128 bytes a clock on an SM, which sets the floor at this width.
+//  - a block holds TQ = 4 queries' LUTs (128 KB at m = 32, ksub = 256)
+//    laid out query fastest, so one 16-byte load serves four queries'
+//    terms of a lookup, and one code offset is computed once for them;
+//    a row's code bytes are read q / 4 times (from L2, as the query tiles
+//    of one chunk run together: they vary fastest across the grid).
+//  - a row's four sums leave as one 16-byte store.
+//  - each query's m terms add in index order 0..m-1 in float32, the plain
+//    version's order, bit for bit.
 #include <math.h>
 
 #include "adc_rows.cuh"
@@ -63,7 +68,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 2;          // rows a thread looks up per round
-constexpr int kMaxTileQ = 8;      // shared_scan queries per block
+constexpr int kScanThreads = 512;  // shared_scan: threads per block
+constexpr int kScanRows = 2;       // shared_scan: rows a thread takes a round
 
 // V: 16-byte code chunks per row (m = 16 V, ksub = 256); 0 = byte path.
 // kSort: the queue's slots, >= k + kRows * kThreads.
@@ -138,54 +144,6 @@ adc_scan_kernel(const float* __restrict__ luts, long long lut_qs,
   }
 }
 
-// adc_select_kernel's warp step: merges the first 32 keys of the warp's
-// buffer (pads past cnt) into its run w, then publishes the run's k-th
-// key and takes the least key the block's warps published as the filter.
-template <int R>
-__device__ __forceinline__ void flush_buffer(WarpKeys<R> (&w)[1], float* bd,
-                                             int* ba, int& cnt,
-                                             volatile float* tau_d,
-                                             volatile int* tau_a, int k,
-                                             float& fd, int& fa) {
-  constexpr int kWarps = kThreads / 32;
-  const int lane = threadIdx.x & 31;
-  __syncwarp();
-  float cd[1] = {lane < cnt ? bd[lane] : INFINITY};
-  int ca[1] = {lane < cnt ? ba[lane] : kQueueIntMax};
-  __syncwarp();
-  if (lane + 32 < cnt) {
-    bd[lane] = bd[lane + 32];
-    ba[lane] = ba[lane + 32];
-  }
-  cnt = max(0, cnt - 32);
-  merge_candidates(w, cd, ca);
-  float kd;
-  int ka;
-  w[0].key(k - 1, kd, ka);
-  if (lane == 0) {
-    tau_d[threadIdx.x / 32] = kd;
-    tau_a[threadIdx.x / 32] = ka;
-  }
-  float od = INFINITY;
-  int oa = kQueueIntMax;
-  if (lane < kWarps) {
-    od = tau_d[lane];
-    oa = tau_a[lane];
-  }
-#pragma unroll
-  for (int off = kWarps / 2; off > 0; off >>= 1) {
-    const float xd = __shfl_xor_sync(0xffffffffu, od, off);
-    const int xa = __shfl_xor_sync(0xffffffffu, oa, off);
-    if (key_less(xd, xa, od, oa)) {
-      od = xd;
-      oa = xa;
-    }
-  }
-  fd = __shfl_sync(0xffffffffu, od, 0);
-  fa = __shfl_sync(0xffffffffu, oa, 0);
-  __syncwarp();
-}
-
 // The same scan for k <= 32 R, without block barriers: each warp keeps
 // its own sorted run of 32 R keys in registers (warp_select.cuh). A row
 // whose key beats the warp's filter is appended to the warp's buffer in
@@ -258,10 +216,10 @@ adc_select_kernel(const float* __restrict__ luts, long long lut_qs,
       }
       cnt += __popc(mask);
       if (cnt >= 32)
-        flush_buffer(w, wbd, wba, cnt, vtd, vta, k, fd, fa);
+        flush_buffer<kWarps>(w, wbd, wba, cnt, vtd, vta, k, fd, fa);
     }
   }
-  if (cnt > 0) flush_buffer(w, wbd, wba, cnt, vtd, vta, k, fd, fa);
+  if (cnt > 0) flush_buffer<kWarps>(w, wbd, wba, cnt, vtd, vta, k, fd, fa);
 
   // warp 0 merges the other warps' runs
   w[0].store(rd + warp * 32 * R, ra + warp * 32 * R, k);
@@ -328,60 +286,132 @@ int launch_adc(int blocks, size_t smem, cudaStream_t st, const float* luts,
   return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kThreads)
+// shared_scan's terms of one lookup: the TQ floats at p (one per query of
+// the tile, 16-, 8- or 4-byte aligned), added to the tile's sums.
+template <int TQ>
+__device__ __forceinline__ void add_terms(float (&acc)[TQ], const float* p) {
+  if constexpr (TQ == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    acc[0] += v.x;
+    acc[1] += v.y;
+    acc[2] += v.z;
+    acc[3] += v.w;
+  } else if constexpr (TQ == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    acc[0] += v.x;
+    acc[1] += v.y;
+  } else {
+    acc[0] += *p;
+  }
+}
+
+// shared_scan: a block holds the LUTs of TQ queries in shared memory,
+// query fastest ([m * ksub][TQ]), and takes a chunk of rows; a thread
+// looks up kR rows a round (their code loads issued first), each lookup
+// one TQ-wide load that serves the tile's TQ queries, and stores a row's
+// TQ sums as one vector when q % TQ == 0.
+// V: 16-byte code chunks per row (m = 16 V, ksub = 256); 0 = byte path.
+template <int TQ, int V, int kT, int kR>
+__global__ void __launch_bounds__(kT, 1)
 shared_scan_kernel(const float* __restrict__ luts,
                    const uint8_t* __restrict__ codes, float* __restrict__ out,
-                   int n, int q, int m, int ksub, int tq, int rows_per_block,
-                   int vec) {
-  extern __shared__ float lut[];                      // [tq, m, ksub]
-  const int q0 = blockIdx.x * tq, t = threadIdx.x;
-  const int nq = min(tq, q - q0);
+                   int n, int q, int m, int ksub, int rows_per_block) {
+  extern __shared__ __align__(16) float lut[];        // [m * ksub][TQ]
+  const int q0 = blockIdx.x * TQ, t = threadIdx.x;
+  const int nq = min(TQ, q - q0);
   const int tab = m * ksub;
-  const float* lsrc = luts + (long long)q0 * tab;
-  for (int i = t; i < nq * tab; i += kThreads) lut[i] = lsrc[i];
+#pragma unroll
+  for (int qi = 0; qi < TQ; ++qi) {
+    const float* src = luts + (long long)(q0 + qi) * tab;
+    for (int e = t; e < tab; e += kT)
+      lut[e * TQ + qi] = qi < nq ? __ldg(src + e) : 0.f;
+  }
   __syncthreads();
 
-  const long long r_end =
-      min((long long)n, (long long)(blockIdx.y + 1) * rows_per_block);
-  for (long long r = (long long)blockIdx.y * rows_per_block + t; r < r_end;
-       r += kThreads) {
-    const uint8_t* row = codes + r * m;
-    float acc[kMaxTileQ];
+  const bool vec_out = q % TQ == 0;
+  const long long lo = (long long)blockIdx.y * rows_per_block;
+  const long long hi = min((long long)n, lo + rows_per_block);
+  for (long long r0 = lo + t; r0 < hi; r0 += (long long)kT * kR) {
+    float acc[kR][TQ];
 #pragma unroll
-    for (int qi = 0; qi < kMaxTileQ; ++qi) acc[qi] = 0.f;
-    if (vec) {
-      const uint4* rv = reinterpret_cast<const uint4*>(row);
-      for (int j16 = 0; j16 < m / 16; ++j16) {
-        const uint4 v = rv[j16];
-        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+    for (int i = 0; i < kR; ++i) {
 #pragma unroll
-        for (int kw = 0; kw < 4; ++kw) {
+      for (int qi = 0; qi < TQ; ++qi) acc[i][qi] = 0.f;
+    }
+    if constexpr (V > 0) {
+      uint4 c[kR][V];
 #pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const int off = (j16 * 16 + kw * 4 + b) * ksub +
-                            ((w[kw] >> (8 * b)) & 0xffu);
+      for (int i = 0; i < kR; ++i) {
+        const long long r = r0 + (long long)i * kT;
+        const uint4* src = reinterpret_cast<const uint4*>(codes + r * m);
 #pragma unroll
-            for (int qi = 0; qi < kMaxTileQ; ++qi) {
-              if (qi < nq) acc[qi] += lut[qi * tab + off];
+        for (int j = 0; j < V; ++j)
+          c[i][j] = r < hi ? __ldg(src + j) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int by = 0; by < 4; ++by) {
+#pragma unroll
+            for (int i = 0; i < kR; ++i) {
+              const unsigned w =
+                  reinterpret_cast<const unsigned*>(&c[i][j])[e];
+              const int code = (w >> (8 * by)) & 0xffu;
+              add_terms(acc[i],
+                        lut + ((j * 16 + e * 4 + by) * 256 + code) * TQ);
             }
           }
         }
       }
     } else {
-      for (int j = 0; j < m; ++j) {
-        const int off = j * ksub + row[j];
 #pragma unroll
-        for (int qi = 0; qi < kMaxTileQ; ++qi) {
-          if (qi < nq) acc[qi] += lut[qi * tab + off];
-        }
+      for (int i = 0; i < kR; ++i) {
+        const long long r = r0 + (long long)i * kT;
+        if (r >= hi) continue;
+        const uint8_t* row = codes + r * m;
+        for (int j = 0; j < m; ++j)
+          add_terms(acc[i], lut + (j * ksub + row[j]) * TQ);
       }
     }
-    float* o = out + r * q + q0;
 #pragma unroll
-    for (int qi = 0; qi < kMaxTileQ; ++qi) {
-      if (qi < nq) o[qi] = acc[qi];
+    for (int i = 0; i < kR; ++i) {
+      const long long r = r0 + (long long)i * kT;
+      if (r >= hi) continue;
+      float* o = out + r * q + q0;
+      if constexpr (TQ == 4) {
+        if (vec_out) {
+          *reinterpret_cast<float4*>(o) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          continue;
+        }
+      } else if constexpr (TQ == 2) {
+        if (vec_out) {
+          *reinterpret_cast<float2*>(o) = make_float2(acc[i][0], acc[i][1]);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int qi = 0; qi < TQ; ++qi) {
+        if (qi < nq) o[qi] = acc[i][qi];
+      }
     }
   }
+}
+
+template <int TQ, int V>
+int launch_shared(dim3 grid, cudaStream_t st, const float* luts,
+                  const uint8_t* codes, float* out, int n, int q, int m,
+                  int ksub, int rows_per_block) {
+  const size_t smem = sizeof(float) * TQ * (size_t)m * ksub;
+  auto kernel = shared_scan_kernel<TQ, V, kScanThreads, kScanRows>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kScanThreads, smem, st>>>(luts, codes, out, n, q, m, ksub,
+                                           rows_per_block);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -449,24 +479,32 @@ RT_EXPORT int adc_scan_launch(const void* luts, long long lut_qs,
 }
 
 // luts: float32 [q, m, ksub], contiguous; codes [n, m] uint8, contiguous
-// -> out [n, q] f32. tq: queries per block (<= kMaxTileQ);
-// rows_per_block: rows of one block's chunk.
+// -> out [n, q] f32. tq: queries per block (1, 2 or 4; tq LUTs must fit
+// in shared memory); rows_per_block: rows of one block's chunk; vec: the
+// code rows are 16-byte aligned.
 RT_EXPORT int shared_scan_launch(const void* luts, const void* codes,
                                  void* out, int n, int q, int m, int ksub,
                                  int tq, int rows_per_block, int vec,
                                  void* stream) {
-  if (tq < 1 || tq > kMaxTileQ || rows_per_block < 1)
+  if ((tq != 1 && tq != 2 && tq != 4) || rows_per_block < 1)
     return cudaErrorInvalidValue;
   if (n == 0 || q == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * (size_t)tq * m * ksub;
-  cudaError_t err = cudaFuncSetAttribute(
-      shared_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((q + tq - 1) / tq, (n + rows_per_block - 1) / rows_per_block);
-  shared_scan_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(luts), static_cast<const uint8_t*>(codes),
-      static_cast<float*>(out), n, q, m, ksub, tq, rows_per_block, vec);
-  return cudaGetLastError();
+  const long long chunks = ((long long)n + rows_per_block - 1) / rows_per_block;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((q + tq - 1) / tq, (unsigned)chunks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* lf = static_cast<const float*>(luts);
+  auto* cb = static_cast<const uint8_t*>(codes);
+  auto* of = static_cast<float*>(out);
+  const bool v2 = vec && m == 32 && ksub == 256;
+#define SHARED_ARGS grid, st, lf, cb, of, n, q, m, ksub, rows_per_block
+  if (tq == 4)
+    return v2 ? launch_shared<4, 2>(SHARED_ARGS)
+              : launch_shared<4, 0>(SHARED_ARGS);
+  if (tq == 2)
+    return v2 ? launch_shared<2, 2>(SHARED_ARGS)
+              : launch_shared<2, 0>(SHARED_ARGS);
+  return v2 ? launch_shared<1, 2>(SHARED_ARGS)
+            : launch_shared<1, 0>(SHARED_ARGS);
+#undef SHARED_ARGS
 }

@@ -1,6 +1,7 @@
 // Warp-wide selection of the smallest (distance, id) keys: a warp holds
 // a sorted run of keys in registers and merges sorted or unsorted runs
-// into it with bitonic networks of shuffles (ivf_scan.cu, pq_adc.cu).
+// into it with bitonic networks of shuffles (ivf_scan.cu, pq_adc.cu,
+// topk.cu).
 #pragma once
 
 #include "topk_queue.cuh"
@@ -217,5 +218,58 @@ __device__ void merge_lists(float* qd, int* qa, int stride, int np,
   __syncwarp();
 #pragma unroll
   for (int x = 0; x < kQ; ++x) w[x].store(qd + x * stride, qa + x * stride, np);
+  __syncwarp();
+}
+
+// A warp's step of a block's selection of the k smallest keys with no
+// block barrier in the scan (adc_scan in pq_adc.cu, topk.cu): each warp
+// keeps a sorted run w of 32 R >= k keys in registers and appends the
+// keys that beat its filter to its buffer (bd, ba: 64 keys in shared
+// memory, cnt of them held). This merges the first 32 keys of the buffer
+// (pads past cnt) into the run, then publishes the run's k-th key in
+// tau_d / tau_a [kWarps] and takes the least key the block's kWarps warps
+// published as the filter (fd, fa): a key that k keys of one warp beat is
+// not among the block's k smallest.
+template <int kWarps, int R>
+__device__ __forceinline__ void flush_buffer(WarpKeys<R> (&w)[1], float* bd,
+                                             int* ba, int& cnt,
+                                             volatile float* tau_d,
+                                             volatile int* tau_a, int k,
+                                             float& fd, int& fa) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  float cd[1] = {lane < cnt ? bd[lane] : INFINITY};
+  int ca[1] = {lane < cnt ? ba[lane] : kQueueIntMax};
+  __syncwarp();
+  if (lane + 32 < cnt) {
+    bd[lane] = bd[lane + 32];
+    ba[lane] = ba[lane + 32];
+  }
+  cnt = max(0, cnt - 32);
+  merge_candidates(w, cd, ca);
+  float kd;
+  int ka;
+  w[0].key(k - 1, kd, ka);
+  if (lane == 0) {
+    tau_d[threadIdx.x / 32] = kd;
+    tau_a[threadIdx.x / 32] = ka;
+  }
+  float od = INFINITY;
+  int oa = kQueueIntMax;
+  if (lane < kWarps) {
+    od = tau_d[lane];
+    oa = tau_a[lane];
+  }
+#pragma unroll
+  for (int off = kWarps / 2; off > 0; off >>= 1) {
+    const float xd = __shfl_xor_sync(0xffffffffu, od, off);
+    const int xa = __shfl_xor_sync(0xffffffffu, oa, off);
+    if (key_less(xd, xa, od, oa)) {
+      od = xd;
+      oa = xa;
+    }
+  }
+  fd = __shfl_sync(0xffffffffu, od, 0);
+  fa = __shfl_sync(0xffffffffu, oa, 0);
   __syncwarp();
 }

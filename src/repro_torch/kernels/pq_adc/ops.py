@@ -29,8 +29,10 @@ SHARED_KERNEL = _build.Kernel("shared_scan_launch",
 MAX_K = 1792                    # as the fused scan's MAX_KK
 QUEUE_BYTES = 4096 * 8          # adc_scan's largest queue: (dist, row) slots
 MIN_CHUNK_ROWS = 4096           # adc_scan: the fewest rows a block takes
-MAX_TILE_Q = 8                  # shared_scan queries per block
-SHARED_LUT_BYTES = 64 << 10     # one block's LUTs: three blocks share an SM
+MAX_TILE_Q = 4                  # shared_scan queries per block: one 16-byte
+                                # LUT load serves four
+SHARED_BLOCKS_PER_SM = 4        # shared_scan's grid: about four blocks an SM
+MIN_SHARED_ROWS = 4096          # shared_scan: the fewest rows a block takes
 SMEM_LIMIT = 227 << 10          # shared memory a block may use on the H100
 
 
@@ -160,6 +162,33 @@ def _launch_adc(luts, lut_qs, lut_ps, per_q, codes, lists, lens, k):
     return out_d, out_i
 
 
+def shared_tile_q(q: int, m: int, ksub: int,
+                  cap: Optional[int] = None) -> int:
+    """shared_scan's queries per block: 4, 2 or 1 (the floats of one LUT
+    load), halved while half of them would still cover all ``q`` queries,
+    while above ``cap``, or while their LUTs would not fit in shared
+    memory. Raises when one LUT does not fit."""
+    lut_bytes = m * ksub * 4
+    if lut_bytes > SMEM_LIMIT:
+        raise ValueError(f"pq_shared_scan: an m={m} x ksub={ksub} LUT does "
+                         "not fit in shared memory")
+    tq = MAX_TILE_Q
+    while tq > 1 and (tq // 2 >= q or (cap is not None and tq > cap)
+                      or tq * lut_bytes > SMEM_LIMIT):
+        tq //= 2
+    return tq
+
+
+def shared_rows(n: int, tiles: int, sms: int) -> int:
+    """shared_scan's rows a block: the ``n`` rows cut into as many chunks
+    as make ``tiles`` query tiles about ``SHARED_BLOCKS_PER_SM`` blocks on
+    each of ``sms`` SMs, each at least ``MIN_SHARED_ROWS`` rows, and at
+    most 65 535 chunks (the grid's y limit)."""
+    chunks = max(1, min(n // MIN_SHARED_ROWS,
+                        -(-SHARED_BLOCKS_PER_SM * sms // tiles)))
+    return max(-(-n // chunks), -(-n // 65535), 1)
+
+
 def pq_shared_scan(luts: torch.Tensor, codes: torch.Tensor,
                    tile_n: Optional[int] = None,
                    spec: Optional[registry.KernelSpec] = None
@@ -167,10 +196,9 @@ def pq_shared_scan(luts: torch.Tensor, codes: torch.Tensor,
     """Batched-LUT shared scan: luts [q, m, ksub], codes [n, m] uint8 ->
     dists [n, q] float32 (the card takes float32 LUTs only).
 
-    ``tile_n`` (else ``spec.tile_n``, else 8192) is the rows of one
-    block's chunk; ``spec.tile_q`` caps the queries per block, which by
-    default are as many LUTs as fit in 64 KB of shared memory (at most
-    8)."""
+    ``tile_n`` (else ``spec.tile_n``, else ``shared_rows``) is the rows
+    of one block's chunk; ``spec.tile_q`` caps the queries per block
+    (``shared_tile_q``)."""
     spec = spec or registry.DEFAULT
     if _on_cpu("pq_shared_scan", luts):
         return ref_shared_scan(luts.float(), codes).T
@@ -182,13 +210,10 @@ def pq_shared_scan(luts: torch.Tensor, codes: torch.Tensor,
                          f"codes {tuple(codes.shape)}")
     _check("luts", luts, torch.float32, dev)
     _check("codes", codes, torch.uint8, dev)
-    lut_bytes = m * ksub * 4
-    tq = max(1, min(MAX_TILE_Q, q,
-                    spec.tile_q or SHARED_LUT_BYTES // lut_bytes))
-    if tq * lut_bytes > SMEM_LIMIT:
-        raise ValueError(f"pq_shared_scan: {tq} LUTs of m={m} x ksub={ksub} "
-                         "do not fit in shared memory")
-    rows = max(tile_n or spec.tile_n or 8192, -(-n // 65535), 1)
+    tq = shared_tile_q(q, m, ksub, spec.tile_q)
+    rows = tile_n or spec.tile_n or shared_rows(n, -(-q // tq),
+                                                _build.sm_count(dev))
+    rows = max(rows, -(-n // 65535), 1)
     out = torch.empty((n, q), device=dev, dtype=torch.float32)
     SHARED_KERNEL(luts.data_ptr(), codes.data_ptr(), out.data_ptr(), n, q, m,
                   ksub, tq, rows, _vec(codes, m), _build.stream_ptr(luts))

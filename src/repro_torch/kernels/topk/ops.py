@@ -1,14 +1,14 @@
-"""Approximate hierarchical top-k: the CUDA kernels' wrapper (twin of
+"""Approximate hierarchical top-k: the CUDA kernel's wrapper (twin of
 ``repro.kernels.topk.ops``).
 
-A CPU tensor runs the plain versions; a CUDA tensor calls
-``csrc/topk.cu`` once — the level-1 kernel (each column block keeps its
-k' smallest) and the level-2 kernel (the exact merge of the survivors)
-on one stream — or raises.
+A CPU tensor runs the plain versions; a CUDA tensor makes one launch of
+``csrc/topk.cu`` — level 1 (each column block keeps its k' smallest) and
+level 2 (the exact merge of the survivors) in the same kernel — or
+raises.
 
 Degenerate tilings (``n % num_blocks != 0`` or blocks shorter than k')
 get the exact top-k, as in the reference. On the card that is the same
-level-1 kernel with one block per row and k' = k, so there is no route
+kernel with one column block per row and k' = k, so there is no route
 to a plain version and nothing to count or warn about.
 """
 from __future__ import annotations
@@ -23,11 +23,27 @@ from repro_torch.kernels.topk.ref import ref_exact_topk, ref_hierarchical_topk
 
 _P, _I, _L = _build.P, _build.I, _build.L
 
-#: the CUDA entry point; ``KERNEL.launches`` counts its calls (each one
-#: level-1 launch, plus the level-2 launch when num_blocks > 1)
+#: the CUDA entry point; ``KERNEL.launches`` counts its launches (one a
+#: call: both levels run in one kernel)
 KERNEL = _build.Kernel("hierarchical_topk_launch",
-                       [_P, _L] + [_P] * 4 + [_I] * 5 + [_P])
+                       [_P, _L] + [_P] * 7 + [_I] * 7 + [_P])
 MAX_K = 1024                    # queue slots left beside one round's buffer
+WARP_MAX_K = 128                # k above this takes the shared queue path
+BLOCKS_PER_SM = 3               # the pieces' grid: about 3 blocks an SM
+MIN_PIECE_COLS = 4096           # the fewest columns a piece takes
+
+
+def topk_pieces(B: int, num_blocks: int, tile: int, k: int, sms: int) -> int:
+    """Blocks per column block: the fewest that give the ``B *
+    num_blocks`` column blocks ``BLOCKS_PER_SM`` blocks on each of
+    ``sms`` SMs (five fit an SM; every piece past the first adds a merge,
+    and more pieces measured slower), each piece at least
+    ``MIN_PIECE_COLS`` of the ``tile`` columns; 1 when k > ``WARP_MAX_K``
+    (the shared queue path takes whole column blocks)."""
+    if k > WARP_MAX_K:
+        return 1
+    want = -(-BLOCKS_PER_SM * sms // max(B * num_blocks, 1))
+    return max(1, min(want, tile // MIN_PIECE_COLS))
 
 
 def approx_topk(d: torch.Tensor, k: int, num_blocks: int = 16,
@@ -58,15 +74,22 @@ def approx_topk(d: torch.Tensor, k: int, num_blocks: int = 16,
     if not (1 <= k_prime <= MAX_K and k <= MAX_K) or n >= 2 ** 31:
         raise ValueError(f"approx_topk: k={k}, k'={k_prime} (1..{MAX_K}), "
                          f"n={n} (< 2^31)")
-    out_d = torch.empty((B, k), device=d.device, dtype=torch.float32)
-    out_i = torch.empty((B, k), device=d.device, dtype=torch.int32)
-    if num_blocks == 1:                     # level 1 is the whole answer
-        l1_d, l1_i = out_d, out_i
-    else:
-        l1_d = torch.empty((B, num_blocks, k_prime), device=d.device,
-                           dtype=torch.float32)
-        l1_i = torch.empty_like(l1_d, dtype=torch.int32)
-    KERNEL(d.data_ptr(), d.stride(0), l1_d.data_ptr(), l1_i.data_ptr(),
-           out_d.data_ptr(), out_i.data_ptr(), B, num_blocks,
-           n // num_blocks, k_prime, k, _build.stream_ptr(d))
+    dev = d.device
+    tile = n // num_blocks
+    pieces = topk_pieces(B, num_blocks, tile, k, _build.sm_count(dev))
+    vec = int(d.data_ptr() % 16 == 0 and d.stride(0) % 4 == 0
+              and tile % 4 == 0)
+    out_d = torch.empty((B, k), device=dev, dtype=torch.float32)
+    out_i = torch.empty((B, k), device=dev, dtype=torch.int32)
+    n_part = B * num_blocks * pieces * k_prime if pieces > 1 else 0
+    n_l1 = B * num_blocks * k_prime if num_blocks > 1 else 0
+    part_d = torch.empty(n_part, device=dev, dtype=torch.float32)
+    part_a = torch.empty(n_part, device=dev, dtype=torch.int32)
+    l1_d = torch.empty(n_l1, device=dev, dtype=torch.float32)
+    l1_a = torch.empty(n_l1, device=dev, dtype=torch.int32)
+    counters = _build.merge_counters(KERNEL.symbol, d, B * num_blocks + B)
+    KERNEL(d.data_ptr(), d.stride(0), part_d.data_ptr(), part_a.data_ptr(),
+           l1_d.data_ptr(), l1_a.data_ptr(), out_d.data_ptr(),
+           out_i.data_ptr(), counters.data_ptr(), B, num_blocks, tile,
+           pieces, k_prime, k, vec, _build.stream_ptr(d))
     return out_d, out_i

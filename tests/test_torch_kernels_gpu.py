@@ -415,7 +415,7 @@ def test_adc_scan_back_to_back_launches(dev):
 
 @pytest.mark.parametrize("q,n,m,ksub", [
     (1, 5000, 32, 256), (32, 20000, 32, 256), (128, 3001, 32, 256),
-    (32, 777, 8, 16),                  # scalar code path, 8 queries/block
+    (32, 777, 8, 16),                  # byte path, four queries a block
 ])
 def test_shared_scan_kernel(dev, q, n, m, ksub):
     g = _gen(dev, 7)
@@ -430,6 +430,30 @@ def test_shared_scan_kernel(dev, q, n, m, ksub):
     assert torch.equal(out, want)
     small = pq.pq_shared_scan(luts, codes, tile_n=256)     # many row chunks
     assert torch.equal(small, want)
+
+
+@pytest.mark.parametrize("q", [1, 5, 32, 33])
+@pytest.mark.parametrize("m,ksub,aligned", [
+    (8, 256, True), (16, 256, True), (32, 256, True), (64, 256, True),
+    (32, 16, True),                    # ksub != 256
+    (32, 256, False),                  # unaligned rows: the byte path
+])
+def test_shared_scan_shapes(dev, q, m, ksub, aligned):
+    """Query counts that fill 1, 2 or 4 queries a block or leave a ragged
+    last tile, every m, ksub != 256, unaligned code rows, and row chunks
+    that do not divide n: bit for bit the plain version."""
+    g = _gen(dev, 23)
+    n = 3001
+    luts = torch.randn((q, m, ksub), generator=g, device=dev)
+    buf = torch.randint(0, ksub, (n * m + 1,), generator=g, device=dev
+                        ).to(torch.uint8)
+    codes = (buf[:n * m] if aligned else buf[1:]).view(n, m)
+    assert (codes.data_ptr() % 16 == 0) == aligned
+    want = pq.ref_shared_scan(luts, codes).T
+    for tile_n in (None, 1000):
+        out = pq.pq_shared_scan(luts, codes, tile_n=tile_n)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 # ---------------------------------------------------------------------------
@@ -461,20 +485,115 @@ def test_hierarchical_topk_kernel(dev, B, n, k, num_blocks, k_prime):
     assert bool((ik[1] == -1).all())
 
 
-@pytest.mark.parametrize("n,num_blocks,k", [(500, 16, 10), (64, 16, 10),
-                                            (30, 4, 40)])
-def test_hierarchical_topk_degenerate_tiling_is_exact(dev, n, num_blocks, k):
+@pytest.mark.parametrize("B,n,num_blocks,k", [(4, 500, 16, 10),
+                                              (4, 64, 16, 10),
+                                              (4, 30, 4, 40),
+                                              (4, 50001, 16, 63),
+                                              (2, 40001, 8, 300)])
+def test_hierarchical_topk_degenerate_tiling_is_exact(dev, B, n, num_blocks,
+                                                       k):
     """Tilings the hierarchy cannot split run the same kernel with one
-    block per row and k' = k: the exact top-k, in one launch."""
+    column block per row and k' = k: the exact top-k, in one launch (the
+    rows of 50 001 columns are split between blocks, k = 300 takes the
+    shared queue)."""
     g = _gen(dev, 9)
-    d = torch.randn((4, n), generator=g, device=dev)
-    d[3, ::3] = 0.25
+    d = torch.randn((B, n), generator=g, device=dev)
+    d[-1, ::3] = 0.25
     before = tk.KERNEL.launches
     dk, ik = tk.approx_topk(d, k, num_blocks=num_blocks)
     de, ie = tk.ref_exact_topk(d, k)
     torch.cuda.synchronize()
     assert tk.KERNEL.launches == before + 1
     assert torch.equal(ik, ie) and torch.equal(dk, de)
+
+
+def _check_topk(dev, d, k, num_blocks, k_prime):
+    """One call against the plain version, array for array."""
+    kp = min(max(k_prime or tk.truncated_queue_len(k, num_blocks), 1), k)
+    before = tk.KERNEL.launches
+    dk, ik = tk.approx_topk(d, k, num_blocks=num_blocks, k_prime=k_prime)
+    dp, ip = tk.ref_hierarchical_topk(d, k, num_blocks, kp)
+    torch.cuda.synchronize()
+    assert tk.KERNEL.launches == before + 1
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+    return dk, ik
+
+
+@pytest.mark.parametrize("k,k_prime", [(10, 1), (100, 15), (100, 32),
+                                       (100, 33), (128, 128), (200, 129)])
+def test_hierarchical_topk_queue_lengths(dev, k, k_prime):
+    """k' at 1 and at each run size's edges (32, 64 < 128, then the shared
+    queue past 128), over column blocks split between blocks; a row of
+    +inf and a column block with fewer than k' finite entries."""
+    g = _gen(dev, 18)
+    B, num_blocks, tile = 8, 4, 20000
+    assert tk.topk_pieces(B, num_blocks, tile, k, 132) == \
+        (1 if k > tk.WARP_MAX_K else 4)
+    d = torch.randn((B, num_blocks * tile), generator=g, device=dev)
+    d[1] = float("inf")
+    d[2, tile:2 * tile] = float("inf")
+    d[2, tile + 7:tile + 7 + k_prime // 2] = -0.5     # < k' finite
+    d[3, ::5] = 0.0                                   # ties
+    _, ik = _check_topk(dev, d, k, num_blocks, k_prime)
+    assert bool((ik[1] == -1).all())
+
+
+def test_hierarchical_topk_tie_group_across_pieces(dev):
+    """A group of equal smallest distances cut by the boundaries between
+    a column block's pieces: the lower columns win, whichever block of the
+    launch held them."""
+    g = _gen(dev, 19)
+    B, num_blocks, tile, k, k_prime = 2, 2, 20000, 40, 15
+    pieces = tk.topk_pieces(B, num_blocks, tile, k, 132)
+    assert pieces == 4
+    d = torch.rand((B, num_blocks * tile), generator=g, device=dev) + 1.0
+    for p in range(1, pieces):                        # piece boundaries
+        c = tile * p // pieces
+        d[:, c - 6:c + 6] = 0.5
+        d[:, tile + c - 9:tile + c + 3] = 0.5
+    _, ik = _check_topk(dev, d, k, num_blocks, k_prime)
+    assert int(ik[0, 0]) == tile // pieces - 6
+
+
+def test_hierarchical_topk_keeps_the_truncation(dev):
+    """A row whose true top-k lies in one column block: the approximate
+    result keeps only that block's k' smallest, so it differs from the
+    exact top-k, and it must equal the plain version."""
+    g = _gen(dev, 20)
+    B, num_blocks, tile, k = 4, 16, 8192, 100
+    d = torch.rand((B, num_blocks * tile), generator=g, device=dev) + 1.0
+    d[0, 3 * tile:3 * tile + 200] = torch.rand(200, generator=g, device=dev)
+    _, ik = _check_topk(dev, d, k, num_blocks, None)
+    _, ie = tk.ref_exact_topk(d, k)
+    assert not torch.equal(ik[0], ie[0])
+
+
+def test_hierarchical_topk_back_to_back_launches(dev):
+    """Calls in a row on one stream with new inputs and grids, each equal
+    to the plain version: the merge counters are back at 0."""
+    g = _gen(dev, 21)
+    for B, n, num_blocks, k in ((32, 479232, 16, 100), (8, 80000, 4, 63),
+                                (32, 479232, 16, 100), (3, 60000, 2, 10)):
+        d = torch.randn((B, n), generator=g, device=dev)
+        d[:, n // 2:n // 2 + 3000] = float("inf")
+        _check_topk(dev, d, k, num_blocks, None)
+
+
+def test_hierarchical_topk_is_one_kernel(dev):
+    """Both levels run in one kernel: the profiler sees one device kernel
+    of topk.cu a call."""
+    d = torch.randn((32, 479232), generator=_gen(dev, 22), device=dev)
+    tk.approx_topk(d, 100)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tk.approx_topk(d, 100)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "topk" in e.key]
+    assert [e.count for e in kernels] == [1]
 
 
 def test_new_wrappers_reject_what_they_cannot_run(dev):
