@@ -36,7 +36,14 @@ failure raises, so the run exits non-zero):
      same traffic through a staged deployment (search_config(fused=False):
      one adc_scan launch per shard per flush), three runs alternating
      with three more fused runs, whose tokens must all equal the fused
-     runs'. After the timed runs: one sampled request drawing from a
+     runs'. Then serve.spec: the same traffic with speculative retrieval
+     (speculate_k 1 and 2, each run once beside a fused run), whose
+     tokens must equal the fused runs' and whose speculation counters
+     are printed; and retrieval.cache: the service's result cache on the
+     same datastore with one wave's real queries (full hit without a
+     launch, half hit that scans only the missed rows, stale lookup, and
+     a raising scan that leaves (+inf, -1) partial results and
+     re-raises). After the timed runs: one sampled request drawing from a
      CUDA generator, a profile of the fused and of the staged decode
      waves, and the accuracy witness: the same traffic with exact
      (flat L2) search over every key in place of the PQ index, with the
@@ -661,18 +668,21 @@ def kernel_hierarchical_topk(torch, dev, timer, d, k, num_blocks, report):
 # serve phase
 # ---------------------------------------------------------------------------
 
-def checked_engine(torch, dev, arch, cfg, params, ds, sizes, fused):
+def checked_engine(torch, dev, arch, cfg, params, ds, sizes, fused,
+                   **config_kw):
     """The serve phase's engine through RalmEngine.from_config (async
-    retrieval, fused or staged scan), wrapped so that finiteness and
-    id-range checks accumulate on the device (no syncs); ``check()``
-    raises if any of them failed."""
+    retrieval, fused or staged scan, ``config_kw`` as further
+    ``EngineConfig`` fields), wrapped so that finiteness and id-range
+    checks accumulate on the device (no syncs); ``check()`` raises if
+    any of them failed."""
     from repro_torch.serve import EngineConfig, RalmEngine
 
     search_cfg = ds.search_config(nprobe=sizes["nprobe"], k=arch.rag.k,
                                   fused=fused)
     eng = RalmEngine.from_config(
         EngineConfig(model=cfg, rag=arch.rag, max_seq=sizes["max_seq"],
-                     async_retrieval=True, retrieval_measure=False),
+                     async_retrieval=True, retrieval_measure=False,
+                     **config_kw),
         params, ds, search_cfg, device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
     n_vec = ds.num_vectors
@@ -768,7 +778,8 @@ def drive(torch, eng, cfg, prompts, truth, steps, label):
         raise AssertionError(f"launches {launches} != expected {want} "
                              f"({flushes} flushes, {scans} scans)")
     return dict(tps=tokens / wall, acc=acc, gen=gen, launches=launches,
-                ms_wave=(wall - t_first) / waves * 1e3)
+                ms_wave=(wall - t_first) / waves * 1e3, waves=waves,
+                wall=wall, t_first=t_first)
 
 
 def median(xs):
@@ -839,6 +850,174 @@ def serve_staged(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
         fused_decode_ms_per_wave_median=(
             f"{median([r['ms_wave'] for r in fused]):.2f}"))
     return eng, staged[0]["launches"]
+
+
+def first_difference(got, want, rows):
+    """(request, row, step) of the first token where ``got`` differs
+    from ``want`` ([R * rows, steps] each), with the two tokens."""
+    import numpy as np
+
+    r, s = (int(x) for x in np.argwhere(got != want)[0])
+    return dict(request=r // rows, row=r % rows, step=s,
+                got=int(got[r, s]), want=int(want[r, s]))
+
+
+def serve_spec(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
+               fused_eng, fused_gen):
+    """Speculative retrieval on the serve traffic: engines with
+    speculate_k 1 and 2 through RalmEngine.from_config, each driven once
+    (launches held to dispatches as in every run), alternating with a
+    speculation-off fused run so that the rates share the call's host.
+    Greedy tokens must equal the fused runs'. Returns the speculating
+    runs' numbers."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    steps, B = sizes["steps"], sizes["rows"]
+    out = []
+    for k in (1, 2):
+        eng, _, check = checked_engine(torch, dev, arch, cfg, params, ds,
+                                       sizes, fused=True, speculate_k=k)
+        run = drive(torch, eng, cfg, prompts, truth, steps,
+                    f"serve.spec_k{k}")
+        off = drive(torch, fused_eng, cfg, prompts, truth, steps, "serve.run")
+        check()
+        if not np.array_equal(run["gen"], fused_gen):
+            raise AssertionError(
+                f"speculate_k={k}: tokens differ from the fused runs' at "
+                f"{first_difference(run['gen'], fused_gen, B)}")
+        st = eng.spec_stats
+        if st.spec_issued <= 0 or \
+                st.spec_accepted + st.spec_rollbacks != st.spec_verified:
+            raise AssertionError(f"speculation counters: {st.snapshot()}")
+        ms = lambda stage: (f"{stage.mean_s * 1e3:.3f}/"
+                            f"{stage.max_s * 1e3:.3f}")
+        row = dict(
+            speculate_k=k, tokens_equal_to_fused=True,
+            tokens_per_s=f"{run['tps']:.1f}",
+            off_tokens_per_s=f"{off['tps']:.1f}",
+            decode_ms_per_wave=(
+                f"{(run['wall'] - run['t_first']) / (steps - 1) * 1e3:.2f}"),
+            off_decode_ms_per_wave=f"{off['ms_wave']:.2f}",
+            decode_waves=run["waves"], off_decode_waves=off["waves"],
+            issued=st.spec_issued, verified=st.spec_verified,
+            accepted=st.spec_accepted, rollbacks=st.spec_rollbacks,
+            discarded=st.spec_discarded,
+            replayed_steps=st.spec_replayed_steps,
+            acceptance_rate=f"{st.spec_acceptance_rate():.4f}",
+            landed_share=f"{st.spec_landed / max(st.spec_verified, 1):.4f}",
+            spec_wait_ms_mean_max=ms(st.spec_wait),
+            spec_replay_ms_mean_max=ms(st.spec_replay),
+            rewinds=eng.pool.stats.rewinds,
+            search_flushes=st.num_batches)
+        log("serve.spec", t0, **row)
+        out.append(row)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+class ScanFailure(RuntimeError):
+    """Raised by ``FailingPipeline``; the failure check catches only it."""
+
+
+class FailingPipeline:
+    """A retrieval pipeline whose scan raises, for the service's failure
+    path on the card."""
+
+    def __init__(self, k):
+        self.k, self.scan_dispatches = k, 1
+
+    def scan(self, queries):
+        raise ScanFailure(f"scan of {tuple(queries.shape)} failed")
+
+
+def retrieval_cache(torch, dev, eng, prompts, sizes):
+    """The service's result cache on the card's datastore, with one
+    wave's 32 real query rows (the serve traffic's step-0 queries, from
+    the prefill): a repeated batch is a full hit (no launch, bit-equal
+    results); a batch whose even rows are cached sends only its odd rows
+    to the scan and stitches them back (ids and distances equal to a
+    cacheless service's); after a generation bump ``stale_lookup`` still
+    serves the cached ids while the fresh lookup misses; and a scan that
+    raises leaves handles resolving to (+inf, -1), flagged partial,
+    while ``flush`` re-raises."""
+    from repro_torch.kernels import _build
+    from repro_torch.retrieval import RetrievalService, ServiceConfig
+
+    t0 = time.perf_counter()
+    q = torch.cat([eng.backend.prefill(
+        eng.rag, torch.from_numpy(p).to(dev, torch.int32),
+        sizes["max_seq"])[2] for p in prompts]).float()
+    pipeline = eng.retriever.service.pipeline
+
+    def service(**kw):
+        return RetrievalService(pipeline, ServiceConfig(measure=False, **kw))
+
+    def launches():
+        return {n: kern.launches for n, kern in _build.kernels().items()}
+
+    bare_d, bare_i = service().search(q)
+    cached = service(cache_entries=256)
+    d0, i0 = cached.search(q)
+    before, scans0 = launches(), cached.stats.scan_dispatches
+    h = cached.submit(q)
+    d1, i1 = h.result()
+    if not (h.done() and launches() == before and
+            cached.stats.scan_dispatches == scans0 and
+            torch.equal(d1, d0) and torch.equal(i1, i0) and
+            d1.device == q.device and d1.dtype == torch.float32 and
+            i1.dtype == torch.int32):
+        raise AssertionError("a repeated batch was not a bit-equal full hit")
+    half = service(cache_entries=256)
+    half.search(q[0::2])
+    rows0, scans0 = half.stats.batched_rows, half.stats.scan_dispatches
+    h = half.submit(q)
+    half.flush()
+    d2, i2 = h.result()
+    sent = half.stats.batched_rows - rows0
+    if not (sent == q.shape[0] // 2 and
+            half.stats.scan_dispatches == scans0 + 1 and
+            torch.equal(i2, bare_i) and torch.equal(d2, bare_d)):
+        raise AssertionError(f"half-hit batch: {sent} rows scanned, ids "
+                             f"equal {torch.equal(i2, bare_i)}, dists "
+                             f"equal {torch.equal(d2, bare_d)}")
+    half.mark_cache_stale()
+    stale = half.stale_lookup(q)
+    stale0 = half.stats.cache_stale
+    h = half.submit(q)
+    missed = half.stats.cache_stale - stale0
+    fresh_missed = not h.done()
+    h.result()
+    if not (stale is not None and torch.equal(stale[1], i2) and
+            fresh_missed and missed == q.shape[0]):
+        raise AssertionError("stale lookup / generation bump")
+    failing = RetrievalService(FailingPipeline(pipeline.k),
+                               ServiceConfig(measure=False))
+    half_rows = q.shape[0] // 2
+    handles = [failing.submit(q[:half_rows]),
+               failing.submit(q[half_rows:])]
+    try:
+        failing.flush()
+    except ScanFailure:
+        pass
+    else:
+        raise AssertionError("flush did not re-raise the scan's failure")
+    for h in handles:
+        d, i = h.result()
+        if not (h.partial and d.device == q.device and
+                d.dtype == torch.float32 and i.dtype == torch.int32 and
+                torch.isinf(d).all() and
+                bool((i == -1).all())):
+            raise AssertionError("failed flush: handle not (+inf, -1), "
+                                 "partial, on the card")
+    if failing.num_inflight:
+        raise AssertionError("failed flush left entries in flight")
+    log("retrieval.cache", t0, rows=q.shape[0], full_hit_launches=0,
+        full_hit_bit_equal=True, half_hit_rows_scanned=sent,
+        stitched_equal_to_cacheless=True, stale_ids_equal=True,
+        fresh_after_bump_missed=missed, failed_flush_sentinel=True,
+        failed_flush_reraised=True)
 
 
 def sampled_request(torch, eng, prompt, vocab, steps):
@@ -1002,6 +1181,9 @@ def run_phases(torch, dev, sizes):
                                       ds, sizes)
     staged_eng, staged = serve_staged(torch, dev, arch, cfg, params, ds,
                                       sizes, prompts, truth, eng)
+    serve_spec(torch, dev, arch, cfg, params, ds, sizes, prompts, truth, eng,
+               runs[0]["gen"])
+    retrieval_cache(torch, dev, eng, prompts, sizes)
     # after every timed serve run: a profiled window leaves the profiler's
     # hooks behind, which slows the host side of later waves
     sampled_request(torch, eng, prompts[0], cfg.vocab_size, steps=16)

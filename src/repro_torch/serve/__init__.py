@@ -15,7 +15,7 @@ from repro_torch.serve.api import (AsyncRetriever, EngineConfig,
                                    Retriever)
 from repro_torch.serve.datastore import Datastore, DatastoreBuilder
 from repro_torch.serve.engine import (MonolithicBackend, RalmEngine,
-                                      SequenceState)
+                                      SequenceState, SpecPoint)
 from repro_torch.serve.kvpool import KVCachePool, PoolStats
 from repro_torch.serve.scheduler import RalmScheduler
 
@@ -24,5 +24,5 @@ __all__ = [
     "KVCachePool", "LocalRetriever", "MonolithicBackend", "PoolStats",
     "RagConfig", "RalmEngine", "RalmRequest", "RalmResponse",
     "RalmScheduler", "RetrievalService", "Retriever", "SearchHandle",
-    "SequenceState", "ServiceConfig",
+    "SequenceState", "ServiceConfig", "SpecPoint",
 ]

@@ -46,6 +46,9 @@ class RalmRequest:
     trace: Optional[list] = None
     request_id: Optional[int] = None     # assigned at submit()
     times: RequestTiming = dataclasses.field(default_factory=RequestTiming)
+    partial_steps: int = 0               # decode steps served from a
+    #                                      partial retrieval result (a
+    #                                      failed flush's sentinel)
 
 
 @dataclasses.dataclass
@@ -55,6 +58,9 @@ class RalmResponse:
     steps: int
     trace: Optional[list] = None
     times: Optional[RequestTiming] = None
+    partial_steps: int = 0               # steps decoded on partial
+    #                                      retrieval results (0 = full
+    #                                      quality throughout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +72,24 @@ class EngineConfig:
     max_active: Optional[int] = None     # scheduler admission limit
     async_retrieval: bool = False        # route search through a
     #                                      RetrievalService (AsyncRetriever)
+    retrieval_cache: int = 0             # service LRU cache entries (0=off)
+    speculate_k: int = 0                 # speculative retrieval depth: max
+    #                                      speculation points a sequence
+    #                                      keeps outstanding (0 = off). A
+    #                                      due row decodes ahead on its
+    #                                      previous (stale) neighbors
+    #                                      while the real search runs
+    #                                      async; verification happens
+    #                                      speculate_k waves later, off
+    #                                      the critical path. Requires
+    #                                      async_retrieval.
+    speculate_verify: bool = True        # verify speculated tokens against
+    #                                      the real neighbors and roll
+    #                                      back on mismatch (greedy
+    #                                      parity with speculation off).
+    #                                      False trusts stale neighbors
+    #                                      outright — bounded quality
+    #                                      drift for zero rollback cost
     retrieval_measure: bool = True       # per-stage service timings (a
     #                                      device sync per stage)
     kv_slots: Optional[int] = None       # KV pool capacity in prompt rows;
@@ -134,13 +158,20 @@ class LocalRetriever:
 @dataclasses.dataclass
 class AsyncRetriever:
     """``Retriever`` backed by a ``RetrievalService``: ``search_async``
-    enqueues, ``flush`` runs every queued query of a wave as one batch."""
+    enqueues, ``flush`` runs every queued query of a wave as one batch,
+    ``stale_lookup`` probes the service's cache for speculation seeds."""
     service: RetrievalService
     payload_tokens: Optional[torch.Tensor] = None
     query_proj: Optional[torch.Tensor] = None
 
     def search_async(self, queries: torch.Tensor) -> SearchHandle:
         return self.service.submit(_project(queries, self.query_proj))
+
+    def stale_lookup(self, queries: torch.Tensor
+                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """Any-generation cache probe: possibly stale neighbours to seed
+        speculative decode (None on a miss or without a cache)."""
+        return self.service.stale_lookup(_project(queries, self.query_proj))
 
     def flush(self) -> None:
         self.service.flush()

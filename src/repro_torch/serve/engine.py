@@ -13,14 +13,22 @@ One wave step, driven by the scheduler:
     the due rows, one greedy argmax over the greedy rows.
 
 The step-0 retrieval query is the prefill's last-position hidden state.
-Speculative retrieval, the disaggregated backend, the tracer and the
-per-sequence decode loop are later slices.
+
+Speculative retrieval (RaLMSpec, arXiv 2401.14021; ``speculate_k > 0``):
+a due greedy row decodes ahead on its last verified neighbours (or a
+stale cache entry) while its real search is in flight;
+``spec_harvest`` verifies it 1..k waves later by re-mixing the saved
+logits with the real neighbours, and a mismatch rolls the sequence back
+(``KVCachePool.rewind``) and replays it, so greedy tokens equal the
+tokens with speculation off. The disaggregated backend, the tracer and
+the per-sequence decode loop are later slices.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, List, Optional, Tuple
+import warnings
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +40,7 @@ from repro_torch.core.rag import RagConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.retrieval.service import ServiceConfig
+from repro_torch.retrieval.stats import RetrievalStats
 from repro_torch.serve.api import (EngineConfig, RalmRequest, RalmResponse,
                                    Retriever)
 from repro_torch.serve.kvpool import KVCachePool, next_pow2
@@ -69,6 +78,38 @@ class MonolithicBackend:
 
 
 @dataclasses.dataclass
+class SpecPoint:
+    """One outstanding speculation: a retrieval-due step that decoded
+    ahead on stale neighbours while the real search runs.
+
+    Everything needed to verify later, and to roll back on a mismatch,
+    is captured at emit time: the pre-interpolation LM logits (so the
+    verification mix is the one the baseline would have computed), the
+    token emitted from the stale mix, and the ``seq.out`` length before
+    that emit (the truncation watermark)."""
+    step: int                      # the due step that speculated
+    handle: Any                    # SearchHandle of the real search
+    logits: torch.Tensor           # [B, V] LM logits at `step`
+    emitted: torch.Tensor          # [B, 1] token emitted from the stale mix
+    out_len: int                   # len(seq.out) BEFORE the emit
+    age: int = 0                   # waves since issue; verified when it
+    #                                reaches the speculation depth
+
+
+class _SpecIssue:
+    """Marker for a speculated row: ``finish_wave`` mixes the stale
+    ``(dists, ids)`` instead of waiting on ``handle`` (the real search,
+    resolved by ``spec_harvest`` 1..k waves later)."""
+
+    __slots__ = ("handle", "dists", "ids")
+
+    def __init__(self, handle, dists, ids):
+        self.handle = handle
+        self.dists = dists
+        self.ids = ids
+
+
+@dataclasses.dataclass
 class SequenceState:
     """One active request's decode state; its KV lives in the engine's
     pool at rows ``slots`` (one per prompt row)."""
@@ -81,6 +122,19 @@ class SequenceState:
     rng: Optional[torch.Generator]
     step: int = 0
     slots: Optional[np.ndarray] = None
+    last_neighbors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    #                                      most recent VERIFIED (dists,
+    #                                      ids): the stale neighbours the
+    #                                      next due step speculates with
+    spec_points: List[SpecPoint] = dataclasses.field(default_factory=list)
+    wave_shapes: Dict[int, Tuple[int, int]] = dataclasses.field(
+        default_factory=dict)            # step -> (bucket, kv_len) of the
+    #                                      wave that decoded it
+    search_rows: Dict[int, int] = dataclasses.field(default_factory=dict)
+    #                                      step -> rows its search flush
+    #                                      was submitted with (both kept
+    #                                      only while speculating, for
+    #                                      rollback replays)
 
     @property
     def done(self) -> bool:
@@ -104,11 +158,15 @@ class RalmEngine:
                  rag: Optional[RagConfig] = None,
                  max_seq: Optional[int] = None,
                  max_active: Optional[int] = None,
-                 kv_slots: Optional[int] = None, attn_seq_block: int = 16):
+                 kv_slots: Optional[int] = None, attn_seq_block: int = 16,
+                 speculate_k: int = 0, speculate_verify: bool = True):
         """``kv_slots`` fixes the pool capacity in rows (admission defers
         until completions free slots; ``None`` grows on demand).
         ``attn_seq_block`` is the pool's seq-axis quantum: each wave's
-        attention reads crop to the block-aligned valid prefix."""
+        attention reads crop to the block-aligned valid prefix.
+        ``speculate_k`` is the speculation depth (0 = off) and
+        ``speculate_verify`` whether speculated tokens are verified and
+        rolled back (see ``EngineConfig``)."""
         self.backend = backend
         self.retriever = retriever
         self.rag = rag if rag is not None else RagConfig(mode="none")
@@ -117,6 +175,27 @@ class RalmEngine:
         self.max_seq = max_seq
         self.kv_slots = kv_slots
         self.attn_seq_block = attn_seq_block
+        # -- speculative retrieval (RaLMSpec, arXiv 2401.14021) --------
+        self.speculate_k = int(speculate_k)
+        self.speculate_verify = speculate_verify
+        if self.speculate_k > 0 and (self.cfg.ssm_state > 0 or
+                                     self.cfg.block in ("rwkv6", "hybrid")):
+            warnings.warn(
+                f"speculate_k > 0 is unsupported for recurrent-state "
+                f"blocks (block={self.cfg.block!r}, ssm_state="
+                f"{self.cfg.ssm_state}): the state update cannot be "
+                "rewound on rollback — disabling speculation.",
+                RuntimeWarning, stacklevel=2)
+            self.speculate_k = 0
+        # verification depth in waves. Ring (sliding-window) caches alias
+        # KV positions modulo the window, so only a depth-1 rollback
+        # rewrites exactly the slots it invalidated: deeper speculation
+        # is clamped for windowed models (see KVCachePool.rewind).
+        self._spec_depth = self.speculate_k
+        if self.speculate_k > 0 and self.cfg.window > 0 and \
+                "local" in self.cfg.pattern_classes():
+            self._spec_depth = 1
+        self._local_spec_stats: Optional[RetrievalStats] = None
         self.pool: Optional[KVCachePool] = None   # built at first admission
         self.scheduler = RalmScheduler(self, max_active=max_active)
         self._unclaimed: List[RalmResponse] = []
@@ -133,11 +212,13 @@ class RalmEngine:
                    retriever: Optional[Retriever] = None,
                    max_seq: Optional[int] = None,
                    kv_slots: Optional[int] = None,
-                   attn_seq_block: int = 16) -> "RalmEngine":
+                   attn_seq_block: int = 16, speculate_k: int = 0,
+                   speculate_verify: bool = True) -> "RalmEngine":
         """An engine on the device the ``params`` live on."""
         return cls(MonolithicBackend(params, cfg), retriever, rag,
                    max_seq=max_seq, kv_slots=kv_slots,
-                   attn_seq_block=attn_seq_block)
+                   attn_seq_block=attn_seq_block, speculate_k=speculate_k,
+                   speculate_verify=speculate_verify)
 
     @classmethod
     def from_config(cls, config: EngineConfig, params, datastore,
@@ -152,16 +233,35 @@ class RalmEngine:
         datastore = datastore.to(dev)
         if query_proj is not None:
             query_proj = query_proj.to(dev)
+        if config.retrieval_cache > 0 and not config.async_retrieval:
+            warnings.warn(
+                "EngineConfig.retrieval_cache requires "
+                "async_retrieval=True (the cache lives in the "
+                "RetrievalService) — ignoring it.", RuntimeWarning,
+                stacklevel=2)
+        speculate_k = config.speculate_k
+        if speculate_k > 0 and not config.async_retrieval:
+            warnings.warn(
+                "EngineConfig.speculate_k requires "
+                "async_retrieval=True (speculation hides the "
+                "RetrievalService's async scan behind decode; a "
+                "synchronous retriever has nothing to hide) — "
+                "disabling speculation.", RuntimeWarning, stacklevel=2)
+            speculate_k = 0
         if config.async_retrieval:
             retriever = datastore.async_retriever(
                 search_cfg, query_proj=query_proj,
-                service_cfg=ServiceConfig(measure=config.retrieval_measure))
+                service_cfg=ServiceConfig(
+                    cache_entries=config.retrieval_cache,
+                    measure=config.retrieval_measure))
         else:
             retriever = datastore.retriever(search_cfg, query_proj=query_proj)
         eng = cls.monolithic(params, config.model, config.rag,
                              retriever=retriever, max_seq=config.max_seq,
                              kv_slots=config.kv_slots,
-                             attn_seq_block=config.attn_seq_block)
+                             attn_seq_block=config.attn_seq_block,
+                             speculate_k=speculate_k,
+                             speculate_verify=config.speculate_verify)
         eng.scheduler.max_active = config.max_active
         return eng
 
@@ -200,7 +300,15 @@ class RalmEngine:
         return pool
 
     def release(self, seq: SequenceState) -> None:
-        """Return a finished sequence's slot rows to the pool."""
+        """Return a finished sequence's slot rows to the pool. The
+        scheduler settles speculation points (``spec_finalize``) first;
+        any left here are discarded unverified."""
+        if seq.spec_points:
+            stats = self.spec_stats
+            for p in seq.spec_points:
+                p.handle.cancel()
+                stats.spec_discarded += 1
+            seq.spec_points.clear()
         if seq.slots is not None and self.pool is not None:
             self.pool.release(seq.slots)
             seq.slots = None
@@ -243,10 +351,16 @@ class RalmEngine:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     @torch.no_grad()
-    def dispatch_wave(self, seqs: List[SequenceState]
+    def dispatch_wave(self, seqs: List[SequenceState],
+                      shape: Optional[Tuple[int, int]] = None
                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """ONE ``decode_wave`` for every step>0 sequence; returns each
-        sequence's (logits [B, V], hidden [B, d])."""
+        sequence's (logits [B, V], hidden [B, d]). ``shape`` = (bucket,
+        kv_len) pads the wave to ``bucket`` rows and reads ``kv_len``
+        positions instead of the wave's own: a rollback replays a step
+        at the shape of the wave that first decoded it, because on the
+        card a row's bits can depend on the shape of the wave it runs in
+        (``tools/spec_replay_shapes.py``)."""
         outs: List = [None] * len(seqs)
         wave = []
         for i, seq in enumerate(seqs):
@@ -264,8 +378,17 @@ class RalmEngine:
             [np.full(seq.cur.shape[0], seq.t0 + seq.step - 1, np.int32)
              for _, seq in wave])
         max_pos = int(positions.max())
-        tokens, slots, positions = pool.pad_wave(tokens, slots, positions)
-        kv_len = pool.attn_len(max_pos, bucket=len(slots))
+        if shape is None:
+            tokens, slots, positions = pool.pad_wave(tokens, slots,
+                                                     positions)
+            kv_len = pool.attn_len(max_pos, bucket=len(slots))
+        else:
+            tokens, slots, positions = pool.pad_wave(
+                tokens, slots, positions, bucket=shape[0])
+            kv_len = shape[1]
+        if self.speculate_k > 0:
+            for _, seq in wave:
+                seq.wave_shapes[seq.step] = (len(slots), kv_len)
         logits, pool.caches, hidden = self.backend.decode_wave(
             pool.caches, tokens, self._to_device(slots),
             self._to_device(positions), kv_len=kv_len)
@@ -289,7 +412,22 @@ class RalmEngine:
             return searches
         submit = getattr(self.retriever, "search_async", None)
         if submit is not None:
+            rows = sum(decoded[i][1].shape[0] for i in due)
             for i in due:
+                seq = seqs[i]
+                if self.speculate_k > 0:
+                    seq.search_rows[seq.step] = rows
+                if self._spec_eligible(seq):
+                    src = self._spec_source(seq, decoded[i][1])
+                    if src is not None:
+                        # the real search coalesces into this wave's
+                        # flush; decode continues on the stale
+                        # neighbours; spec_harvest verifies 1..k waves
+                        # later
+                        searches[i] = _SpecIssue(submit(decoded[i][1]),
+                                                 src[0], src[1])
+                        self.spec_stats.spec_issued += 1
+                        continue
                 searches[i] = submit(decoded[i][1])
             return searches
         queries = torch.cat([decoded[i][1] for i in due], dim=0)
@@ -312,15 +450,30 @@ class RalmEngine:
         rag = self.rag
         rows: List[torch.Tensor] = []
         knn = []                # (row index, logits, dists, ids)
+        spec_new = []           # (seq, _SpecIssue, logits)
         for seq, (logits, _), search in zip(seqs, decoded, searches):
-            if search is not None:
+            if isinstance(search, _SpecIssue):
+                # speculated row: mix the STALE neighbours now; the real
+                # search stays in flight, and its trace entry waits for
+                # verification
+                knn.append((len(rows), logits, search.dists, search.ids))
+                spec_new.append((seq, search, logits))
+            elif search is not None:
                 dists, ids = (search.result() if hasattr(search, "result")
                               else search)
+                partial = getattr(search, "partial", False)
+                if partial:
+                    seq.request.partial_steps += 1
                 if seq.request.trace is not None:
                     seq.request.trace.append(
                         dict(step=seq.step, ids=ids.cpu().numpy()))
                 if rag.mode == "knnlm":
                     knn.append((len(rows), logits, dists, ids))
+                    if self.speculate_k > 0 and not partial:
+                        # a non-speculated due row refreshes the seed the
+                        # NEXT due step speculates with (a partial result
+                        # would seed it with degraded neighbours)
+                        seq.last_neighbors = (dists, ids)
             rows.append(logits)
         if knn:
             toks = self.retriever.resolve(
@@ -350,6 +503,13 @@ class RalmEngine:
             draw = torch.multinomial(probs.to(seq.rng.device), 1,
                                      generator=seq.rng)[:, 0]
             self._emit(seq, draw.to(self.device, torch.int32))
+        # register the wave's speculation points AFTER the emits, so each
+        # captures the token it produced and the pre-emit out length
+        # (eligibility makes these rows greedy)
+        for seq, issue, logits in spec_new:
+            seq.spec_points.append(SpecPoint(
+                step=seq.step - 1, handle=issue.handle, logits=logits,
+                emitted=seq.cur, out_len=len(seq.out) - 1))
 
     def _emit(self, seq: SequenceState, nxt: torch.Tensor) -> None:
         seq.cur = nxt[:, None]
@@ -357,6 +517,211 @@ class RalmEngine:
         if seq.request.times.first_token is None:
             seq.request.times.first_token = time.perf_counter()
         seq.step += 1
+
+    # -- speculative retrieval (RaLMSpec, arXiv 2401.14021) -----------------
+
+    @property
+    def spec_stats(self) -> RetrievalStats:
+        """Where speculation counters land: the retrieval service's
+        ``RetrievalStats`` when there is one, else a local instance."""
+        service = getattr(self.retriever, "service", None)
+        if service is not None:
+            return service.stats
+        if self._local_spec_stats is None:
+            self._local_spec_stats = RetrievalStats()
+        return self._local_spec_stats
+
+    def _spec_eligible(self, seq: SequenceState) -> bool:
+        """Per-row speculation gate, evaluated at each due step: greedy
+        kNN-LM rows only (sampling consumes generator state a rollback
+        cannot restore), at most ``speculate_k`` points outstanding."""
+        return (self.speculate_k > 0
+                and self.rag.mode == "knnlm"
+                and (seq.request.greedy or seq.rng is None)
+                and len(seq.spec_points) < self.speculate_k)
+
+    def _spec_source(self, seq: SequenceState, hidden: torch.Tensor):
+        """The stale neighbours to decode ahead with: the sequence's last
+        verified result, else a stale-tolerant cache probe (a seed from
+        another request), else None (the row searches and waits, and
+        seeds the next due step)."""
+        if seq.last_neighbors is not None:
+            return seq.last_neighbors
+        lookup = getattr(self.retriever, "stale_lookup", None)
+        if lookup is not None:
+            return lookup(hidden)
+        return None
+
+    @torch.no_grad()
+    def spec_harvest(self, seqs: List[SequenceState],
+                     decoded: Optional[List] = None,
+                     force: bool = False) -> None:
+        """Verify the speculation points whose real search has had
+        ``_spec_depth`` waves to land (all of them under ``force``).
+
+        Verification compares *emitted tokens*: each point's saved LM
+        logits are mixed with the REAL neighbours through the same
+        operations as ``finish_wave`` (``knnlm_interpolate``, ``.float()``,
+        ``argmax``) and the result is compared with the token the stale
+        mix emitted. A match accepts; a mismatch rolls back and replays
+        (``_spec_rollback``). ``spec_wait`` times only the wait for the
+        search results, through each entry's landed event: the decode
+        wave enqueued after the scan is not waited for. The comparison
+        then costs one host sync per harvest."""
+        pts: List[Tuple[Optional[int], SequenceState, SpecPoint]] = []
+        for idx, seq in enumerate(seqs):
+            if not seq.spec_points:
+                continue
+            for p in seq.spec_points:
+                p.age += 1
+            take = 0
+            for p in seq.spec_points:
+                if force or p.age >= self._spec_depth:
+                    take += 1
+                else:
+                    break
+            for p in seq.spec_points[:take]:
+                pts.append((idx if decoded is not None else None, seq, p))
+            del seq.spec_points[:take]
+        if not pts:
+            return
+        stats = self.spec_stats
+        rag = self.rag
+        t0 = time.perf_counter()
+        res = [p.handle.result() for _, _, p in pts]
+        stats.spec_landed += sum(p.handle.is_ready() for _, _, p in pts)
+        for _, _, p in pts:
+            p.handle.wait()
+        stats.spec_wait.add(time.perf_counter() - t0)
+        partials = [p.handle.partial for _, _, p in pts]
+        for (_, seq, _), part in zip(pts, partials):
+            if part:
+                # the point still settles against the sentinel, but the
+                # result is not a speculation seed
+                stats.ft_spec_flushed += 1
+                seq.request.partial_steps += 1
+        if not self.speculate_verify:
+            # trust-the-stale mode: adopt the real neighbours as the next
+            # seed, never compare, never roll back
+            for (_, seq, _), (d, i), part in zip(pts, res, partials):
+                if not part:
+                    seq.last_neighbors = (d, i)
+            return
+        # ONE batched mix + argmax + host sync over every point verified
+        # this wave
+        d_cat = torch.cat([d for d, _ in res])
+        i_cat = torch.cat([i for _, i in res])
+        logits_cat = torch.cat([p.logits for _, _, p in pts])
+        toks = self.retriever.resolve(i_cat, kind="tokens")
+        mixed = rag_lib.knnlm_interpolate(logits_cat, d_cat, toks, rag.lam,
+                                          rag.temperature)
+        nxt_cat = torch.argmax(mixed.float(), dim=-1).to(torch.int32)
+        emit_cat = torch.cat([p.emitted[:, 0] for _, _, p in pts])
+        nxt_h, emit_h = torch.stack([nxt_cat, emit_cat]).cpu().numpy()
+        off = 0
+        rolled: set = set()
+        for (idx, seq, p), (d, i), part in zip(pts, res, partials):
+            B = p.logits.shape[0]
+            span = slice(off, off + B)
+            off += B
+            if id(seq) in rolled:
+                # a later point of a sequence that already rolled back
+                # this harvest: its query came from the discarded timeline
+                stats.spec_discarded += 1
+                continue
+            stats.spec_verified += 1
+            if not part:
+                seq.last_neighbors = (d, i)
+            if seq.request.trace is not None:
+                seq.request.trace.append(dict(step=p.step,
+                                              ids=i.cpu().numpy()))
+            if np.array_equal(nxt_h[span], emit_h[span]):
+                stats.spec_accepted += 1
+            else:
+                stats.spec_rollbacks += 1
+                rolled.add(id(seq))
+                self._spec_rollback(seq, p, nxt_cat[span], decoded, idx)
+
+    def _spec_rollback(self, seq: SequenceState, point: SpecPoint,
+                       corrected: torch.Tensor, decoded: Optional[List],
+                       idx: Optional[int]) -> None:
+        """Mismatch: rewind to the speculation point and replay with the
+        verified neighbours. The corrected token of the speculated step
+        comes from the verification mix; each later step replays as a
+        wave of this sequence alone, with a search that waits at due
+        steps: the baseline's math on the corrected token stream. Each
+        replayed decode (and the redo of the current wave) is padded to
+        the bucket and kv_len of the wave that first decoded that step,
+        and each replayed search to the rows of that step's flush, so
+        that the rows' bits equal the run without speculation."""
+        stats = self.spec_stats
+        t0 = time.perf_counter()
+        cur_step = seq.step
+        # later points' queries and logits came from the discarded
+        # timeline: drop them unverified
+        for p in seq.spec_points:
+            p.handle.cancel()
+            stats.spec_discarded += 1
+        seq.spec_points.clear()
+        # token watermark: truncate to before the speculated emit
+        del seq.out[point.out_len:]
+        seq.cur = seq.out[-1][:, -1:]
+        seq.step = point.step
+        if self.pool is not None and seq.slots is not None:
+            # KV watermark: the prompt (t0) plus one position per decode
+            # step 1..s at t0+s-1, plus the current wave's decode when
+            # mid-wave (decoded is not None)
+            old_len = seq.t0 + cur_step - (0 if decoded is not None else 1)
+            keep_len = seq.t0 + point.step
+            if old_len > keep_len:
+                self.pool.rewind(seq.slots, keep_len=keep_len,
+                                 old_len=old_len)
+        self._emit(seq, corrected)
+        stats.spec_replayed_steps += 1
+        while seq.step < cur_step:
+            logits, hidden = self.dispatch_wave(
+                [seq], shape=seq.wave_shapes[seq.step])[0]
+            row = logits
+            if self._retrieval_due(seq.step):
+                B = hidden.shape[0]
+                pad = seq.search_rows[seq.step] - B
+                q = hidden if not pad else torch.cat(
+                    [hidden, hidden.new_zeros((pad, hidden.shape[1]))])
+                dists, ids = self.retriever.search(q)
+                dists, ids = dists[:B], ids[:B]
+                seq.last_neighbors = (dists, ids)
+                if seq.request.trace is not None:
+                    seq.request.trace.append(dict(step=seq.step,
+                                                  ids=ids.cpu().numpy()))
+                toks = self.retriever.resolve(ids, kind="tokens")
+                row = rag_lib.knnlm_interpolate(
+                    logits, dists, toks, self.rag.lam, self.rag.temperature)
+            self._emit(seq, torch.argmax(row.float(), dim=-1).to(
+                torch.int32))
+            stats.spec_replayed_steps += 1
+        if decoded is not None and idx is not None:
+            # mid-wave: this row's output of the current wave came from
+            # the wrong token; redo it so finish_wave mixes the right one
+            decoded[idx] = self.dispatch_wave(
+                [seq], shape=seq.wave_shapes[seq.step])[0]
+        stats.spec_replay.add(time.perf_counter() - t0)
+
+    def spec_finalize(self, seq: SequenceState) -> None:
+        """Settle a finishing sequence's outstanding points before its
+        response leaves: force-verify them, so the response's tokens
+        carry the parity guarantee."""
+        if seq.spec_points:
+            self.spec_harvest([seq], decoded=None, force=True)
+
+    def flush_speculation(self) -> None:
+        """Force-verify EVERY outstanding speculation point (before a
+        retrieval-quality change: in-flight points verify with the math
+        they were issued under)."""
+        if self.speculate_k <= 0:
+            return
+        seqs = [s for s in self.scheduler.active if s.spec_points]
+        if seqs:
+            self.spec_harvest(seqs, decoded=None, force=True)
 
     # -- serving API --------------------------------------------------------
 

@@ -10,13 +10,15 @@ pool in place.
 
 Wave sizes are bucketed to powers of two, and attention reads are
 cropped to the wave's seq-block aligned valid prefix (``attn_len``).
-Speculation rollback (``rewind``) and RETRO encoder rows
-(``write_enc``/``gather_enc``) come with the slices that need them.
+A speculation rollback rewinds a sequence's slots (``rewind``), which is
+bookkeeping only: validity comes from each row's position. RETRO
+encoder rows (``write_enc``/``gather_enc``) come with the slice that
+needs them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +40,8 @@ class PoolStats:
     seq_grows: int = 0           # sequence-axis extensions
     waves: int = 0               # decode waves dispatched
     wave_rows: int = 0           # live rows across all waves
+    rewinds: int = 0             # speculation rollbacks (slot-row groups)
+    rewound_tokens: int = 0      # KV positions logically discarded
     buckets: set = dataclasses.field(default_factory=set)   # wave buckets
     blocks_total: int = 0        # seq blocks a full-pool read would touch
     blocks_skipped: int = 0      # blocks cropped past the wave's max pos
@@ -111,6 +115,48 @@ class KVCachePool:
         self._free.extend(int(s) for s in slots)
         self.stats.releases += len(slots)
 
+    def rewind(self, slots: np.ndarray, keep_len: int,
+               old_len: int) -> None:
+        """Logically rewind ``slots`` from ``old_len`` valid KV positions
+        back to ``keep_len`` (speculation rollback), WITHOUT touching
+        device memory.
+
+        For full-length (linear) caches this is free by construction:
+        decode attention derives validity from the row's *position*
+        (slot index i is read iff i < kv_len and i <= pos: the plain
+        version's ``decode_validity`` in ``kernels/decode_attn/ref.py``
+        and the CUDA kernel's ``s <= p`` test in ``csrc/decode_attn.cu``),
+        so the stale suffix above ``keep_len`` is never read once the
+        sequence's position moves back, and the replayed decodes
+        overwrite it index for index. Ring (sliding-window) caches alias
+        positions modulo the window, so a rewind deeper than one step
+        would leave stale entries *inside* the live window where
+        validity cannot mask them: rejected here, and the engine caps
+        speculation depth at 1 for windowed models. Recurrent state
+        (RWKV/SSM blocks) cannot be rewound at all: the state update is
+        not invertible and old states are not kept."""
+        if not (0 < keep_len <= old_len <= self.max_seq):
+            raise ValueError(
+                f"rewind wants 0 < keep_len <= old_len <= max_seq, got "
+                f"keep_len={keep_len} old_len={old_len} "
+                f"max_seq={self.max_seq}")
+        dropped = old_len - keep_len
+        if self.cfg.ssm_state > 0 or self.cfg.block in ("rwkv6", "hybrid"):
+            raise ValueError(
+                "KV rewind is undefined for recurrent-state blocks "
+                f"(block={self.cfg.block!r}, ssm_state="
+                f"{self.cfg.ssm_state}): gate speculation off for this "
+                "model")
+        if dropped > 1 and self.cfg.window > 0 and \
+                "local" in self.cfg.pattern_classes():
+            raise ValueError(
+                f"ring (window={self.cfg.window}) caches alias positions "
+                f"modulo the window: rewinding {dropped} steps would "
+                "leave stale rows inside the live window; speculation "
+                "depth must be 1 for windowed models")
+        self.stats.rewinds += 1
+        self.stats.rewound_tokens += dropped * len(slots)
+
     # -- wave shape bucketing ----------------------------------------------
 
     def _align(self, n: int) -> int:
@@ -136,14 +182,22 @@ class KVCachePool:
         return b
 
     def pad_wave(self, tokens: torch.Tensor, slots: np.ndarray,
-                 positions: np.ndarray
+                 positions: np.ndarray, bucket: Optional[int] = None
                  ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray]:
-        """Pad a W-row wave to its pow2 bucket. Pad rows carry token 0 at
-        position 0 against the scratch slot; their outputs are dropped."""
+        """Pad a W-row wave to its pow2 bucket, or to ``bucket`` rows (a
+        rollback replays a step at the shape of the wave it stands in
+        for). Pad rows carry token 0 at position 0 against the scratch
+        slot; their outputs are dropped."""
         w = len(slots)
         self.stats.waves += 1
         self.stats.wave_rows += w
-        pad = self.bucket(w) - w
+        if bucket is None:
+            bucket = self.bucket(w)
+        elif bucket < w:
+            raise ValueError(f"bucket {bucket} < wave rows {w}")
+        else:
+            self.stats.buckets.add(bucket)
+        pad = bucket - w
         if pad:
             tokens = torch.cat([tokens, tokens.new_zeros(
                 (pad,) + tuple(tokens.shape[1:]))])

@@ -3,9 +3,10 @@
 
 ``submit()`` enqueues at any time; ``step()`` admits in strict FIFO
 order (a fixed-capacity KV pool defers the head until slots free up) and
-advances every active sequence one token: one decode wave, one batched
-search, one finish. Sequences finish independently and free their slots
-for queued work.
+advances every active sequence one token: one decode wave, the
+speculation harvest (when the engine speculates), one batched search,
+one finish. Sequences finish independently, settle their speculation
+points, and free their slots for queued work.
 """
 from __future__ import annotations
 
@@ -78,6 +79,12 @@ class RalmScheduler:
     def _step_wave(self) -> List[RalmResponse]:
         eng = self.engine
         decoded = eng.dispatch_wave(self.active)
+        if eng.speculate_k > 0:
+            # verify the points whose real search has had its waves to
+            # land: AFTER the next decode is enqueued (the overlap that
+            # hides the scan) and BEFORE the search phase (so an accepted
+            # point's real neighbours seed this wave's speculations)
+            eng.spec_harvest(self.active, decoded)
         searches = eng.dispatch_search_wave(self.active, decoded)
         eng.flush_searches()
         eng.finish_wave(self.active, decoded, searches)
@@ -85,6 +92,9 @@ class RalmScheduler:
         still_active = []
         for seq in self.active:
             if seq.done:
+                # settle outstanding speculation before the response
+                # leaves: the parity guarantee is per response
+                eng.spec_finalize(seq)
                 eng.release(seq)
                 finished.append(self._response(seq))
             else:
@@ -98,7 +108,8 @@ class RalmScheduler:
         return RalmResponse(
             request_id=seq.request.request_id,
             tokens=seq.tokens().cpu().numpy(), steps=seq.step,
-            trace=seq.request.trace, times=seq.request.times)
+            trace=seq.request.trace, times=seq.request.times,
+            partial_steps=seq.request.partial_steps)
 
     def run(self) -> List[RalmResponse]:
         """Drain the queue: step until nothing is queued or active."""
