@@ -43,12 +43,26 @@ failure raises, so the run exits non-zero):
      same datastore with one wave's real queries (full hit without a
      launch, half hit that scans only the missed rows, stale lookup, and
      a raising scan that leaves (+inf, -1) partial results and
-     re-raises). After the timed runs: one sampled request drawing from a
+     re-raises). Then serve.chaos.*: the same traffic through
+     EngineConfig(shard_replicas=2, chaos_plan=<a FaultPlan saved under
+     build/chaos/>): none (tokens equal, every fault counter 0, tokens/s
+     in alternating pairs with runs without the layer), spec_k1 (the
+     layer with speculation), crash and hang on one replica (tokens
+     equal, the matching counters), shard_down (every flush partial; on
+     one wave's queries the survivors' result bit-equal to flat_merge of
+     shard 0, fused and staged) and loss (flushes without a target launch
+     nothing and serve (+inf, -1) on the card; a later run's tokens
+     equal); in every run the IVF probe and scan launches equal the
+     scans the pipeline ran. obs.trace: one traced crash-plan run,
+     written under build/trace/ and validated, beside an untraced run.
+     After the timed runs: one sampled request drawing from a
      CUDA generator, a profile of the fused and of the staged decode
      waves, and the accuracy witness: the same traffic with exact
      (flat L2) search over every key in place of the PQ index, with the
      rate at which each search's top-1 / top-K holds the true prefix's
-     own key. Each profile prints the device time per decode wave.
+     own key. Each profile (fused, staged, and the armed layer without
+     faults) prints the device time per decode wave and the host's time
+     in CUDA synchronize calls.
 
 The last two lines are the kernel report and the device line, each one
 JSON object. Without a GPU (or outside the repository) it exits non-zero
@@ -674,7 +688,8 @@ def checked_engine(torch, dev, arch, cfg, params, ds, sizes, fused,
     retrieval, fused or staged scan, ``config_kw`` as further
     ``EngineConfig`` fields), wrapped so that finiteness and id-range
     checks accumulate on the device (no syncs); ``check()`` raises if
-    any of them failed."""
+    any of them failed. ``eng.scanned`` records the flush index of every
+    scan its pipeline runs, independently of the service's counters."""
     from repro_torch.serve import EngineConfig, RalmEngine
 
     search_cfg = ds.search_config(nprobe=sizes["nprobe"], k=arch.rag.k,
@@ -713,24 +728,48 @@ def checked_engine(torch, dev, arch, cfg, params, ds, sizes, fused,
 
     backend.prefill, backend.decode_wave = checked_prefill, checked_decode
     retriever.resolve = checked_resolve
+    service = retriever.service
+    scan = service.pipeline.scan
+    eng.scanned = []
+
+    def counted_scan(queries):
+        eng.scanned.append(service.stats.num_batches)
+        return scan(queries)
+
+    service.pipeline.scan = counted_scan
     return eng, search_cfg, check
 
 
-def drive(torch, eng, cfg, prompts, truth, steps, label):
+FT_KEYS = ("ft_timeouts", "ft_hedges", "ft_retries", "ft_crashes",
+           "ft_ejections", "ft_recoveries", "ft_partial_flushes",
+           "ft_partial_rows")
+
+
+def ft_counts(stats):
+    return {k[3:]: getattr(stats, k) for k in FT_KEYS}
+
+
+def drive(torch, eng, cfg, prompts, truth, steps, label,
+          every_flush_scans=True, traces=False):
     """One run of the traffic, with the launch counters zeroed just
     before and read just after. Every kernel must have launched exactly
     as the engine dispatched: decode attention once per layer per wave,
-    the IVF probe once per search flush, and the scan kernel of the
-    deployment (fused scan, or adc_scan per shard) once per scan
-    dispatch; no other kernel."""
+    the IVF probe once per scan the pipeline ran, and the scan kernel of
+    the deployment (fused scan, or adc_scan per shard) once per scan
+    dispatch; no other kernel. The pipeline scans once per search flush
+    (``every_flush_scans``), except under the fault-tolerant layer in a
+    flush where no fault domain had a dispatch target: that flush runs
+    no scan. ``traces`` records each request's retrieved ids per step."""
     import numpy as np
     from repro_torch.kernels import _build
     from repro_torch.serve import RalmRequest
 
-    stats = eng.retriever.service.stats
-    pipeline = eng.retriever.service.pipeline
+    service = eng.retriever.service
+    stats, pipeline = service.stats, service.pipeline
     waves0, scans0 = eng.decode_dispatches, stats.scan_dispatches
     flushes0, batched0 = stats.num_batches, stats.batched_rows
+    scanned0, strag0 = len(eng.scanned), eng.scheduler.straggler_events
+    trace_lists = [[] if traces else None for _ in prompts]
 
     def pool_rows():
         st = eng.pool.stats if eng.pool is not None else None
@@ -740,8 +779,9 @@ def drive(torch, eng, cfg, prompts, truth, steps, label):
     torch.cuda.synchronize()
     _build.reset_launches()
     t1 = time.perf_counter()
-    rids = [eng.submit(RalmRequest(prompt=torch.from_numpy(p), steps=steps))
-            for p in prompts]
+    rids = [eng.submit(RalmRequest(prompt=torch.from_numpy(p), steps=steps,
+                                   trace=tr))
+            for p, tr in zip(prompts, trace_lists)]
     done = eng.step()                       # admission + prefill + step 0
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t1
@@ -752,14 +792,20 @@ def drive(torch, eng, cfg, prompts, truth, steps, label):
     waves = eng.decode_dispatches - waves0
     scans = stats.scan_dispatches - scans0
     flushes = stats.num_batches - flushes0
+    scanned = eng.scanned[scanned0:]
+    stragglers = eng.scheduler.straggler_events - strag0
     rows1 = pool_rows()
     wave_rows = (rows1[0] - rows0[0]) / max(rows1[1] - rows0[1], 1)
-    by_id = {r.request_id: r.tokens for r in done}
-    out = np.stack([by_id[r] for r in rids])            # [R, B, T0 + steps]
+    by_id = {r.request_id: r for r in done}
+    out = np.stack([by_id[r].tokens for r in rids])     # [R, B, T0 + steps]
+    partial_steps = [by_id[r].partial_steps for r in rids]
     R, B = len(prompts), prompts[0].shape[0]
     gen = out[:, :, prompts[0].shape[1]:].reshape(R * B, steps)
     acc = float((gen == truth).mean())
     tokens = R * B * steps
+    extra = {} if service.replicas is None else dict(
+        fault=ft_counts(stats), partial_steps=partial_steps,
+        flushes_without_scan=flushes - len(scanned))
     log(label, t1, wall_s=f"{wall:.3f}",
         tokens_per_s=f"{tokens / wall:.1f}", generated_tokens=tokens,
         first_step_s=f"{t_first:.3f}",
@@ -767,19 +813,25 @@ def drive(torch, eng, cfg, prompts, truth, steps, label):
         decode_waves=waves, mean_wave_rows=f"{wave_rows:.2f}",
         search_flushes=flushes, scan_dispatches=scans,
         coalescing=f"{(stats.batched_rows - batched0) / max(flushes, 1):.1f}",
-        continuation_accuracy=f"{acc:.4f}", launches=launches)
+        continuation_accuracy=f"{acc:.4f}", straggler_events=stragglers,
+        launches=launches, **extra)
     scan_kernel = ("chamvs_scan_launch" if pipeline.cfg.fused
                    else "adc_scan_launch")
     want = dict.fromkeys(launches, 0)
     want.update({"decode_attn_launch": cfg.n_layers * waves,
-                 "ivf_scan_launch": flushes, scan_kernel: scans})
-    if scans != pipeline.scan_dispatches * flushes or flushes <= 0 or \
-            waves <= 0 or launches != want:
+                 "ivf_scan_launch": len(scanned), scan_kernel: scans})
+    if scans != pipeline.scan_dispatches * len(scanned) or flushes <= 0 or \
+            waves <= 0 or launches != want or \
+            (every_flush_scans and len(scanned) != flushes):
         raise AssertionError(f"launches {launches} != expected {want} "
-                             f"({flushes} flushes, {scans} scans)")
+                             f"({flushes} flushes, {len(scanned)} scanned, "
+                             f"{scans} scan dispatches)")
     return dict(tps=tokens / wall, acc=acc, gen=gen, launches=launches,
                 ms_wave=(wall - t_first) / waves * 1e3, waves=waves,
-                wall=wall, t_first=t_first)
+                wall=wall, t_first=t_first, flushes=flushes,
+                scanned=[f - flushes0 for f in scanned],
+                partial_steps=partial_steps, stragglers=stragglers,
+                traces=trace_lists)
 
 
 def median(xs):
@@ -932,6 +984,14 @@ class FailingPipeline:
         raise ScanFailure(f"scan of {tuple(queries.shape)} failed")
 
 
+def wave_queries(torch, dev, eng, prompts, sizes):
+    """One wave's 32 real query rows: the serve traffic's step-0 queries
+    (the prefill's last hidden states)."""
+    return torch.cat([eng.backend.prefill(
+        eng.rag, torch.from_numpy(p).to(dev, torch.int32),
+        sizes["max_seq"])[2] for p in prompts]).float()
+
+
 def retrieval_cache(torch, dev, eng, prompts, sizes):
     """The service's result cache on the card's datastore, with one
     wave's 32 real query rows (the serve traffic's step-0 queries, from
@@ -946,9 +1006,7 @@ def retrieval_cache(torch, dev, eng, prompts, sizes):
     from repro_torch.retrieval import RetrievalService, ServiceConfig
 
     t0 = time.perf_counter()
-    q = torch.cat([eng.backend.prefill(
-        eng.rag, torch.from_numpy(p).to(dev, torch.int32),
-        sizes["max_seq"])[2] for p in prompts]).float()
+    q = wave_queries(torch, dev, eng, prompts, sizes)
     pipeline = eng.retriever.service.pipeline
 
     def service(**kw):
@@ -1018,6 +1076,324 @@ def retrieval_cache(torch, dev, eng, prompts, sizes):
         stitched_equal_to_cacheless=True, stale_ids_equal=True,
         fresh_after_bump_missed=missed, failed_flush_sentinel=True,
         failed_flush_reraised=True)
+
+
+# ---------------------------------------------------------------------------
+# fault tolerance and the observability plane
+# ---------------------------------------------------------------------------
+
+def write_plan(plan, name):
+    """Save a FaultPlan as JSON under build/chaos/; returns its path."""
+    path = ROOT / "build" / "chaos" / f"{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    plan.save(str(path))
+    return str(path)
+
+
+def chaos_engine(torch, dev, arch, cfg, params, ds, sizes, name, plan,
+                 **config_kw):
+    """A fused engine with the fault-tolerant layer armed through
+    EngineConfig: two replicas per shard and ``plan`` saved as JSON."""
+    return checked_engine(torch, dev, arch, cfg, params, ds, sizes,
+                          fused=True, shard_replicas=2,
+                          chaos_plan=write_plan(plan, name), **config_kw)
+
+
+def same_tokens(label, run, want, rows):
+    import numpy as np
+
+    if not np.array_equal(run["gen"], want):
+        raise AssertionError(f"{label}: tokens differ from the FT-off runs' "
+                             f"at {first_difference(run['gen'], want, rows)}")
+
+
+def serve_chaos(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
+                fused_eng, fused_gen, staged_eng):
+    """The serve traffic with the fault-tolerant layer armed through
+    EngineConfig(shard_replicas=2, chaos_plan=...) under five plans
+    (none, a crashed replica, a hanging replica, a shard down, both
+    shards down for a window), each engine's launches held to the
+    one-scan rule by ``drive``; plus service-level checks of the partial
+    and total-loss results on one wave's real queries. Returns the crash
+    engine (the untraced twin of ``obs.trace``), the armed engine without
+    faults (profiled after every timed run) and the phases' rows."""
+    import numpy as np
+    from repro_torch.core.rag import should_retrieve
+    from repro_torch.kernels import _build
+    from repro_torch.retrieval import (FailoverConfig, FaultPlan, FaultSpec,
+                                       RetrievalService, ServiceConfig,
+                                       crash_plan, flat_merge)
+
+    steps, B, R = sizes["steps"], sizes["rows"], sizes["requests"]
+    rows = {}
+
+    def run_plan(name, plan, **kw):
+        eng, _, check = chaos_engine(torch, dev, arch, cfg, params, ds,
+                                     sizes, name, plan)
+        run = drive(torch, eng, cfg, prompts, truth, steps,
+                    f"serve.chaos.{name}_run", **kw)
+        check()
+        return eng, run, eng.retriever.service.stats
+
+    # 1. armed, no faults: the direct dispatch's tokens, every counter 0;
+    #    after the engine's first run, ``repeats`` armed runs alternate
+    #    with FT-off runs so that the rates share the call's host: of the
+    #    long-lived fused engine and of a new one built beside the armed
+    #    engine (so that engine age is not what differs)
+    t0 = time.perf_counter()
+    eng, first, st = run_plan("none", FaultPlan())
+    fresh, _, fresh_check = checked_engine(torch, dev, arch, cfg, params, ds,
+                                           sizes, fused=True)
+    drive(torch, fresh, cfg, prompts, truth, steps, "serve.run")
+    armed, off, fresh_off = [], [], []
+    for _ in range(sizes["repeats"]):
+        armed.append(drive(torch, eng, cfg, prompts, truth, steps,
+                           "serve.chaos.none_run"))
+        fresh_off.append(drive(torch, fresh, cfg, prompts, truth, steps,
+                               "serve.run"))
+        off.append(drive(torch, fused_eng, cfg, prompts, truth, steps,
+                         "serve.run"))
+    fresh_check()
+    del fresh
+    for run in [first] + armed:
+        same_tokens("serve.chaos.none", run, fused_gen, B)
+        if any(run["partial_steps"]):
+            raise AssertionError("serve.chaos.none: partial steps")
+    if any(ft_counts(st).values()):
+        raise AssertionError(f"serve.chaos.none: {ft_counts(st)}")
+
+    def spread(runs, key, digits):
+        xs = sorted(r[key] for r in runs)
+        return (f"{median(xs):.{digits}f} "
+                f"({xs[0]:.{digits}f}-{xs[-1]:.{digits}f})")
+
+    disp = st.ft_dispatch
+    rows["none"] = dict(
+        tokens_per_s=spread(armed, "tps", 1),
+        ft_off_tokens_per_s=spread(off, "tps", 1),
+        decode_ms_per_wave=spread(armed, "ms_wave", 2),
+        ft_off_decode_ms_per_wave=spread(off, "ms_wave", 2),
+        new_ft_off_tokens_per_s=spread(fresh_off, "tps", 1),
+        new_ft_off_decode_ms_per_wave=spread(fresh_off, "ms_wave", 2),
+        first_run_tokens_per_s=f"{first['tps']:.1f}",
+        dispatch_loop_ms_mean_p50_p99=(
+            f"{disp.mean_s * 1e3:.3f}/{disp.p50_s() * 1e3:.3f}/"
+            f"{disp.p99_s() * 1e3:.3f}"))
+    log("serve.chaos.none", t0, tokens_equal_to_ft_off=True,
+        fault=ft_counts(st), **rows["none"])
+    none_eng = eng
+
+    # 1b. speculation (k=1) with the layer armed, beside speculation
+    #     without it: the armed flush waits for its scan, so what
+    #     speculation hides is already waited for
+    t0 = time.perf_counter()
+    spec = {}
+    for armed_ft in (True, False):
+        if armed_ft:
+            e, _, chk = chaos_engine(torch, dev, arch, cfg, params, ds,
+                                     sizes, "none_spec", FaultPlan(),
+                                     speculate_k=1)
+        else:
+            e, _, chk = checked_engine(torch, dev, arch, cfg, params, ds,
+                                       sizes, fused=True, speculate_k=1)
+        run = drive(torch, e, cfg, prompts, truth, steps,
+                    f"serve.chaos.spec_k1_{'armed' if armed_ft else 'off'}")
+        chk()
+        same_tokens("serve.chaos.spec_k1", run, fused_gen, B)
+        est = e.spec_stats
+        spec[armed_ft] = dict(
+            tps=f"{run['tps']:.1f}", landed=est.spec_landed,
+            verified=est.spec_verified,
+            wait_ms=f"{est.spec_wait.mean_s * 1e3:.3f}",
+            replay_ms=f"{est.spec_replay.mean_s * 1e3:.3f}")
+        del e
+    rows["spec_k1"] = dict(armed=spec[True], off=spec[False])
+    log("serve.chaos.spec_k1", t0, tokens_equal_to_ft_off=True,
+        **rows["spec_k1"])
+
+    # 2. replica 0 of shard 0 crashes on every flush: its sibling covers
+    t0 = time.perf_counter()
+    crash_eng, run, st = run_plan("crash", crash_plan(shard=0, replica=0))
+    same_tokens("serve.chaos.crash", run, fused_gen, B)
+    moved = {(t["shard"], t["replica"])
+             for t in crash_eng.retriever.service.replicas.transitions}
+    if not (st.ft_crashes >= 1 and st.ft_ejections == st.ft_crashes and
+            moved == {(0, 0)} and st.ft_partial_flushes == 0 and
+            not any(run["partial_steps"])):
+        raise AssertionError(f"serve.chaos.crash: {ft_counts(st)}, "
+                             f"transitions of {moved}")
+    rows["crash"] = dict(tokens_per_s=f"{run['tps']:.1f}", **ft_counts(st))
+    log("serve.chaos.crash", t0, tokens_equal_to_ft_off=True,
+        ejected_replicas=sorted(moved), **rows["crash"])
+
+    # 3. replica 1 of every shard hangs on half its dispatches (seeded):
+    #    each hang is hedged to replica 0
+    t0 = time.perf_counter()
+    eng, run, st = run_plan("hang", FaultPlan.make(
+        [FaultSpec(kind="hang", replica=1, p=0.5)], seed=0))
+    same_tokens("serve.chaos.hang", run, fused_gen, B)
+    if not (st.ft_hedges >= 1 and st.ft_partial_flushes == 0 and
+            not any(run["partial_steps"])):
+        raise AssertionError(f"serve.chaos.hang: {ft_counts(st)}")
+    rows["hang"] = dict(tokens_per_s=f"{run['tps']:.1f}", **ft_counts(st))
+    log("serve.chaos.hang", t0, tokens_equal_to_ft_off=True,
+        injected=eng.retriever.service.chaos.counts(),
+        replica_states=eng.retriever.service.replicas.state_counts(),
+        **rows["hang"])
+    del eng
+
+    # 4. every replica of shard 1 crashes on every flush: each flush
+    #    serves the exact top-k over shard 0 alone
+    t0 = time.perf_counter()
+    eng, run, st = run_plan("shard_down", crash_plan(shard=1, replica=-1))
+    due = sum(should_retrieve(s, arch.rag.interval) for s in range(steps))
+    if not (st.ft_partial_flushes == run["flushes"] and
+            st.ft_partial_rows == run["flushes"] * R * B and
+            run["partial_steps"] == [due] * R):
+        raise AssertionError(f"serve.chaos.shard_down: {ft_counts(st)}, "
+                             f"partial steps {run['partial_steps']}")
+    q = wave_queries(torch, dev, fused_eng, prompts, sizes)
+    k = arch.rag.k
+    for deployment, other in (("fused", fused_eng), ("staged", staged_eng)):
+        pipeline = other.retriever.service.pipeline
+        svc = RetrievalService(pipeline, ServiceConfig(
+            measure=False, failover=FailoverConfig(replicas=2)))
+        svc.install_chaos(crash_plan(shard=1, replica=-1))
+        h = svc.submit(q)
+        svc.flush()
+        d, i = h.result()
+        cd, ci = pipeline.scan(q)
+        rd, ri = flat_merge(cd[:1], ci[:1], k)
+        torch.cuda.synchronize()
+        if not (h.partial and h.live_fraction == 0.5 and d.is_cuda and
+                torch.equal(i, ri) and torch.equal(d, rd)):
+            raise AssertionError(
+                f"shard down ({deployment}): partial {h.partial}, live "
+                f"{h.live_fraction}, ids equal {torch.equal(i, ri)}, dists "
+                f"bit-equal {torch.equal(d, rd)}")
+    rows["shard_down"] = dict(tokens_per_s=f"{run['tps']:.1f}",
+                              accuracy=f"{run['acc']:.4f}", **ft_counts(st))
+    log("serve.chaos.shard_down", t0, live_fraction=0.5,
+        partial_steps_per_request=due, finite_logits_ids_in_range=True,
+        survivors_exact_fused_and_staged=True, rows_checked=q.shape[0],
+        **rows["shard_down"])
+    del eng
+
+    # 5. both shards down for flushes 4-11: no target, no launch,
+    #    (+inf, -1) on the card; later requests give the FT-off tokens
+    t0 = time.perf_counter()
+    eng, run, st = run_plan("loss", FaultPlan.make(
+        [FaultSpec(kind="crash", start_flush=4, stop_flush=12)]),
+        every_flush_scans=False, traces=True)
+    scanned = set(run["scanned"])
+    lost = []
+    for f in range(run["flushes"]):
+        ids = np.concatenate([next(e["ids"] for e in tr if e["step"] == f)
+                              for tr in run["traces"]])
+        if (ids == -1).all():
+            lost.append(f)
+    window = set(range(4, 12))
+    if not (4 in scanned and not scanned & set(range(5, 12)) and
+            window <= set(lost) and not set(lost) & set(range(4)) and
+            set(lost) - {4} == set(range(run["flushes"])) - scanned and
+            not np.any(run["gen"][:, :4] != fused_gen[:, :4])):
+        raise AssertionError(f"serve.chaos.loss: scanned {sorted(scanned)}, "
+                             f"lost {lost}")
+    group = eng.retriever.service.replicas
+    healed_in = group.cfg.probation_s - (group.clock() - max(
+        h.ejected_at for h in group.health.values()))
+    time.sleep(max(0.0, healed_in))          # the probation cool-off
+    after = drive(torch, eng, cfg, prompts, truth, steps,
+                  "serve.chaos.loss_after")
+    same_tokens("serve.chaos.loss (after the window)", after, fused_gen, B)
+    if any(after["partial_steps"]):
+        raise AssertionError("serve.chaos.loss: partial steps after the "
+                             f"window: {after['partial_steps']}")
+    svc = RetrievalService(fused_eng.retriever.service.pipeline,
+                           ServiceConfig(measure=False, failover=FailoverConfig(
+                               replicas=2, probation_s=999.0)))
+    svc.install_chaos(crash_plan(shard=-1, replica=-1))
+    launched = []
+    for _ in range(2):
+        _build.reset_launches()
+        h = svc.submit(q)
+        svc.flush()
+        d, i = h.result()
+        torch.cuda.synchronize()
+        launched.append(sum(kern.launches
+                            for kern in _build.kernels().values()))
+        if not (h.partial and h.live_fraction == 0.0 and d.is_cuda and
+                i.is_cuda and d.dtype == torch.float32 and
+                i.dtype == torch.int32 and bool(torch.isinf(d).all()) and
+                bool((i == -1).all())):
+            raise AssertionError("total loss: result not a (+inf, -1) "
+                                 "sentinel on the card")
+    if launched != [2, 0]:
+        raise AssertionError(f"total loss: launches per flush {launched}, "
+                             "want [2, 0] (a probe and a scan, then none)")
+    rows["loss"] = dict(tokens_per_s=f"{run['tps']:.1f}",
+                        flushes_lost=len(lost),
+                        first_lost=lost[0], last_lost=lost[-1],
+                        flushes_scanned=len(scanned), **ft_counts(st))
+    log("serve.chaos.loss", t0, window="4-11", lost_flushes=lost,
+        scanned_flushes_in_window=sorted(scanned & window),
+        cool_off_wait_s=f"{max(0.0, healed_in):.3f}",
+        tokens_after_window_equal_to_ft_off=True,
+        first_4_steps_equal_to_ft_off=True,
+        service_loss_launches_per_flush=launched,
+        sentinel_on_card=True, **rows["loss"])
+    del eng
+    torch.cuda.empty_cache()
+    return crash_eng, none_eng, rows
+
+
+def obs_trace(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
+              crash_eng, fused_gen):
+    """One traced run under the crash plan through
+    EngineConfig(trace=True, trace_path=build/trace/...), beside an
+    untraced run of the same plan: ``write_trace`` writes the file,
+    ``validate_chrome_trace`` accepts it, its retrieval.scan spans equal
+    the flushes, and the tokens equal the FT-off runs'."""
+    import collections
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.retrieval import crash_plan
+
+    t0 = time.perf_counter()
+    path = ROOT / "build" / "trace" / "serve_chaos_crash.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    eng, _, check = chaos_engine(torch, dev, arch, cfg, params, ds, sizes,
+                                 "trace", crash_plan(shard=0, replica=0),
+                                 trace=True, trace_path=str(path))
+    steps = sizes["steps"]
+    traced, plain = [], []
+    for _ in range(2):            # traced and untraced runs alternate
+        traced.append(drive(torch, eng, cfg, prompts, truth, steps,
+                            "obs.trace_run"))
+        plain.append(drive(torch, crash_eng, cfg, prompts, truth, steps,
+                           "serve.chaos.crash_run"))
+    check()
+    for run in traced + plain:
+        same_tokens("obs.trace", run, fused_gen, sizes["rows"])
+    written = eng.write_trace()
+    with open(written) as fh:
+        doc = json.load(fh)
+    problems = validate_chrome_trace(doc)
+    names = collections.Counter(e["name"] for e in doc["traceEvents"])
+    flushes = eng.retriever.service.stats.num_batches
+    if problems or names["retrieval.scan"] != flushes or \
+            names["wave.decode"] != eng.decode_dispatches:
+        raise AssertionError(f"trace: {problems[:3]}, {dict(names)}")
+    log("obs.trace", t0, path=str(path.relative_to(ROOT)), traced_runs=2,
+        events=len(doc["traceEvents"]), valid=True,
+        retrieval_scan_spans=names["retrieval.scan"],
+        retrieval_hedge_instants=names["retrieval.hedge"],
+        retrieval_eject_instants=names["retrieval.eject"],
+        wave_decode_spans=names["wave.decode"],
+        traced_tokens_per_s=[f"{r['tps']:.1f}" for r in traced],
+        untraced_tokens_per_s=[f"{r['tps']:.1f}" for r in plain],
+        traced_decode_ms_per_wave=[f"{r['ms_wave']:.2f}" for r in traced],
+        untraced_decode_ms_per_wave=[f"{r['ms_wave']:.2f}" for r in plain])
+    del eng
 
 
 def sampled_request(torch, eng, prompt, vocab, steps):
@@ -1121,7 +1497,8 @@ def profile_waves(torch, eng, prompts, steps, label="serve.profile"):
     """Where the decode time goes: the same traffic, admitted and
     prefilled outside the window, then ``steps - 1`` decode waves under
     torch.profiler. Device busy share = the summed time of the events
-    that ran on the card (kernels, copies) over the window's wall time."""
+    that ran on the card (kernels, copies) over the window's wall time;
+    host sync ms = the host's time inside CUDA synchronize calls."""
     from repro_torch.serve import RalmRequest
 
     for p in prompts:
@@ -1141,8 +1518,13 @@ def profile_waves(torch, eng, prompts, steps, label="serve.profile"):
                     or getattr(e, "self_cuda_time_total", 0.0)), e.count,
                    e.key) for e in dev)[::-1]
     busy_us = sum(r[0] for r in rows)
+    syncs = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU and
+             "Synchronize" in e.key]
     log(label, t0, decode_waves=steps - 1,
         wall_ms=f"{wall * 1e3:.1f}", device_busy_ms=f"{busy_us / 1e3:.1f}",
+        host_sync_ms=f"{sum(e.self_cpu_time_total for e in syncs) / 1e3:.1f}",
+        host_syncs=sum(e.count for e in syncs),
         device_ms_per_wave=f"{busy_us / 1e3 / (steps - 1):.3f}",
         device_busy_share=f"{busy_us / 1e6 / wall:.3f}",
         device_events=len(rows))
@@ -1184,13 +1566,22 @@ def run_phases(torch, dev, sizes):
     serve_spec(torch, dev, arch, cfg, params, ds, sizes, prompts, truth, eng,
                runs[0]["gen"])
     retrieval_cache(torch, dev, eng, prompts, sizes)
+    crash_eng, none_eng, _ = serve_chaos(torch, dev, arch, cfg, params, ds,
+                                         sizes, prompts, truth, eng,
+                                         runs[0]["gen"], staged_eng)
+    obs_trace(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
+              crash_eng, runs[0]["gen"])
+    del crash_eng
+    torch.cuda.empty_cache()
     # after every timed serve run: a profiled window leaves the profiler's
     # hooks behind, which slows the host side of later waves
     sampled_request(torch, eng, prompts[0], cfg.vocab_size, steps=16)
     profile_waves(torch, eng, prompts, steps=16)
     profile_waves(torch, staged_eng, prompts, steps=16,
                   label="serve.staged_profile")
-    del staged_eng
+    profile_waves(torch, none_eng, prompts, steps=16,
+                  label="serve.chaos_none_profile")
+    del staged_eng, none_eng
     torch.cuda.empty_cache()
     accuracy_witness(torch, eng, arch, cfg, keys, ds, corpus, prompts, sizes)
     # launches: each kernel's count in one run of the serve path that

@@ -5,11 +5,15 @@ Both merges are exact and keep the reference's tie order: candidates
 are laid out shard-major (``flat_merge``) or group-major
 (``hierarchical_merge``) exactly as the reference lays them out, and
 each selection is a stable sort, so equal distances keep their
-lower-index-first order. Absent candidates are ``(+inf, -1)``.
+lower-index-first order. Absent candidates are ``(+inf, -1)``, and
+``mask_producers`` turns a dead producer's lists into exactly that, so a
+partial-result flush stays an exact search over the live producers.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -63,3 +67,28 @@ def hierarchical_merge(dists: torch.Tensor, ids: torch.Tensor, k: int,
         d, i = _select(d, i, k)
     return _pad_to_k(*_select(d[0], i[0], k), k)
 
+
+
+def merge_topk(dists: torch.Tensor, ids: torch.Tensor, k: int,
+               fanout: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The service's merge entry point: flat (``fanout=None``, the
+    default) or hierarchical with ``fanout`` producers per node."""
+    if fanout is None or dists.shape[0] <= 1:
+        return flat_merge(dists, ids, k)
+    return hierarchical_merge(dists, ids, k, fanout=fanout)
+
+
+def mask_producers(dists: torch.Tensor, ids: torch.Tensor, live: np.ndarray
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mask dead producers' candidate lists [S, nq, k'] to ``(+inf, -1)``
+    before a merge; ``live`` is a host bool array [S]. The mask crosses
+    to the candidates' device from pinned memory without a host sync,
+    and the downstream K-selection is then exactly the global top-k over
+    the surviving producers' candidates."""
+    mask = torch.from_numpy(np.ascontiguousarray(live, dtype=bool))
+    if dists.is_cuda:
+        mask = mask.pin_memory().to(dists.device, non_blocking=True)
+    mask = mask.reshape((-1,) + (1,) * (dists.ndim - 1))
+    return (torch.where(mask, dists, torch.full_like(dists, float("inf"))),
+            torch.where(mask, ids, torch.full_like(ids, -1)))

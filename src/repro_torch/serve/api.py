@@ -97,6 +97,31 @@ class EngineConfig:
     attn_seq_block: int = 16             # KV-pool seq-axis alignment:
     #                                      per-wave attention reads crop
     #                                      to this quantum (kv_len)
+    trace: bool = False                  # enable the observability
+    #                                      tracer (repro_torch.obs): spans
+    #                                      across scheduler waves,
+    #                                      retrieval stages and the KV
+    #                                      pool (host wall time), exported
+    #                                      as Chrome trace-event JSON
+    trace_path: Optional[str] = None     # where RalmEngine.write_trace()
+    #                                      saves the trace by default
+    retrieval_deadline_s: float = 0.0    # per-dispatch retrieval latency
+    #                                      budget: a fault domain still
+    #                                      unresolved past it is dropped
+    #                                      and the flush serves the exact
+    #                                      top-k over the survivors
+    #                                      (0 = wait indefinitely)
+    hedge_quantile: float = 0.95         # latency quantile after which a
+    #                                      hung dispatch is hedged to
+    #                                      another replica
+    shard_replicas: int = 1              # dispatch-target replicas per
+    #                                      retrieval fault domain; > 1 (or
+    #                                      a deadline/chaos plan) arms the
+    #                                      fault-tolerant dispatch layer,
+    #                                      which syncs every flush
+    chaos_plan: Optional[str] = None     # path to a FaultPlan JSON to arm
+    #                                      at the service's scan boundary
+    #                                      (deterministic fault injection)
 
 
 @runtime_checkable
@@ -185,7 +210,8 @@ class AsyncRetriever:
         if not self.service.config.measure:
             return _resolve_tokens(self.payload_tokens, ids, kind)
         t0 = time.perf_counter()
-        out = _resolve_tokens(self.payload_tokens, ids, kind)
-        sync(out)
+        with self.service.tracer.span("retrieval.gather", "retrieval"):
+            out = _resolve_tokens(self.payload_tokens, ids, kind)
+            sync(out)
         self.service.stats.gather.add(time.perf_counter() - t0)
         return out

@@ -20,8 +20,20 @@ stale cache entry) while its real search is in flight;
 ``spec_harvest`` verifies it 1..k waves later by re-mixing the saved
 logits with the real neighbours, and a mismatch rolls the sequence back
 (``KVCachePool.rewind``) and replays it, so greedy tokens equal the
-tokens with speculation off. The disaggregated backend, the tracer and
-the per-sequence decode loop are later slices.
+tokens with speculation off.
+
+Observability: ``set_tracer`` (or ``EngineConfig.trace``) installs a
+``repro_torch.obs.Tracer`` in the engine, its scheduler, retrieval
+service and KV pool; ``write_trace`` dumps it as Chrome trace-event
+JSON. The spans are host wall time: on the card a span covers the device
+work inside it only where that code waits for the device.
+
+Fault tolerance: ``EngineConfig.shard_replicas`` /
+``retrieval_deadline_s`` / ``chaos_plan`` arm the retrieval service's
+fault-tolerant dispatch (``retrieval/replica.py``, ``retrieval/chaos.py``);
+a step served from a partial result counts in the response's
+``partial_steps``. The disaggregated backend and the per-sequence decode
+loop are later slices.
 """
 from __future__ import annotations
 
@@ -39,6 +51,8 @@ from repro_torch.core.chamvs import ChamVSConfig
 from repro_torch.core.rag import RagConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.retrieval.replica import FailoverConfig
 from repro_torch.retrieval.service import ServiceConfig
 from repro_torch.retrieval.stats import RetrievalStats
 from repro_torch.serve.api import (EngineConfig, RalmRequest, RalmResponse,
@@ -199,6 +213,30 @@ class RalmEngine:
         self.pool: Optional[KVCachePool] = None   # built at first admission
         self.scheduler = RalmScheduler(self, max_active=max_active)
         self._unclaimed: List[RalmResponse] = []
+        self.tracer = NULL_TRACER      # set_tracer swaps a live one in
+        self.trace_path: Optional[str] = None
+
+    # -- observability ------------------------------------------------------
+
+    def set_tracer(self, tracer: Tracer) -> None:
+        """Install a tracer in the engine and every component with a span
+        site: the retrieval service (queue wait, scan, merge, gather,
+        hedge / partial / eject / recover instants) and the KV pool
+        (alloc / release / rewind). The lazily built pool picks it up at
+        construction."""
+        self.tracer = tracer
+        service = getattr(self.retriever, "service", None)
+        if service is not None:
+            service.tracer = tracer
+        if self.pool is not None:
+            self.pool.tracer = tracer
+
+    def write_trace(self, path: Optional[str] = None) -> str:
+        """Dump the trace buffer as Chrome trace-event JSON. ``path``
+        defaults to ``EngineConfig.trace_path`` or ``trace.json``."""
+        path = path or self.trace_path or "trace.json"
+        self.tracer.write(path)
+        return path
 
     @property
     def decode_dispatches(self) -> int:
@@ -248,12 +286,30 @@ class RalmEngine:
                 "synchronous retriever has nothing to hide) — "
                 "disabling speculation.", RuntimeWarning, stacklevel=2)
             speculate_k = 0
+        ft_wanted = (config.shard_replicas > 1 or
+                     config.retrieval_deadline_s > 0.0 or
+                     config.chaos_plan is not None)
+        if ft_wanted and not config.async_retrieval:
+            warnings.warn(
+                "EngineConfig retrieval fault-tolerance knobs "
+                "(shard_replicas / retrieval_deadline_s / chaos_plan) "
+                "require async_retrieval=True (the dispatch loop "
+                "lives in the RetrievalService) — ignoring them.",
+                RuntimeWarning, stacklevel=2)
         if config.async_retrieval:
+            failover = None
+            if ft_wanted:
+                failover = FailoverConfig(
+                    replicas=max(1, config.shard_replicas),
+                    dispatch_deadline_s=config.retrieval_deadline_s,
+                    hedge_quantile=config.hedge_quantile)
             retriever = datastore.async_retriever(
                 search_cfg, query_proj=query_proj,
                 service_cfg=ServiceConfig(
                     cache_entries=config.retrieval_cache,
-                    measure=config.retrieval_measure))
+                    measure=config.retrieval_measure, failover=failover))
+            if config.chaos_plan is not None:
+                retriever.service.install_chaos(config.chaos_plan)
         else:
             retriever = datastore.retriever(search_cfg, query_proj=query_proj)
         eng = cls.monolithic(params, config.model, config.rag,
@@ -263,6 +319,9 @@ class RalmEngine:
                              speculate_k=speculate_k,
                              speculate_verify=config.speculate_verify)
         eng.scheduler.max_active = config.max_active
+        if config.trace:
+            eng.set_tracer(Tracer(enabled=True))
+        eng.trace_path = config.trace_path
         return eng
 
     # -- KV-cache pool admission -------------------------------------------
@@ -291,6 +350,7 @@ class RalmEngine:
                                     fixed=self.kv_slots is not None,
                                     seq_block=self.attn_seq_block,
                                     device=self.device)
+            self.pool.tracer = self.tracer
         pool = self.pool
         if self.max_seq is None and need_seq > pool.max_seq:
             pool.grow_seq(need_seq)
@@ -321,11 +381,20 @@ class RalmEngine:
         prompt = torch.as_tensor(request.prompt).to(self.device, torch.int32)
         B, T0 = prompt.shape
         request.times.admit = time.perf_counter()
-        pool = self._ensure_pool(B, T0 + request.steps)
-        slots = pool.alloc(B)
-        caches, logits0, hidden0 = self.backend.prefill(self.rag, prompt,
-                                                        pool.max_seq)
-        pool.write_prefill(slots, caches)
+        tr = self.tracer
+        if tr.enabled and request.times.arrival is not None:
+            # retroactive span: the wait began at submit()
+            tr.complete("queue.wait", "requests", request.times.arrival,
+                        request.times.admit - request.times.arrival,
+                        args={"request_id": request.request_id, "rows": B})
+        with tr.span("sched.admit", "requests",
+                     args={"request_id": request.request_id, "rows": B,
+                           "prompt_len": T0} if tr.enabled else None):
+            pool = self._ensure_pool(B, T0 + request.steps)
+            slots = pool.alloc(B)
+            caches, logits0, hidden0 = self.backend.prefill(
+                self.rag, prompt, pool.max_seq)
+            pool.write_prefill(slots, caches)
         return SequenceState(request=request, out=[prompt],
                              cur=prompt[:, -1:], t0=T0, logits0=logits0,
                              hidden0=hidden0, rng=request.rng, slots=slots)
@@ -389,9 +458,13 @@ class RalmEngine:
         if self.speculate_k > 0:
             for _, seq in wave:
                 seq.wave_shapes[seq.step] = (len(slots), kv_len)
-        logits, pool.caches, hidden = self.backend.decode_wave(
-            pool.caches, tokens, self._to_device(slots),
-            self._to_device(positions), kv_len=kv_len)
+        tr = self.tracer
+        with tr.span("wave.decode", "wave",
+                     args={"rows": len(wave), "bucket": len(slots),
+                           "kv_len": kv_len} if tr.enabled else None):
+            logits, pool.caches, hidden = self.backend.decode_wave(
+                pool.caches, tokens, self._to_device(slots),
+                self._to_device(positions), kv_len=kv_len)
         off = 0
         for i, seq in wave:
             B = seq.cur.shape[0]
@@ -413,6 +486,7 @@ class RalmEngine:
         submit = getattr(self.retriever, "search_async", None)
         if submit is not None:
             rows = sum(decoded[i][1].shape[0] for i in due)
+            issued = 0
             for i in due:
                 seq = seqs[i]
                 if self.speculate_k > 0:
@@ -427,8 +501,12 @@ class RalmEngine:
                         searches[i] = _SpecIssue(submit(decoded[i][1]),
                                                  src[0], src[1])
                         self.spec_stats.spec_issued += 1
+                        issued += 1
                         continue
                 searches[i] = submit(decoded[i][1])
+            if issued and self.tracer.enabled:
+                self.tracer.instant("spec.issue", "wave",
+                                    args={"points": issued})
             return searches
         queries = torch.cat([decoded[i][1] for i in due], dim=0)
         dists, ids = self.retriever.search(queries)
@@ -585,6 +663,16 @@ class RalmEngine:
             del seq.spec_points[:take]
         if not pts:
             return
+        tr = self.tracer
+        with tr.span("spec.verify", "wave",
+                     args={"points": len(pts), "force": force}
+                     if tr.enabled else None):
+            self._spec_verify(pts, decoded)
+
+    def _spec_verify(self, pts: List[Tuple[Optional[int], SequenceState,
+                                           SpecPoint]],
+                     decoded: Optional[List]) -> None:
+        """The body of ``spec_harvest``, over the points it took."""
         stats = self.spec_stats
         rag = self.rag
         t0 = time.perf_counter()
@@ -657,6 +745,19 @@ class RalmEngine:
         stats = self.spec_stats
         t0 = time.perf_counter()
         cur_step = seq.step
+        tr = self.tracer
+        with tr.span("spec.rollback", "wave",
+                     args={"step": point.step,
+                           "depth": cur_step - point.step}
+                     if tr.enabled else None):
+            self._spec_replay(seq, point, corrected, decoded, idx, cur_step)
+        stats.spec_replay.add(time.perf_counter() - t0)
+
+    def _spec_replay(self, seq: SequenceState, point: SpecPoint,
+                     corrected: torch.Tensor, decoded: Optional[List],
+                     idx: Optional[int], cur_step: int) -> None:
+        """The body of ``_spec_rollback``: discard, rewind, replay."""
+        stats = self.spec_stats
         # later points' queries and logits came from the discarded
         # timeline: drop them unverified
         for p in seq.spec_points:
@@ -704,7 +805,6 @@ class RalmEngine:
             # the wrong token; redo it so finish_wave mixes the right one
             decoded[idx] = self.dispatch_wave(
                 [seq], shape=seq.wave_shapes[seq.step])[0]
-        stats.spec_replay.add(time.perf_counter() - t0)
 
     def spec_finalize(self, seq: SequenceState) -> None:
         """Settle a finishing sequence's outstanding points before its

@@ -11,7 +11,8 @@ pool in place.
 Wave sizes are bucketed to powers of two, and attention reads are
 cropped to the wave's seq-block aligned valid prefix (``attn_len``).
 A speculation rollback rewinds a sequence's slots (``rewind``), which is
-bookkeeping only: validity comes from each row's position. RETRO
+bookkeeping only: validity comes from each row's position. Alloc,
+release and rewind drop ``kvpool.*`` instants on the ``tracer``. RETRO
 encoder rows (``write_enc``/``gather_enc``) come with the slice that
 needs them.
 """
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.retrieval.service import next_pow2
 
 __all__ = ["KVCachePool", "PoolStats", "next_pow2"]
@@ -84,6 +86,7 @@ class KVCachePool:
                                     device=self.device)
         self._free: List[int] = list(range(capacity))
         self.stats = PoolStats()
+        self.tracer = NULL_TRACER    # engine.set_tracer swaps a live one in
 
     # -- slot lifecycle -----------------------------------------------------
 
@@ -109,11 +112,20 @@ class KVCachePool:
         slots, self._free = self._free[:n], self._free[n:]
         self.stats.allocs += n
         self.stats.high_water = max(self.stats.high_water, self.num_used)
+        if self.tracer.enabled:
+            self.tracer.instant("kvpool.alloc", "kvpool",
+                                args={"rows": n, "used": self.num_used,
+                                      "capacity": self.capacity})
         return np.asarray(slots, np.int32)
 
     def release(self, slots: np.ndarray) -> None:
         self._free.extend(int(s) for s in slots)
         self.stats.releases += len(slots)
+        if self.tracer.enabled:
+            self.tracer.instant("kvpool.release", "kvpool",
+                                args={"rows": len(slots),
+                                      "used": self.num_used,
+                                      "capacity": self.capacity})
 
     def rewind(self, slots: np.ndarray, keep_len: int,
                old_len: int) -> None:
@@ -156,6 +168,11 @@ class KVCachePool:
                 "depth must be 1 for windowed models")
         self.stats.rewinds += 1
         self.stats.rewound_tokens += dropped * len(slots)
+        if self.tracer.enabled:
+            self.tracer.instant("kvpool.rewind", "kvpool",
+                                args={"rows": len(slots),
+                                      "keep_len": keep_len,
+                                      "dropped": dropped})
 
     # -- wave shape bucketing ----------------------------------------------
 

@@ -7,6 +7,11 @@ advances every active sequence one token: one decode wave, the
 speculation harvest (when the engine speculates), one batched search,
 one finish. Sequences finish independently, settle their speculation
 points, and free their slots for queued work.
+
+Each wave's wall time feeds a ``StragglerMonitor``: a wave slower than
+2x the rolling median of the last 32 bumps ``straggler_events`` and
+drops a ``sched.straggler`` trace instant. The phases are spans on the
+tracer's "wave" track, nested under one ``sched.step`` per wave.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import time
 from collections import deque
 from typing import TYPE_CHECKING, List, Optional
 
+from repro_torch.runtime.fault_tolerance import StragglerMonitor
 from repro_torch.serve.api import RalmRequest, RalmResponse
 
 if TYPE_CHECKING:
@@ -32,6 +38,11 @@ class RalmScheduler:
         self.active: list = []
         self._next_id = 0
         self._issued: set = set()
+        # wave-duration outliers: a wave over 2x the recent median
+        # usually means a retrieval stall or a KV-pool growth
+        self.straggler = StragglerMonitor(threshold=2.0, window=32)
+        self.straggler_events = 0
+        self._wave_idx = 0
 
     def submit(self, request: RalmRequest) -> int:
         """Enqueue a request; returns its id. A request that can never be
@@ -78,16 +89,26 @@ class RalmScheduler:
 
     def _step_wave(self) -> List[RalmResponse]:
         eng = self.engine
-        decoded = eng.dispatch_wave(self.active)
-        if eng.speculate_k > 0:
-            # verify the points whose real search has had its waves to
-            # land: AFTER the next decode is enqueued (the overlap that
-            # hides the scan) and BEFORE the search phase (so an accepted
-            # point's real neighbours seed this wave's speculations)
-            eng.spec_harvest(self.active, decoded)
-        searches = eng.dispatch_search_wave(self.active, decoded)
-        eng.flush_searches()
-        eng.finish_wave(self.active, decoded, searches)
+        tr = eng.tracer
+        t_wave = time.perf_counter()
+        with tr.span("sched.step", "wave",
+                     args={"active": len(self.active)}
+                     if tr.enabled else None):
+            decoded = eng.dispatch_wave(self.active)
+            if eng.speculate_k > 0:
+                # verify the points whose real search has had its waves
+                # to land: AFTER the next decode is enqueued (the overlap
+                # that hides the scan) and BEFORE the search phase (so an
+                # accepted point's real neighbours seed this wave's
+                # speculations)
+                eng.spec_harvest(self.active, decoded)
+            with tr.span("wave.search", "wave"):
+                searches = eng.dispatch_search_wave(self.active, decoded)
+                eng.flush_searches()
+            with tr.span("wave.finish", "wave"):
+                eng.finish_wave(self.active, decoded, searches)
+        if self.active:
+            self._record_wave(time.perf_counter() - t_wave)
         finished: List[RalmResponse] = []
         still_active = []
         for seq in self.active:
@@ -101,6 +122,24 @@ class RalmScheduler:
                 still_active.append(seq)
         self.active = still_active
         return finished
+
+    def _record_wave(self, duration_s: float) -> None:
+        """Feed one wave's wall time (host time: on the card it waits
+        for the device only where the wave syncs) into the straggler
+        monitor; an outlier bumps the counter the metrics adapter
+        exports and drops a trace instant."""
+        self._wave_idx += 1
+        event = self.straggler.record(self._wave_idx, duration_s)
+        if event is None:
+            return
+        self.straggler_events += 1
+        tr = self.engine.tracer
+        if tr.enabled:
+            tr.instant("sched.straggler", "wave",
+                       args={"wave": event.step,
+                             "duration_ms": event.duration * 1e3,
+                             "median_ms": event.median * 1e3,
+                             "ratio": event.ratio})
 
     @staticmethod
     def _response(seq) -> RalmResponse:
