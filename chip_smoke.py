@@ -55,14 +55,40 @@ failure raises, so the run exits non-zero):
      equal); in every run the IVF probe and scan launches equal the
      scans the pipeline ran. obs.trace: one traced crash-plan run,
      written under build/trace/ and validated, beside an untraced run.
+  5. the serving surface: kernel.nprobe_rungs (the IVF probe and the
+     fused scan at the degrade ladder's nprobe rungs, 16 down to 1, on
+     one wave's real queries, against their plain versions, timed beside
+     their bounds) and kernel.decode_attn_per_seq (decode attention with
+     slots=None over 4 x 512 per-request caches at positions 448-511);
+     serve.degrade.<rung>: DegradePolicy.apply(i) on the long-lived fused
+     engine for every rung (baseline, nprobe/2 ... nprobe/32, interval
+     x4, knn-off) and the serve traffic, whose tokens must equal an
+     engine pinned at that rung, with no probe or scan launch at knn-off;
+     serve.per_sequence: 2 requests through EngineConfig(wave_decode=
+     False) beside a wave run of them, decode attention launched 24 x 63
+     x 2 times; gateway.*: a Gateway over a fused engine (kv_slots 32)
+     started with start_background(), one streaming client on a raw
+     socket (single: tokens equal to an in-process run), 32 at once
+     (load: every request 64 tokens and [DONE], no slot left, launches
+     = flushes), 64 into 32 slots (overload: the ladder steps down and
+     back to level 0, every admitted request completes, 503s counted)
+     and one that disconnects after two tokens (cancel: its slot comes
+     back, the next request's tokens equal its solo run), with TTFT and
+     TPOT server-side (RequestTiming) and client-side (arrival on the
+     socket). Where two runs put a row in waves of different shapes
+     (per_sequence against its wave run, load against an offline run),
+     the tokens may differ only at near ties (near_tie_check: the first
+     differing token's score gap within twice the two runs' largest
+     score difference over their common prefix, and at most a quarter
+     of the requests differing).
      After the timed runs: one sampled request drawing from a
      CUDA generator, a profile of the fused and of the staged decode
      waves, and the accuracy witness: the same traffic with exact
      (flat L2) search over every key in place of the PQ index, with the
      rate at which each search's top-1 / top-K holds the true prefix's
-     own key. Each profile (fused, staged, and the armed layer without
-     faults) prints the device time per decode wave and the host's time
-     in CUDA synchronize calls.
+     own key. Each profile (fused, staged, the armed layer without
+     faults, and each degrade rung) prints the device time per decode
+     wave and the host's time in CUDA synchronize calls.
 
 The last two lines are the kernel report and the device line, each one
 JSON object. Without a GPU (or outside the repository) it exits non-zero
@@ -72,8 +98,10 @@ from __future__ import annotations
 
 import json
 import pathlib
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -83,7 +111,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM float32, outside tensor cores
 FULL = dict(n_docs=8192, doc_len=513, prompt_len=448, steps=64,
             requests=8, rows=4, nlist=256, nprobe=32, m=32, max_seq=512,
-            train_stride=16, repeats=3)
+            train_stride=16, repeats=3, kv_slots=32, per_seq_requests=2,
+            cancel_steps=16)
 
 
 def log(phase: str, t0: float, **kv) -> None:
@@ -683,27 +712,29 @@ def kernel_hierarchical_topk(torch, dev, timer, d, k, num_blocks, report):
 # ---------------------------------------------------------------------------
 
 def checked_engine(torch, dev, arch, cfg, params, ds, sizes, fused,
-                   **config_kw):
+                   nprobe=None, rag=None, **config_kw):
     """The serve phase's engine through RalmEngine.from_config (async
-    retrieval, fused or staged scan, ``config_kw`` as further
-    ``EngineConfig`` fields), wrapped so that finiteness and id-range
-    checks accumulate on the device (no syncs); ``check()`` raises if
-    any of them failed. ``eng.scanned`` records the flush index of every
-    scan its pipeline runs, independently of the service's counters."""
+    retrieval, fused or staged scan, ``nprobe`` / ``rag`` in place of the
+    sizes' and the arch's, ``config_kw`` as further ``EngineConfig``
+    fields), wrapped so that finiteness and id-range checks accumulate on
+    the device (no syncs); ``check()`` raises if any of them failed.
+    ``eng.scanned`` records the flush index of every scan its pipeline
+    runs, independently of the service's counters."""
     from repro_torch.serve import EngineConfig, RalmEngine
 
-    search_cfg = ds.search_config(nprobe=sizes["nprobe"], k=arch.rag.k,
-                                  fused=fused)
+    search_cfg = ds.search_config(nprobe=nprobe or sizes["nprobe"],
+                                  k=arch.rag.k, fused=fused)
     eng = RalmEngine.from_config(
-        EngineConfig(model=cfg, rag=arch.rag, max_seq=sizes["max_seq"],
-                     async_retrieval=True, retrieval_measure=False,
-                     **config_kw),
+        EngineConfig(model=cfg, rag=rag or arch.rag,
+                     max_seq=sizes["max_seq"], async_retrieval=True,
+                     retrieval_measure=False, **config_kw),
         params, ds, search_cfg, device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
     n_vec = ds.num_vectors
     backend, retriever = eng.backend, eng.retriever
-    prefill, decode_wave, resolve = (backend.prefill, backend.decode_wave,
-                                     retriever.resolve)
+    prefill, decode_wave, decode, resolve = (
+        backend.prefill, backend.decode_wave, backend.decode,
+        retriever.resolve)
 
     def checked_prefill(*a, **k):
         nonlocal ok
@@ -711,11 +742,13 @@ def checked_engine(torch, dev, arch, cfg, params, ds, sizes, fused,
         ok = ok & torch.isfinite(logits).all()
         return caches, logits, hidden
 
-    def checked_decode(*a, **k):
-        nonlocal ok
-        logits, caches, hidden = decode_wave(*a, **k)
-        ok = ok & torch.isfinite(logits).all()
-        return logits, caches, hidden
+    def checked(step):
+        def run(*a, **k):
+            nonlocal ok
+            logits, caches, hidden = step(*a, **k)
+            ok = ok & torch.isfinite(logits).all()
+            return logits, caches, hidden
+        return run
 
     def checked_resolve(ids, kind="tokens"):
         nonlocal ok
@@ -726,7 +759,8 @@ def checked_engine(torch, dev, arch, cfg, params, ds, sizes, fused,
         if not bool(ok):
             raise AssertionError("non-finite logits or out-of-range ids")
 
-    backend.prefill, backend.decode_wave = checked_prefill, checked_decode
+    backend.prefill = checked_prefill
+    backend.decode_wave, backend.decode = checked(decode_wave), checked(decode)
     retriever.resolve = checked_resolve
     service = retriever.service
     scan = service.pipeline.scan
@@ -753,13 +787,16 @@ def drive(torch, eng, cfg, prompts, truth, steps, label,
           every_flush_scans=True, traces=False):
     """One run of the traffic, with the launch counters zeroed just
     before and read just after. Every kernel must have launched exactly
-    as the engine dispatched: decode attention once per layer per wave,
-    the IVF probe once per scan the pipeline ran, and the scan kernel of
-    the deployment (fused scan, or adc_scan per shard) once per scan
+    as the engine dispatched: decode attention once per layer per LM step
+    (a wave, or one request's step on the per-sequence loop), the IVF
+    probe once per scan the pipeline ran, and the scan kernel of the
+    deployment (fused scan, or adc_scan per shard) once per scan
     dispatch; no other kernel. The pipeline scans once per search flush
     (``every_flush_scans``), except under the fault-tolerant layer in a
     flush where no fault domain had a dispatch target: that flush runs
-    no scan. ``traces`` records each request's retrieved ids per step."""
+    no scan. With retrieval off (``rag.mode == "none"``) there is no
+    flush and no probe or scan launch. ``traces`` records each request's
+    retrieved ids per step."""
     import numpy as np
     from repro_torch.kernels import _build
     from repro_torch.serve import RalmRequest
@@ -820,14 +857,17 @@ def drive(torch, eng, cfg, prompts, truth, steps, label,
     want = dict.fromkeys(launches, 0)
     want.update({"decode_attn_launch": cfg.n_layers * waves,
                  "ivf_scan_launch": len(scanned), scan_kernel: scans})
-    if scans != pipeline.scan_dispatches * len(scanned) or flushes <= 0 or \
+    retrieving = eng.rag.mode != "none"
+    if scans != pipeline.scan_dispatches * len(scanned) or \
+            (flushes <= 0) == retrieving or \
             waves <= 0 or launches != want or \
             (every_flush_scans and len(scanned) != flushes):
         raise AssertionError(f"launches {launches} != expected {want} "
                              f"({flushes} flushes, {len(scanned)} scanned, "
                              f"{scans} scan dispatches)")
     return dict(tps=tokens / wall, acc=acc, gen=gen, launches=launches,
-                ms_wave=(wall - t_first) / waves * 1e3, waves=waves,
+                rids=rids, ms_wave=(wall - t_first) / waves * 1e3,
+                waves=waves,
                 wall=wall, t_first=t_first, flushes=flushes,
                 scanned=[f - flushes0 for f in scanned],
                 partial_steps=partial_steps, stragglers=stragglers,
@@ -1396,6 +1436,606 @@ def obs_trace(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
     del eng
 
 
+# ---------------------------------------------------------------------------
+# the serving surface: degrade rungs, the per-sequence loop, the gateway
+# ---------------------------------------------------------------------------
+
+def kernel_nprobe_rungs(torch, dev, timer, ds, q, kk, rungs):
+    """The IVF probe and the fused scan at the degrade ladder's nprobe
+    rungs, on one wave's real queries, each held against its plain
+    version (probe ids up to near-ties, as ``kernel.ivf_scan``; scan ids
+    identical) and timed beside its bound. Log lines only."""
+    from repro_torch.core import ivfpq
+    from repro_torch.core.chamvs import stack_shards
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.chamvs_scan import ops as cs
+    from repro_torch.kernels.ivf_scan import ops as iv
+
+    cents = ds.params.coarse_centroids
+    st = stack_shards(ds.shards)
+    sms = _build.sm_count(dev)
+    nq, D = q.shape
+    S = st.codes.shape[0]
+    for nprobe in rungs:
+        t0 = time.perf_counter()
+        dk, ik = iv.ivf_index_scan(q, cents, nprobe)
+        dp, ip = iv.ref_ivf_scan(q, cents, nprobe)
+        torch.cuda.synchronize()
+        mism, perr, _ = check_probe(torch, q, cents, dk, ik, dp, ip)
+        probe_ms = timer(lambda: iv.ivf_index_scan(q, cents, nprobe))
+        probe_bound_ms, _ = probe_bound(nq, cents.shape[0], D, nprobe)
+        luts = ivfpq.compute_luts(ds.params, q, ip, ds.index_cfg)
+        args = (luts, st.codes, st.ids, st.list_len, ip, kk)
+        sd, si = cs.fused_scan(*args)
+        p = ip.long()
+        rd, ri = cs.ref_chamvs_scan(luts, st.codes[:, p], st.ids[:, p],
+                                    st.list_len[:, p], kk)
+        torch.cuda.synchronize()
+        if not torch.equal(si, ri):
+            raise AssertionError(f"fused_scan at nprobe {nprobe}: ids "
+                                 f"differ in {int((si != ri).sum())}")
+        fin = torch.isfinite(rd)
+        serr = (sd - rd)[fin].abs().max().item() if bool(fin.any()) else 0.0
+        scan_ms = timer(lambda: cs.fused_scan(*args))
+        rows = float(st.list_len[:, p].double().sum())
+        m, ksub = luts.shape[2], luts.shape[3]
+        n_luts = nq * (1 if luts.stride(1) == 0 else nprobe)
+        scan_bound_ms, scan_by = bound(
+            rows * m + n_luts * m * ksub * 4 + S * nq * kk * 12, rows * m)
+        groups = cs.scan_groups(S, nq, nprobe, st.codes.shape[2], kk, sms)
+        log("kernel.nprobe_rungs", t0, nprobe=nprobe, nq=nq,
+            probe_id_mismatch_near_ties=mism, probe_max_abs_err=f"{perr:.3e}",
+            probe_ms=f"{probe_ms:.4f}", probe_bound_ms=f"{probe_bound_ms:.5f}",
+            scan_ids_equal=True, scan_max_abs_err=f"{serr:.3e}",
+            scan_ms=f"{scan_ms:.4f}", scan_bound_ms=f"{scan_bound_ms:.4f}",
+            scan_bound_by=scan_by, scanned_rows=int(rows), scan_groups=groups,
+            scan_blocks=S * nq * groups)
+
+
+def kernel_decode_attn_per_seq(torch, dev, timer, cfg, sizes):
+    """Decode attention as the per-sequence loop calls it: ``slots=None``
+    over one request's own uncropped caches [rows, max_seq, KV, D] at the
+    positions a prompt_len-token prompt reaches in ``steps`` steps; held
+    against the plain version within 2^-5 of the output range (and the
+    f32 oracle within 2^-8), and timed beside its bound."""
+    from repro_torch.kernels.decode_attn import ops as da
+    from repro_torch.kernels.decode_attn.ref import decode_validity
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(6)
+    W, S = sizes["rows"], sizes["max_seq"]
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    lo, hi = sizes["prompt_len"], sizes["prompt_len"] + sizes["steps"] - 1
+    k = torch.randn((W, S, KV, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((W, S, KV, D), generator=g, device=dev).bfloat16()
+    q = torch.randn((W, 1, H, D), generator=g, device=dev).bfloat16()
+    pos = torch.randint(lo, hi + 1, (W,), generator=g, device=dev).int()
+    out = da.decode_attention(q, k, v, pos)
+    plain = da.ref_decode_attention(q, k, v, pos)
+    exact = da.ref_decode_attention(q.float(), k.float(), v.float(), pos)
+    torch.cuda.synchronize()
+    scale = plain.float().abs().max().item()
+    err = (out.float() - plain.float()).abs().max().item()
+    err32 = (out.float() - exact).abs().max().item()
+    tol, tol32 = 2 ** -5 * scale + 1e-3, 2 ** -8 * scale + 1e-5
+    if not (err <= tol and err32 <= tol32):
+        raise AssertionError(f"decode_attn per sequence: err {err} (tol "
+                             f"{tol}), vs f32 {err32} (tol {tol32})")
+    ms = timer(lambda: da.decode_attention(q, k, v, pos))
+    plain_ms = timer(lambda: da.ref_decode_attention(q, k, v, pos))
+    n_valid = int(decode_validity(pos, S, 0, False).sum())
+    nbytes = 2 * n_valid * KV * D * 2 + 2 * q.numel() * 2 + W * 4
+    bound_ms, bound_by = bound(nbytes, 4 * n_valid * H * D)
+    log("kernel.decode_attn_per_seq", t0, shape=f"W={W},H={H},KV={KV},D={D},"
+        f"S={S},slots=None", positions=f"{lo}-{hi}", max_abs_err=f"{err:.3e}",
+        tol=f"{tol:.3e}", err_vs_f32=f"{err32:.3e}", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+        bound_by=bound_by)
+
+
+class ScoreRecorder:
+    """While installed, keeps the mixed kNN-LM scores (log-probs, float32,
+    on the engine's device) each greedy token of ``eng`` was taken from:
+    the rows of the mix that ``finish_wave`` / ``finish_step`` computes,
+    in the order of the emits that follow it (at retrieval interval 1
+    every row is due, so the two orders agree). A request gets rows when
+    it first emits; ``rows(rids, B)`` returns their slabs. Records only
+    while the engine runs kNN-LM at interval 1."""
+
+    def __init__(self, torch, eng, n_rows, steps, vocab):
+        self.torch, self.eng = torch, eng
+        self.scores = torch.full((n_rows, steps, vocab), float("nan"),
+                                 device=eng.device)
+        self.base, self.free = {}, 0
+        self.pending, self.cursor = None, 0
+
+    def __enter__(self):
+        from repro_torch.core import rag
+        eng, mix, emit = self.eng, rag.knnlm_interpolate, self.eng._emit
+        self._saved = (rag, mix, eng.finish_wave, eng.finish_step, emit)
+
+        def recording_mix(*a, **k):
+            self.pending, self.cursor = mix(*a, **k), 0
+            return self.pending
+
+        def fresh(finish):
+            def run(*a, **k):
+                self.pending = None
+                return finish(*a, **k)
+            return run
+
+        def recording_emit(seq, nxt):
+            if self.pending is not None and eng.rag.mode == "knnlm" and \
+                    eng.rag.interval <= 1:
+                B = nxt.shape[0]
+                rid = seq.request.request_id
+                if rid not in self.base:
+                    self.base[rid], self.free = self.free, self.free + B
+                b = self.base[rid]
+                self.scores[b:b + B, seq.step] = \
+                    self.pending[self.cursor:self.cursor + B]
+                self.cursor += B
+            emit(seq, nxt)
+
+        rag.knnlm_interpolate = recording_mix
+        eng.finish_wave = fresh(eng.finish_wave)
+        eng.finish_step = fresh(eng.finish_step)
+        eng._emit = recording_emit
+        return self
+
+    def __exit__(self, *exc):
+        rag, mix, finish_wave, finish_step, emit = self._saved
+        rag.knnlm_interpolate = mix
+        self.eng.finish_wave, self.eng.finish_step = finish_wave, finish_step
+        self.eng._emit = emit
+        return False
+
+    def rows(self, rids, B):
+        """[len(rids) * B, steps, V] in the order of ``rids``."""
+        return self.torch.cat([self.scores[self.base[r]:self.base[r] + B]
+                               for r in rids])
+
+
+def near_tie_check(torch, label, gen_a, sc_a, gen_b, sc_b, rows):
+    """Two runs of the same requests at different shapes need not agree
+    bit for bit, so where their greedy tokens differ this holds the
+    difference to a near tie. The noise is the largest absolute
+    difference of the two runs' mixed scores over every row's steps
+    before its first differing token (the same inputs). At each row's
+    first differing step, the gap between the two tokens' scores, in
+    each run, must be within 2x that noise, and at most a quarter of the
+    requests may differ. ``gen_*`` [N, steps] tokens, ``sc_*`` [N, steps,
+    V] scores, ``rows`` rows per request. Returns what it judged by."""
+    import numpy as np
+
+    N, T = gen_a.shape
+    diff = gen_a != gen_b
+    first = np.where(diff.any(1), diff.argmax(1), T)
+    agree = torch.from_numpy(np.arange(T)[None, :] < first[:, None]
+                             ).to(sc_a.device)
+    if bool(torch.isnan(sc_a[agree]).any() or
+            torch.isnan(sc_b[agree]).any()):
+        raise AssertionError(f"{label}: a step's scores were not recorded")
+    d = torch.where(sc_a == sc_b, torch.zeros_like(sc_a), (sc_a - sc_b).abs())
+    noise = float(d[agree].amax()) if bool(agree.any()) else 0.0
+    n_req = N // rows
+    req_differ = int(diff.reshape(n_req, rows, T).any(axis=(1, 2)).sum())
+    out = dict(noise=noise, requests_differ=req_differ, requests=n_req,
+               rows_differ=int(diff.any(1).sum()), worst_margin=0.0)
+    for r in np.flatnonzero(first < T):
+        s = int(first[r])
+        a, b = int(gen_a[r, s]), int(gen_b[r, s])
+        margin = max(float(sc_a[r, s, a] - sc_a[r, s, b]),
+                     float(sc_b[r, s, b] - sc_b[r, s, a]))
+        out["worst_margin"] = max(out["worst_margin"], margin)
+        if "first" not in out:
+            out["first"] = dict(
+                request=int(r) // rows, row=int(r) % rows, step=s,
+                tokens=(a, b),
+                run_a_scores=(float(sc_a[r, s, a]), float(sc_a[r, s, b])),
+                run_b_scores=(float(sc_b[r, s, a]), float(sc_b[r, s, b])))
+    if out["worst_margin"] > 2 * noise or 4 * req_differ > n_req:
+        raise AssertionError(f"{label}: not a near tie: {out}")
+    return out
+
+
+def serve_degrade(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
+                  eng, fused_gen):
+    """The degrade ladder that ``DegradePolicy`` builds on the long-lived
+    fused engine, rung by rung: ``policy.apply(i)`` and the serve traffic,
+    whose tokens must equal those of a new engine built at the rung's
+    (nprobe, interval, mode) on the same traffic (so the same wave
+    shapes), with launches held to dispatches by ``drive`` (no probe or
+    scan at knn-off). The baseline's pinned run is the fused runs'.
+    Returns the policy, its engine back at the baseline, and the rows."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.serve import DegradePolicy
+
+    steps, B = sizes["steps"], sizes["rows"]
+    policy = DegradePolicy(eng)
+    rows = []
+    for i, rung in enumerate(policy.ladder):
+        t0 = time.perf_counter()
+        policy.apply(i)
+        name = rung_label(rung)
+        run = drive(torch, eng, cfg, prompts, truth, steps,
+                    f"serve.degrade.{name}_run")
+        pinned_tps = None
+        want = fused_gen
+        if i:
+            rag = dataclasses.replace(arch.rag, interval=rung.interval,
+                                      mode="knnlm" if rung.knn else "none")
+            pinned, _, check = checked_engine(torch, dev, arch, cfg, params,
+                                              ds, sizes, fused=True,
+                                              nprobe=rung.nprobe, rag=rag)
+            prun = drive(torch, pinned, cfg, prompts, truth, steps,
+                         f"serve.degrade.{name}_pinned")
+            check()
+            want, pinned_tps = prun["gen"], f"{prun['tps']:.1f}"
+            del pinned
+        if not np.array_equal(run["gen"], want):
+            raise AssertionError(
+                f"serve.degrade.{name}: tokens differ from the pinned "
+                f"engine's at {first_difference(run['gen'], want, B)}")
+        row = dict(rung=rung.name, nprobe=rung.nprobe,
+                   interval=rung.interval, knn=rung.knn,
+                   tokens_per_s=f"{run['tps']:.1f}",
+                   pinned_tokens_per_s=pinned_tps,
+                   decode_ms_per_wave=f"{run['ms_wave']:.2f}",
+                   accuracy=f"{run['acc']:.4f}", search_flushes=run["flushes"],
+                   probe_launches=run["launches"]["ivf_scan_launch"],
+                   scan_launches=run["launches"]["chamvs_scan_launch"])
+        rows.append(row)
+        log(f"serve.degrade.{name}", t0, tokens_equal_to_pinned=True, **row)
+    policy.apply(0)
+    torch.cuda.empty_cache()
+    return policy, rows
+
+
+def rung_label(rung):
+    return rung.name.replace(" ", "_").replace("/", "_")
+
+
+def serve_per_sequence(torch, dev, arch, cfg, params, ds, sizes, prompts,
+                       truth):
+    """The per-sequence loop (``EngineConfig(wave_decode=False)``) on the
+    first ``per_seq_requests`` requests of the serve traffic, beside a
+    wave run of the same requests; decode attention must launch
+    n_layers x (steps - 1) x requests times; tokens are held to the wave
+    run's by ``near_tie_check`` (each request decodes alone at its own
+    width here, in one wave there). Returns its launch counts."""
+    t0 = time.perf_counter()
+    R, B, steps = sizes["per_seq_requests"], sizes["rows"], sizes["steps"]
+    prompts, truth = prompts[:R], truth[:R * B]
+    runs, scores = {}, {}
+    for name, wave in (("wave", True), ("per_sequence", False)):
+        e, _, check = checked_engine(torch, dev, arch, cfg, params, ds, sizes,
+                                     fused=True, wave_decode=wave)
+        with ScoreRecorder(torch, e, R * B, steps, cfg.vocab_size) as rec:
+            runs[name] = drive(torch, e, cfg, prompts, truth, steps,
+                               f"serve.per_sequence.{name}_run")
+        check()
+        scores[name] = rec.rows(runs[name]["rids"], B)
+        del e, rec
+    per, wave = runs["per_sequence"], runs["wave"]
+    want = cfg.n_layers * (steps - 1) * R
+    if per["launches"]["decode_attn_launch"] != want:
+        raise AssertionError(f"per-sequence decode attention launched "
+                             f"{per['launches']['decode_attn_launch']} "
+                             f"times, not {want}")
+    tie = near_tie_check(torch, "serve.per_sequence", per["gen"],
+                         scores["per_sequence"], wave["gen"], scores["wave"],
+                         B)
+    log("serve.per_sequence", t0, requests=R, rows=B, steps=steps,
+        tokens_per_s=f"{per['tps']:.1f}",
+        wave_tokens_per_s=f"{wave['tps']:.1f}",
+        decode_ms_per_request_step=f"{per['ms_wave']:.2f}",
+        wave_decode_ms_per_wave=f"{wave['ms_wave']:.2f}",
+        decode_attn_launches=per["launches"]["decode_attn_launch"],
+        accuracy=f"{per['acc']:.4f}", wave_accuracy=f"{wave['acc']:.4f}",
+        near_tie=tie)
+    del scores
+    torch.cuda.empty_cache()
+    return per["launches"]
+
+
+def sse_client(port, prompt, steps, out, key, disconnect_after=None,
+               timeout_s=300.0):
+    """One streaming POST /v1/completions on a raw socket: records the
+    status, the tokens, each token's arrival time, the final chunk, the
+    request id and the send time under ``out[key]``; with
+    ``disconnect_after`` it closes the socket after that many tokens."""
+    body = json.dumps({"prompt": prompt, "max_tokens": steps,
+                       "stream": True}).encode()
+    head = (f"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+            f"Content-Length: {len(body)}\r\n\r\n").encode()
+    res = dict(status=None, tokens=[], stamps=[], final=None, rid=None,
+               done=False, t_send=time.perf_counter())
+    out[key] = res
+    s = socket.create_connection(("127.0.0.1", port), timeout=timeout_s)
+    try:
+        s.sendall(head + body)
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            data = s.recv(65536)
+            if not data:
+                return
+            buf += data
+        status_line, buf = buf.split(b"\r\n\r\n", 1)
+        res["status"] = int(status_line.split(b"\r\n")[0].split()[1])
+        if res["status"] != 200:
+            return
+        while True:
+            while b"\n\n" in buf:
+                event, buf = buf.split(b"\n\n", 1)
+                now = time.perf_counter()
+                if event == b"data: [DONE]":
+                    res["done"] = True
+                    return
+                obj = json.loads(event[6:])
+                res["rid"] = int(obj["id"].split("-")[1])
+                choice = obj["choices"][0]
+                if choice["finish_reason"] is not None:
+                    res["final"] = obj
+                    continue
+                res["tokens"] += [int(t) for t in choice["text"].split()]
+                res["stamps"].append(now)
+                if disconnect_after is not None and \
+                        len(res["tokens"]) >= disconnect_after:
+                    return
+            data = s.recv(65536)
+            if not data:
+                return
+            buf += data
+    finally:
+        s.close()
+
+
+def run_clients(port, jobs, timeout_s=300.0):
+    """One thread per (key, prompt, steps, disconnect_after) job, all
+    started together and joined; returns the results by key and the wall
+    time from the first start to the last join."""
+    out = {}
+    threads = [threading.Thread(target=sse_client,
+                                args=(port, p, n, out, key, cut, timeout_s),
+                                daemon=True)
+               for key, p, n, cut in jobs]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"a gateway client did not finish in "
+                             f"{timeout_s} s")
+    return out, time.perf_counter() - t0
+
+
+def pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, dtype=float), q))
+
+
+def latencies(results):
+    """Server-side (the final chunk's RequestTiming) and client-side
+    (socket arrival) TTFT and TPOT in ms, per completed request."""
+    srv_ttft = [r["final"]["ralm"]["ttft_ms"] for r in results]
+    srv_tpot = [r["final"]["ralm"]["tpot_ms"] for r in results]
+    cli_ttft = [(r["stamps"][0] - r["t_send"]) * 1e3 for r in results]
+    cli_tpot = [(r["stamps"][-1] - r["stamps"][0]) * 1e3 /
+                max(len(r["stamps"]) - 1, 1) for r in results]
+    return srv_ttft, srv_tpot, cli_ttft, cli_tpot
+
+
+def gateway_launch_check(eng, cfg, before, label):
+    """Launches since ``before`` (the engine's counters when the launch
+    counts were zeroed) against the engine's own counts: decode attention
+    n_layers per wave, the probe and the fused scan one per flush."""
+    from repro_torch.kernels import _build
+
+    stats = eng.retriever.service.stats
+    launches = {n: k.launches for n, k in _build.kernels().items()}
+    waves = eng.decode_dispatches - before["waves"]
+    flushes = stats.num_batches - before["flushes"]
+    want = dict.fromkeys(launches, 0)
+    want.update({"decode_attn_launch": cfg.n_layers * waves,
+                 "ivf_scan_launch": flushes, "chamvs_scan_launch": flushes})
+    if launches != want or flushes <= 0:
+        raise AssertionError(f"{label}: launches {launches} != {want}")
+    return launches, waves, flushes
+
+
+def serve_gateway(torch, dev, arch, cfg, params, ds, sizes, corpus):
+    """The HTTP gateway on the card, over a fused engine with a fixed pool
+    (``kv_slots``) and the default degrade ladder, started with
+    ``start_background()``: one streaming client (``gateway.single``),
+    one client per corpus prompt at once (``gateway.load``), twice as many
+    clients as slots (``gateway.overload``), and a client that walks away
+    after two tokens (``gateway.cancel``). Every in-process reference
+    runs on its own engine of the same config before the gateway starts:
+    this thread launches no kernel while the gateway's step thread runs.
+    Returns the phases' rows."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.serve import Gateway, GatewayConfig
+
+    T0, steps, slots = sizes["prompt_len"], sizes["steps"], sizes["kv_slots"]
+    n = sizes["requests"] * sizes["rows"]
+    prompts = [corpus[i, :T0] for i in range(n)]
+    truth = corpus[:n, T0:T0 + steps]
+    kw = dict(fused=True, kv_slots=slots)
+
+    # -- in-process references, before the gateway starts ------------------
+    t0 = time.perf_counter()
+    ref, _, ref_check = checked_engine(torch, dev, arch, cfg, params, ds,
+                                       sizes, **kw)
+    single_want = ref.generate(torch.from_numpy(prompts[0][None]),
+                               steps)[0, T0:]
+    cancel_want = ref.generate(torch.from_numpy(prompts[5][None]),
+                               sizes["cancel_steps"])[0, T0:]
+    with ScoreRecorder(torch, ref, n, steps, cfg.vocab_size) as rec:
+        offline = drive(torch, ref, cfg, [p[None] for p in prompts], truth,
+                        steps, "gateway.load_offline")
+    ref_check()
+    off_scores = rec.rows(offline["rids"], 1)
+    del ref, rec
+    log("gateway.references", t0, offline_tokens_per_s=f"{offline['tps']:.1f}",
+        offline_accuracy=f"{offline['acc']:.4f}")
+
+    eng, _, check = checked_engine(torch, dev, arch, cfg, params, ds, sizes,
+                                   **kw)
+    recorder = ScoreRecorder(torch, eng, n, steps, cfg.vocab_size)
+    card = nvidia_smi()
+    gw = Gateway(eng, GatewayConfig())
+    gw.start_background()
+    stats = eng.retriever.service.stats
+    rows = {}
+
+    def counters():
+        return dict(waves=eng.decode_dispatches, flushes=stats.num_batches)
+
+    try:
+        # -- gateway.single -------------------------------------------------
+        t0 = time.perf_counter()
+        _build.reset_launches()
+        before = counters()
+        res, wall = run_clients(gw.port, [(0, prompts[0].tolist(), steps,
+                                           None)])
+        r = res[0]
+        same = np.array_equal(r["tokens"], single_want)
+        if not (r["status"] == 200 and r["done"] and same):
+            raise AssertionError(f"gateway.single: status {r['status']}, "
+                                 f"tokens equal {same}")
+        launches, waves, flushes = gateway_launch_check(eng, cfg, before,
+                                                        "gateway.single")
+        st, sp, ct, cp = latencies([r])
+        rows["single"] = dict(server_ttft_ms=f"{st[0]:.2f}",
+                              server_tpot_ms=f"{sp[0]:.3f}",
+                              client_ttft_ms=f"{ct[0]:.2f}",
+                              client_tpot_ms=f"{cp[0]:.3f}",
+                              tokens_per_s=f"{steps / wall:.1f}")
+        log("gateway.single", t0, card=card, prompt_len=T0, steps=steps,
+            tokens_equal_to_in_process=True, decode_waves=waves,
+            search_flushes=flushes, launches=launches, **rows["single"])
+
+        # -- gateway.load ---------------------------------------------------
+        t0 = time.perf_counter()
+        _build.reset_launches()
+        before = counters()
+        down0 = gw.policy.transitions_down
+        with recorder:
+            res, wall = run_clients(gw.port, [(i, prompts[i].tolist(), steps,
+                                               None) for i in range(n)])
+        done = [res[i] for i in range(n)]
+        if not all(r["status"] == 200 and r["done"] and
+                   len(r["tokens"]) == steps for r in done):
+            raise AssertionError("gateway.load: a request did not complete: "
+                                 + str([(r["status"], len(r["tokens"]),
+                                         r["done"]) for r in done]))
+        launches, waves, flushes = gateway_launch_check(eng, cfg, before,
+                                                        "gateway.load")
+        if eng.pool.num_used != 0:
+            raise AssertionError(f"gateway.load: {eng.pool.num_used} slots "
+                                 "still in use")
+        gen = np.array([r["tokens"] for r in done])
+        levels = [tuple(r["final"]["ralm"]["degrade_levels"]) for r in done]
+        base = [i for i, lv in enumerate(levels) if lv == (0,)]
+        if 4 * len(base) < 3 * n:
+            raise AssertionError(f"gateway.load: only {len(base)} of {n} "
+                                 "requests ran at the baseline level")
+        got_scores = recorder.rows([done[i]["rid"] for i in base], 1)
+        tie = near_tie_check(torch, "gateway.load", gen[base], got_scores,
+                             offline["gen"][base], off_scores[base], 1)
+        del got_scores, off_scores
+        st, sp, ct, cp = latencies(done)
+        rows["load"] = dict(
+            clients=n, tokens_per_s=f"{n * steps / wall:.1f}",
+            server_ttft_ms_p50_p95=f"{pct(st, 50):.1f}/{pct(st, 95):.1f}",
+            server_tpot_ms_p50_p95=f"{pct(sp, 50):.2f}/{pct(sp, 95):.2f}",
+            client_ttft_ms_p50_p95=f"{pct(ct, 50):.1f}/{pct(ct, 95):.1f}",
+            client_tpot_ms_p50_p95=f"{pct(cp, 50):.2f}/{pct(cp, 95):.2f}",
+            degrade_levels_seen=sorted({x for lv in levels for x in lv}),
+            transitions_down=gw.policy.transitions_down - down0,
+            accuracy=f"{float((gen == truth).mean()):.4f}",
+            offline_accuracy=f"{offline['acc']:.4f}",
+            offline_tokens_per_s=f"{offline['tps']:.1f}")
+        log("gateway.load", t0, card=card, decode_waves=waves,
+            search_flushes=flushes,
+            mean_wave_rows=f"{n * (steps - 1) / max(waves, 1):.2f}",
+            launches=launches, compared_at_baseline=len(base), near_tie=tie,
+            **rows["load"])
+        rows["load"]["launches"] = launches
+
+        # -- gateway.overload -----------------------------------------------
+        t0 = time.perf_counter()
+        over = 2 * slots
+        down0, up0 = gw.policy.transitions_down, gw.policy.transitions_up
+        done0 = gw.completions
+        res, wall = run_clients(gw.port, [
+            (i, prompts[i % n].tolist(), steps, None) for i in range(over)])
+        status = [res[i]["status"] for i in range(over)]
+        admitted = [res[i] for i in range(over) if status[i] == 200]
+        if not all(r["done"] and len(r["tokens"]) == steps
+                   for r in admitted):
+            raise AssertionError("gateway.overload: an admitted request did "
+                                 "not complete")
+        deadline = time.perf_counter() + 60
+        while gw.policy.level != 0 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        if gw.policy.transitions_down - down0 < 1 or gw.policy.level != 0:
+            raise AssertionError(
+                f"gateway.overload: {gw.policy.transitions_down - down0} "
+                f"steps down, level {gw.policy.level} after the drain")
+        if eng.pool.num_used != 0:
+            raise AssertionError("gateway.overload: slots still in use")
+        st, sp, _, _ = latencies(admitted)
+        rows["overload"] = dict(
+            clients=over, admitted=len(admitted),
+            rejected_503=status.count(503),
+            other_status=sorted({s for s in status if s not in (200, 503)}),
+            transitions_down=gw.policy.transitions_down - down0,
+            transitions_up=gw.policy.transitions_up - up0,
+            deepest_rung=max(h["level"] for h in gw.policy.history),
+            completions=gw.completions - done0,
+            tokens_per_s=f"{len(admitted) * steps / wall:.1f}",
+            server_ttft_ms_p50_p95=f"{pct(st, 50):.1f}/{pct(st, 95):.1f}",
+            server_tpot_ms_p50_p95=f"{pct(sp, 50):.2f}/{pct(sp, 95):.2f}")
+        log("gateway.overload", t0, card=card, recovered_to_level=0,
+            history=[(h["level"], h["queue_depth"])
+                     for h in gw.policy.history], **rows["overload"])
+
+        # -- gateway.cancel -------------------------------------------------
+        t0 = time.perf_counter()
+        gone0 = gw.disconnects
+        res, _ = run_clients(gw.port, [(0, prompts[3].tolist(), steps, 2)])
+        deadline = time.perf_counter() + 30
+        while (gw.disconnects == gone0 or eng.pool.num_used or
+               gw.scheduler.num_active) and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        if not (res[0]["status"] == 200 and gw.disconnects - gone0 == 1 and
+                eng.pool.num_used == 0):
+            raise AssertionError(f"gateway.cancel: disconnects "
+                                 f"{gw.disconnects - gone0}, slots in use "
+                                 f"{eng.pool.num_used}")
+        res, _ = run_clients(gw.port, [(0, prompts[5].tolist(),
+                                        sizes["cancel_steps"], None)])
+        if not np.array_equal(res[0]["tokens"], cancel_want):
+            raise AssertionError("gateway.cancel: the following request's "
+                                 "tokens differ from its solo run")
+        rows["cancel"] = dict(disconnects=gw.disconnects - gone0,
+                              cancelled=gw.cancelled, slots_in_use=0)
+        log("gateway.cancel", t0, following_tokens_equal_to_solo=True,
+            **rows["cancel"])
+    finally:
+        gw.shutdown()
+    check()
+    del eng, gw, recorder
+    torch.cuda.empty_cache()
+    return rows
+
+
 def sampled_request(torch, eng, prompt, vocab, steps):
     """One request drawing from a CUDA generator: the draw stays on the
     card. Timed beside the same request decoded greedily; two draws from
@@ -1536,6 +2176,8 @@ def profile_waves(torch, eng, prompts, steps, label="serve.profile"):
 def run_phases(torch, dev, sizes):
     """Set-up, the kernel phases and the serve phases on ``dev`` at
     ``sizes``; returns the kernel report rows."""
+    from repro_torch.serve import DegradePolicy
+
     arch, cfg, params, corpus, keys, ds = setup(dev, sizes)
 
     timer = Timer(torch)
@@ -1573,6 +2215,19 @@ def run_phases(torch, dev, sizes):
               crash_eng, runs[0]["gen"])
     del crash_eng
     torch.cuda.empty_cache()
+    # the serving surface: the kernels at the degrade rungs' and the
+    # per-sequence loop's shapes, the ladder, the loop, the gateway
+    q = wave_queries(torch, dev, eng, prompts, sizes)
+    rungs = {r.nprobe for r in DegradePolicy(eng).ladder} - {sizes["nprobe"]}
+    kernel_nprobe_rungs(torch, dev, timer, ds, q, kk,
+                        sorted(rungs, reverse=True))
+    kernel_decode_attn_per_seq(torch, dev, timer, cfg, sizes)
+    del q
+    policy, _ = serve_degrade(torch, dev, arch, cfg, params, ds, sizes,
+                              prompts, truth, eng, runs[0]["gen"])
+    per_seq = serve_per_sequence(torch, dev, arch, cfg, params, ds, sizes,
+                                 prompts, truth)
+    gateway = serve_gateway(torch, dev, arch, cfg, params, ds, sizes, corpus)
     # after every timed serve run: a profiled window leaves the profiler's
     # hooks behind, which slows the host side of later waves
     sampled_request(torch, eng, prompts[0], cfg.vocab_size, steps=16)
@@ -1582,6 +2237,11 @@ def run_phases(torch, dev, sizes):
     profile_waves(torch, none_eng, prompts, steps=16,
                   label="serve.chaos_none_profile")
     del staged_eng, none_eng
+    for i, rung in enumerate(policy.ladder):      # device ms a wave per rung
+        policy.apply(i)
+        profile_waves(torch, eng, prompts, steps=4,
+                      label=f"serve.degrade_profile.{rung_label(rung)}")
+    policy.apply(0)
     torch.cuda.empty_cache()
     accuracy_witness(torch, eng, arch, cfg, keys, ds, corpus, prompts, sizes)
     # launches: each kernel's count in one run of the serve path that
@@ -1599,6 +2259,15 @@ def run_phases(torch, dev, sizes):
              "no serve path (entry point approx_topk)", fused)):
         report[name]["launches"] = counts[sym]
         report[name]["launches_in"] = path
+    report["decode_attn"].update(
+        launches_per_sequence=per_seq["decode_attn_launch"],
+        launches_per_sequence_in="serve.per_sequence")
+    for name, sym in (("decode_attn", "decode_attn_launch"),
+                      ("ivf_scan", "ivf_scan_launch"),
+                      ("fused_scan", "chamvs_scan_launch")):
+        report[name].update(
+            launches_gateway=gateway["load"]["launches"][sym],
+            launches_gateway_in="gateway.load")
     return [report[k] for k in ("decode_attn", "ivf_scan", "fused_scan",
                                 "adc_scan", "shared_scan",
                                 "hierarchical_topk")]

@@ -11,6 +11,10 @@ kernel launch builds.
 Each C entry point launches its kernel(s) on the stream it is given and
 returns ``cudaGetLastError()``; ``Kernel.__call__`` raises on a nonzero
 code and counts the launch.
+
+The lazy build and the merge-counter table are guarded by one lock: the
+gateway runs the engine on its own thread, and a kernel may first launch
+from any thread.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -34,6 +39,7 @@ _build_log: List[str] = []
 _kernels: Dict[str, "Kernel"] = {}
 _sms: Dict[int, int] = {}
 _counters: Dict[tuple, torch.Tensor] = {}
+_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -113,11 +119,12 @@ def build_log() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.rt_error_string.restype = ctypes.c_char_p
-        lib.rt_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.rt_error_string.restype = ctypes.c_char_p
+            lib.rt_error_string.argtypes = [ctypes.c_int]
+            _lib = lib
     return _lib
 
 
@@ -187,8 +194,10 @@ def merge_counters(symbol: str, t: torch.Tensor, n: int) -> torch.Tensor:
     counters it used at 0, so the launches that follow one another on the
     stream share them."""
     key = (symbol, t.device.index, stream_ptr(t))
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=t.device)
-        _counters[key] = buf
+    with _lock:
+        buf = _counters.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32,
+                              device=t.device)
+            _counters[key] = buf
     return buf

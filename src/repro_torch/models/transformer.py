@@ -205,6 +205,25 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 @torch.no_grad()
+def decode_step(params: Params, cfg: ModelConfig, caches: Params,
+                token: torch.Tensor, position: torch.Tensor,
+                return_hidden: bool = False):
+    """One serving step over a request's own caches (the per-sequence
+    loop): ``token`` [B, 1], ``position`` [B]; cache row ``b`` is request
+    row ``b`` and every attention read covers the whole cache (no
+    ``slots``, no ``kv_len`` crop). The caches are updated in place.
+    Returns (logits [B, V], caches[, hidden [B, d]]); the hidden state is
+    the retrieval query."""
+    out = forward(params, cfg, token, positions=position[:, None],
+                  mode="decode", caches=caches, return_hidden=return_hidden)
+    if return_hidden:
+        logits, caches, h = out
+        return logits[:, 0], caches, h[:, 0]
+    logits, caches = out
+    return logits[:, 0], caches
+
+
+@torch.no_grad()
 def decode_wave(params: Params, cfg: ModelConfig, caches: Params,
                 token: torch.Tensor, slots: torch.Tensor,
                 position: torch.Tensor, return_hidden: bool = False,

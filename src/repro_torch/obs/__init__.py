@@ -9,11 +9,12 @@ stdlib only):
     exposition format;
   * ``adapters`` — ``bind_engine_metrics``: collectors that absorb the
     engine's stats (``PoolStats``, ``RetrievalStats``, the scheduler's
-    straggler count) into one registry.
+    straggler count) into one registry; ``bind_gateway_metrics`` adds
+    the gateway's admission, degrade and stream counters.
 
 On the GPU, spans are host wall time (see ``trace``).
 """
-from repro_torch.obs.adapters import bind_engine_metrics
+from repro_torch.obs.adapters import bind_engine_metrics, bind_gateway_metrics
 from repro_torch.obs.metrics import (DEFAULT_BUCKETS, Counter, Gauge,
                                      Histogram, MetricsRegistry, Reservoir)
 from repro_torch.obs.trace import NULL_TRACER, Tracer, validate_chrome_trace
@@ -21,5 +22,5 @@ from repro_torch.obs.trace import NULL_TRACER, Tracer, validate_chrome_trace
 __all__ = [
     "Counter", "DEFAULT_BUCKETS", "Gauge", "Histogram", "MetricsRegistry",
     "NULL_TRACER", "Reservoir", "Tracer", "validate_chrome_trace",
-    "bind_engine_metrics",
+    "bind_engine_metrics", "bind_gateway_metrics",
 ]

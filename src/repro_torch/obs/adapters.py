@@ -1,5 +1,5 @@
 """Adapters: absorb the port's stats objects into one ``MetricsRegistry``
-(twin of ``repro.obs.adapters``, engine side).
+(twin of ``repro.obs.adapters``).
 
 The serving stack already counts almost everything — ``PoolStats`` on
 the KV pool, ``RetrievalStats`` on the service, the straggler count on
@@ -16,9 +16,11 @@ CUDA tensor launches its kernel or raises.
 """
 from __future__ import annotations
 
+import time
+
 from repro_torch.obs.metrics import MetricsRegistry
 
-__all__ = ["bind_engine_metrics"]
+__all__ = ["bind_engine_metrics", "bind_gateway_metrics"]
 
 _STAGES = ("queue_wait", "scan", "merge", "gather")
 
@@ -170,5 +172,58 @@ def bind_engine_metrics(registry: MetricsRegistry, engine) -> None:
                 for state, n in replicas.state_counts().items():
                     fault_replicas.set(n, labels={"state": state})
         straggler_waves.set_total(engine.scheduler.straggler_events)
+
+    registry.register_collector(collect)
+
+
+def bind_gateway_metrics(registry: MetricsRegistry, gateway) -> None:
+    """Register collectors for the gateway's own counters (admission,
+    degrade, streams) on top of ``bind_engine_metrics``."""
+    bind_engine_metrics(registry, gateway.engine)
+    uptime = registry.gauge(
+        "ralm_uptime_seconds", "gateway uptime")
+    completions = registry.counter(
+        "ralm_completions_total", "requests completed")
+    cancelled = registry.counter(
+        "ralm_cancelled_total", "requests cancelled mid-stream")
+    disconnects = registry.counter(
+        "ralm_disconnects_total", "client disconnects observed")
+    tokens_out = registry.counter(
+        "ralm_tokens_out_total", "tokens streamed to clients")
+    admission = registry.counter(
+        "ralm_admission_total", "admission verdicts by outcome")
+    queue_depth = registry.gauge(
+        "ralm_queue_depth", "requests waiting, by queue")
+    active = registry.gauge(
+        "ralm_active_requests", "sequences currently decoding")
+    degrade_level = registry.gauge(
+        "ralm_degrade_level", "current degrade-ladder rung (0=baseline)")
+    degrade_trans = registry.counter(
+        "ralm_degrade_transitions_total",
+        "degrade-ladder transitions by direction")
+
+    def collect() -> None:
+        uptime.set(time.perf_counter() - gateway._t_start)
+        completions.set_total(gateway.completions)
+        cancelled.set_total(gateway.cancelled)
+        disconnects.set_total(gateway.disconnects)
+        tokens_out.set_total(gateway.tokens_out)
+        adm = gateway.admission
+        admission.set_total(adm.admitted, labels={"outcome": "admitted"})
+        admission.set_total(adm.released, labels={"outcome": "released"})
+        admission.set_total(adm.rejected_quota,
+                            labels={"outcome": "rejected_quota"})
+        admission.set_total(adm.rejected_capacity,
+                            labels={"outcome": "rejected_capacity"})
+        queue_depth.set(adm.pending, labels={"queue": "admission"})
+        queue_depth.set(gateway.scheduler.queued_requests,
+                        labels={"queue": "scheduler"})
+        active.set(gateway.scheduler.num_active)
+        if gateway.policy is not None:
+            degrade_level.set(gateway.policy.level)
+            degrade_trans.set_total(gateway.policy.transitions_down,
+                                    labels={"direction": "down"})
+            degrade_trans.set_total(gateway.policy.transitions_up,
+                                    labels={"direction": "up"})
 
     registry.register_collector(collect)

@@ -6,6 +6,10 @@
     engine = RalmEngine.from_config(EngineConfig(cfg, rag), params, ds,
                                     ds.search_config(k=rag.k))
     tokens = engine.generate(prompt, steps=8)
+
+The HTTP front door is ``Gateway`` (``repro_torch.serve.gateway``). The
+reference's ``DisaggregatedBackend``, ``DistributedRetriever`` and
+``PoolTimes`` are not ported yet.
 """
 from repro_torch.core.rag import RagConfig
 from repro_torch.retrieval.service import (RetrievalService, SearchHandle,
@@ -16,13 +20,18 @@ from repro_torch.serve.api import (AsyncRetriever, EngineConfig,
 from repro_torch.serve.datastore import Datastore, DatastoreBuilder
 from repro_torch.serve.engine import (MonolithicBackend, RalmEngine,
                                       SequenceState, SpecPoint)
+from repro_torch.serve.gateway import (AdmissionController, DegradeConfig,
+                                       DegradePolicy, Gateway, GatewayConfig,
+                                       TenantQuota)
 from repro_torch.serve.kvpool import KVCachePool, PoolStats
 from repro_torch.serve.scheduler import RalmScheduler
 
 __all__ = [
-    "AsyncRetriever", "Datastore", "DatastoreBuilder", "EngineConfig",
-    "KVCachePool", "LocalRetriever", "MonolithicBackend", "PoolStats",
-    "RagConfig", "RalmEngine", "RalmRequest", "RalmResponse",
-    "RalmScheduler", "RetrievalService", "Retriever", "SearchHandle",
-    "SequenceState", "ServiceConfig", "SpecPoint",
+    "AdmissionController", "AsyncRetriever", "Datastore",
+    "DatastoreBuilder", "DegradeConfig", "DegradePolicy", "EngineConfig",
+    "Gateway", "GatewayConfig", "KVCachePool", "LocalRetriever",
+    "MonolithicBackend", "PoolStats", "RagConfig", "RalmEngine",
+    "RalmRequest", "RalmResponse", "RalmScheduler", "RetrievalService",
+    "Retriever", "SearchHandle", "SequenceState", "ServiceConfig",
+    "SpecPoint", "TenantQuota",
 ]

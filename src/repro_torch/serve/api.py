@@ -2,15 +2,16 @@
 responses, the engine config, and the ``Retriever`` protocol with its
 local and service-backed implementations.
 
-``EngineConfig`` keeps the reference's field names for the fields this
-slice implements. It has no kernel-selection knobs: the device decides
+``EngineConfig`` keeps the reference's field names for the fields the
+port implements. It has no kernel-selection knobs: the device decides
 (kernels on the GPU, plain versions on the CPU).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Protocol, Tuple, runtime_checkable
+from typing import (Callable, List, Optional, Protocol, Tuple,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -26,11 +27,31 @@ from repro_torch.retrieval.service import (RetrievalService, SearchHandle,
 
 @dataclasses.dataclass
 class RequestTiming:
-    """Wall-clock milestones of one request (``time.perf_counter()``)."""
+    """Wall-clock milestones of one request (``time.perf_counter()``):
+
+      * ``arrival``     — entered the system (``submit()``, or earlier:
+        the HTTP gateway stamps it at request parse, before admission);
+      * ``admit``       — claimed KV slots and prefilled (``start``);
+      * ``first_token`` — first generated token: on the host when the
+        request streams (``on_token``), else when its wave was enqueued
+        (TTFT = first_token - arrival);
+      * ``finish``      — final token emitted (TPOT = (finish -
+        first_token) / (steps - 1) for steps > 1).
+    """
     arrival: Optional[float] = None
     admit: Optional[float] = None
     first_token: Optional[float] = None
     finish: Optional[float] = None
+
+    def ttft_s(self) -> Optional[float]:
+        if self.arrival is None or self.first_token is None:
+            return None
+        return self.first_token - self.arrival
+
+    def tpot_s(self, steps: int) -> Optional[float]:
+        if self.first_token is None or self.finish is None or steps < 2:
+            return None
+        return (self.finish - self.first_token) / (steps - 1)
 
 
 @dataclasses.dataclass
@@ -38,13 +59,25 @@ class RalmRequest:
     """One serving request: a prompt batch [B, T0] decoded in lockstep.
 
     ``rng`` (a ``torch.Generator``) samples when ``greedy`` is False;
-    ``trace`` collects per-step dicts of retrieved ids."""
+    ``trace`` collects per-step dicts of retrieved ids.
+
+    ``tenant`` names the submitting client class for admission
+    accounting; it never changes the math. ``on_token(step, tokens)`` is
+    the streaming hook: called from the thread that runs the scheduler
+    with the step's ``[B]`` tokens as a host int array, which costs one
+    device sync a wave. ``cancelled`` aborts the request at the next
+    scheduler step (``RalmScheduler.cancel`` sets it)."""
     prompt: torch.Tensor                 # [B, T0] integer tokens
     steps: int
     greedy: bool = True
     rng: Optional[torch.Generator] = None
     trace: Optional[list] = None
     request_id: Optional[int] = None     # assigned at submit()
+    trace_id: Optional[int] = None       # observability flow id; defaults
+    #                                      to request_id at submit()
+    tenant: str = "default"
+    on_token: Optional[Callable[[int, np.ndarray], None]] = None
+    cancelled: bool = False
     times: RequestTiming = dataclasses.field(default_factory=RequestTiming)
     partial_steps: int = 0               # decode steps served from a
     #                                      partial retrieval result (a
@@ -57,6 +90,8 @@ class RalmResponse:
     tokens: np.ndarray                   # [B, T0 + steps]
     steps: int
     trace: Optional[list] = None
+    tenant: str = "default"
+    cancelled: bool = False
     times: Optional[RequestTiming] = None
     partial_steps: int = 0               # steps decoded on partial
     #                                      retrieval results (0 = full
@@ -82,7 +117,7 @@ class EngineConfig:
     #                                      async; verification happens
     #                                      speculate_k waves later, off
     #                                      the critical path. Requires
-    #                                      async_retrieval.
+    #                                      async_retrieval + wave_decode.
     speculate_verify: bool = True        # verify speculated tokens against
     #                                      the real neighbors and roll
     #                                      back on mismatch (greedy
@@ -92,6 +127,10 @@ class EngineConfig:
     #                                      drift for zero rollback cost
     retrieval_measure: bool = True       # per-stage service timings (a
     #                                      device sync per stage)
+    wave_decode: bool = True             # one decode per wave over a
+    #                                      slotted KVCachePool; False keeps
+    #                                      the per-sequence loop (one decode
+    #                                      per request, private caches)
     kv_slots: Optional[int] = None       # KV pool capacity in prompt rows;
     #                                      None = grow on demand
     attn_seq_block: int = 16             # KV-pool seq-axis alignment:

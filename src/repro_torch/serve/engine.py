@@ -1,7 +1,8 @@
 """``RalmEngine`` — the generation loop (twin of ``repro.serve.engine``,
-monolithic wave path).
+monolithic backend).
 
-One wave step, driven by the scheduler:
+Decode has two shapes. The default (``wave=True``) runs one wave step
+per scheduler step:
 
   * ``dispatch_wave`` — ONE ``decode_wave`` over the slotted
     ``KVCachePool`` advances every active sequence (step-0 sequences
@@ -12,7 +13,20 @@ One wave step, driven by the scheduler:
   * ``finish_wave`` — one payload resolve + kNN-LM interpolation over
     the due rows, one greedy argmax over the greedy rows.
 
+The per-sequence loop (``wave=False``, ``EngineConfig.wave_decode=False``)
+is the reference's parity oracle: each request keeps its own caches
+[B, S, KV, D] and advances through ``dispatch_decode`` (one
+``decode_step`` per request), ``dispatch_search`` and ``finish_step``.
+Greedy tokens are the same on both paths.
+
 The step-0 retrieval query is the prefill's last-position hidden state.
+
+Serving surface: a request with an ``on_token`` consumer gets its tokens
+on the host once a wave (``_emit``), and its ``first_token`` time is
+stamped after that sync; without one it is stamped when the wave is
+enqueued. ``RalmScheduler.cancel`` flags a request, which then finishes
+at the next step (``SequenceState.done``) and drops its speculation
+points unverified.
 
 Speculative retrieval (RaLMSpec, arXiv 2401.14021; ``speculate_k > 0``):
 a due greedy row decodes ahead on its last verified neighbours (or a
@@ -32,8 +46,7 @@ Fault tolerance: ``EngineConfig.shard_replicas`` /
 ``retrieval_deadline_s`` / ``chaos_plan`` arm the retrieval service's
 fault-tolerant dispatch (``retrieval/replica.py``, ``retrieval/chaos.py``);
 a step served from a partial result counts in the response's
-``partial_steps``. The disaggregated backend and the per-sequence decode
-loop are later slices.
+``partial_steps``. The disaggregated backend is a later slice.
 """
 from __future__ import annotations
 
@@ -79,10 +92,19 @@ class MonolithicBackend:
     def __init__(self, params, cfg: ModelConfig):
         self.params, self.cfg = params, cfg
         self.device = params["embed"].device
-        self.decode_dispatches = 0      # LM wave steps issued
+        self.decode_dispatches = 0      # LM steps issued (waves, or one
+        #                                 per request per step when the
+        #                                 engine runs per sequence)
 
     def prefill(self, rag: RagConfig, prompt: torch.Tensor, max_seq: int):
         return _prefill(self.params, self.cfg, rag, prompt, max_seq)
+
+    def decode(self, caches, token, position):
+        """Advance one request over its own caches: token [B, 1],
+        position [B] (the per-sequence loop)."""
+        self.decode_dispatches += 1
+        return tf.decode_step(self.params, self.cfg, caches, token, position,
+                              return_hidden=True)
 
     def decode_wave(self, caches, token, slots, position, kv_len=None):
         """Advance one wave of pooled slots: token/slots/position [W]."""
@@ -125,8 +147,9 @@ class _SpecIssue:
 
 @dataclasses.dataclass
 class SequenceState:
-    """One active request's decode state; its KV lives in the engine's
-    pool at rows ``slots`` (one per prompt row)."""
+    """One active request's decode state. Wave mode: its KV lives in the
+    engine's pool at rows ``slots`` (one per prompt row) and ``caches``
+    is None; per-sequence mode: ``caches`` are its own."""
     request: RalmRequest
     out: List[torch.Tensor]
     cur: torch.Tensor                    # [B, 1] last sampled token
@@ -136,6 +159,7 @@ class SequenceState:
     rng: Optional[torch.Generator]
     step: int = 0
     slots: Optional[np.ndarray] = None
+    caches: Any = None
     last_neighbors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     #                                      most recent VERIFIED (dists,
     #                                      ids): the stale neighbours the
@@ -152,7 +176,7 @@ class SequenceState:
 
     @property
     def done(self) -> bool:
-        return self.step >= self.request.steps
+        return self.request.cancelled or self.step >= self.request.steps
 
     def tokens(self) -> torch.Tensor:
         return torch.cat(self.out, dim=1)
@@ -171,11 +195,14 @@ class RalmEngine:
                  retriever: Optional[Retriever] = None,
                  rag: Optional[RagConfig] = None,
                  max_seq: Optional[int] = None,
-                 max_active: Optional[int] = None,
+                 max_active: Optional[int] = None, wave: bool = True,
                  kv_slots: Optional[int] = None, attn_seq_block: int = 16,
                  speculate_k: int = 0, speculate_verify: bool = True):
-        """``kv_slots`` fixes the pool capacity in rows (admission defers
-        until completions free slots; ``None`` grows on demand).
+        """``wave=True`` decodes every active request in one dispatch per
+        scheduler step over a slotted ``KVCachePool``; ``wave=False``
+        keeps the per-sequence loop (one decode per request, private
+        caches). ``kv_slots`` fixes the pool capacity in rows (admission
+        defers until completions free slots; ``None`` grows on demand).
         ``attn_seq_block`` is the pool's seq-axis quantum: each wave's
         attention reads crop to the block-aligned valid prefix.
         ``speculate_k`` is the speculation depth (0 = off) and
@@ -187,13 +214,21 @@ class RalmEngine:
         self.cfg = backend.cfg
         self.device = backend.device
         self.max_seq = max_seq
+        self.wave = wave
         self.kv_slots = kv_slots
         self.attn_seq_block = attn_seq_block
         # -- speculative retrieval (RaLMSpec, arXiv 2401.14021) --------
         self.speculate_k = int(speculate_k)
         self.speculate_verify = speculate_verify
-        if self.speculate_k > 0 and (self.cfg.ssm_state > 0 or
-                                     self.cfg.block in ("rwkv6", "hybrid")):
+        if self.speculate_k > 0 and not wave:
+            warnings.warn(
+                "speculate_k > 0 requires wave decode (the per-sequence "
+                "loop is the thing speculation verifies against) — "
+                "disabling speculation.", RuntimeWarning, stacklevel=2)
+            self.speculate_k = 0
+        elif self.speculate_k > 0 and (self.cfg.ssm_state > 0 or
+                                       self.cfg.block in ("rwkv6",
+                                                          "hybrid")):
             warnings.warn(
                 f"speculate_k > 0 is unsupported for recurrent-state "
                 f"blocks (block={self.cfg.block!r}, ssm_state="
@@ -240,7 +275,7 @@ class RalmEngine:
 
     @property
     def decode_dispatches(self) -> int:
-        """LM wave steps issued so far."""
+        """LM steps issued so far (wave mode: one per wave)."""
         return self.backend.decode_dispatches
 
     # -- constructors -------------------------------------------------------
@@ -248,13 +283,13 @@ class RalmEngine:
     @classmethod
     def monolithic(cls, params, cfg: ModelConfig, rag: RagConfig,
                    retriever: Optional[Retriever] = None,
-                   max_seq: Optional[int] = None,
+                   max_seq: Optional[int] = None, wave: bool = True,
                    kv_slots: Optional[int] = None,
                    attn_seq_block: int = 16, speculate_k: int = 0,
                    speculate_verify: bool = True) -> "RalmEngine":
         """An engine on the device the ``params`` live on."""
         return cls(MonolithicBackend(params, cfg), retriever, rag,
-                   max_seq=max_seq, kv_slots=kv_slots,
+                   max_seq=max_seq, wave=wave, kv_slots=kv_slots,
                    attn_seq_block=attn_seq_block, speculate_k=speculate_k,
                    speculate_verify=speculate_verify)
 
@@ -314,6 +349,7 @@ class RalmEngine:
             retriever = datastore.retriever(search_cfg, query_proj=query_proj)
         eng = cls.monolithic(params, config.model, config.rag,
                              retriever=retriever, max_seq=config.max_seq,
+                             wave=config.wave_decode,
                              kv_slots=config.kv_slots,
                              attn_seq_block=config.attn_seq_block,
                              speculate_k=speculate_k,
@@ -328,14 +364,14 @@ class RalmEngine:
 
     def check_admissible(self, request: RalmRequest) -> None:
         """A request that can never fit the fixed pool fails at submit."""
-        if self.kv_slots is not None and \
+        if self.wave and self.kv_slots is not None and \
                 request.prompt.shape[0] > self.kv_slots:
             raise ValueError(
                 f"request batch of {request.prompt.shape[0]} rows can "
                 f"never fit kv_slots={self.kv_slots}")
 
     def can_admit(self, request: RalmRequest) -> bool:
-        if self.kv_slots is None:
+        if not self.wave or self.kv_slots is None:
             return True
         return self.pool is None or \
             self.pool.num_free >= request.prompt.shape[0]
@@ -360,9 +396,10 @@ class RalmEngine:
         return pool
 
     def release(self, seq: SequenceState) -> None:
-        """Return a finished sequence's slot rows to the pool. The
-        scheduler settles speculation points (``spec_finalize``) first;
-        any left here are discarded unverified."""
+        """Return a finished sequence's slot rows to the pool (or drop its
+        own caches, per sequence). The scheduler settles speculation
+        points (``spec_finalize``) first; any left here are discarded
+        unverified."""
         if seq.spec_points:
             stats = self.spec_stats
             for p in seq.spec_points:
@@ -372,24 +409,42 @@ class RalmEngine:
         if seq.slots is not None and self.pool is not None:
             self.pool.release(seq.slots)
             seq.slots = None
+        seq.caches = None
 
-    # -- the wave step (called by the scheduler) ----------------------------
+    # -- the step (called by the scheduler) ---------------------------------
 
     def start(self, request: RalmRequest) -> SequenceState:
-        """Prefill a request into pool slots: claim one slot per prompt
-        row, prefill at the pool's ``max_seq``, copy the rows in."""
+        """Prefill a request. Wave mode: claim one pool slot per prompt
+        row, prefill at the pool's ``max_seq``, copy the rows in. Per
+        sequence: prefill into the request's own caches. The prompt may
+        arrive on the host (the gateway builds it there); it moves to the
+        engine's device here, on the thread that runs the scheduler."""
         prompt = torch.as_tensor(request.prompt).to(self.device, torch.int32)
         B, T0 = prompt.shape
         request.times.admit = time.perf_counter()
         tr = self.tracer
-        if tr.enabled and request.times.arrival is not None:
-            # retroactive span: the wait began at submit()
-            tr.complete("queue.wait", "requests", request.times.arrival,
-                        request.times.admit - request.times.arrival,
-                        args={"request_id": request.request_id, "rows": B})
+        if tr.enabled:
+            # retroactive span: the wait began at submit(); then the flow
+            # arrow to the wave that produces the first token (_emit)
+            args = {"request_id": request.request_id,
+                    "trace_id": request.trace_id, "tenant": request.tenant,
+                    "rows": B}
+            if request.times.arrival is not None:
+                tr.complete("queue.wait", "requests", request.times.arrival,
+                            request.times.admit - request.times.arrival,
+                            args=args)
+            if request.trace_id is not None:
+                tr.flow_start(request.trace_id)
         with tr.span("sched.admit", "requests",
                      args={"request_id": request.request_id, "rows": B,
                            "prompt_len": T0} if tr.enabled else None):
+            if not self.wave:
+                caches, logits0, hidden0 = self.backend.prefill(
+                    self.rag, prompt, self.max_seq or (T0 + request.steps))
+                return SequenceState(request=request, out=[prompt],
+                                     cur=prompt[:, -1:], t0=T0,
+                                     logits0=logits0, hidden0=hidden0,
+                                     rng=request.rng, caches=caches)
             pool = self._ensure_pool(B, T0 + request.steps)
             slots = pool.alloc(B)
             caches, logits0, hidden0 = self.backend.prefill(
@@ -398,6 +453,63 @@ class RalmEngine:
         return SequenceState(request=request, out=[prompt],
                              cur=prompt[:, -1:], t0=T0, logits0=logits0,
                              hidden0=hidden0, rng=request.rng, slots=slots)
+
+    # -- the per-sequence loop (wave=False) ---------------------------------
+
+    @torch.no_grad()
+    def dispatch_decode(self, seq: SequenceState
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One LM step for one request over its own caches. At step 0 the
+        prefill already produced the logits and the query."""
+        if seq.step == 0:
+            logits, hidden = seq.logits0, seq.hidden0
+            seq.logits0 = seq.hidden0 = None
+            return logits, hidden
+        B = seq.cur.shape[0]
+        position = torch.full((B,), seq.t0 + seq.step - 1, dtype=torch.int32,
+                              device=self.device)
+        logits, seq.caches, hidden = self.backend.decode(seq.caches, seq.cur,
+                                                         position)
+        return logits, hidden
+
+    def dispatch_search(self, seq: SequenceState, hidden: torch.Tensor):
+        """Issue this request's query when retrieval is due: a
+        ``SearchHandle`` from an async retriever (flushed with the other
+        requests' queries by ``flush_searches``), else None (the
+        synchronous retriever searches inside ``finish_step``)."""
+        if not self._retrieval_due(seq.step):
+            return None
+        submit = getattr(self.retriever, "search_async", None)
+        return None if submit is None else submit(hidden)
+
+    @torch.no_grad()
+    def finish_step(self, seq: SequenceState, logits: torch.Tensor,
+                    hidden: torch.Tensor, search=None) -> None:
+        """Retrieve (if due), mix, and sample one token for one request;
+        ``search`` is the handle ``dispatch_search`` returned, if any."""
+        row = logits
+        if self._retrieval_due(seq.step):
+            if search is not None:
+                dists, ids = search.result()
+                if search.partial:
+                    seq.request.partial_steps += 1
+            else:
+                dists, ids = self.retriever.search(hidden)
+            if seq.request.trace is not None:
+                seq.request.trace.append(dict(step=seq.step,
+                                              ids=ids.cpu().numpy()))
+            if self.rag.mode == "knnlm":
+                toks = self.retriever.resolve(ids, kind="tokens")
+                row = rag_lib.knnlm_interpolate(logits, dists, toks,
+                                                self.rag.lam,
+                                                self.rag.temperature)
+        if seq.request.greedy or seq.rng is None:
+            self._emit(seq, torch.argmax(row.float(), dim=-1).to(torch.int32))
+            return
+        probs = torch.softmax(row.float(), dim=-1)
+        draw = torch.multinomial(probs.to(seq.rng.device), 1,
+                                 generator=seq.rng)[:, 0]
+        self._emit(seq, draw.to(self.device, torch.int32))
 
     def _retrieval_due(self, step: int) -> bool:
         return (self.retriever is not None and self.rag.mode != "none" and
@@ -592,8 +704,23 @@ class RalmEngine:
     def _emit(self, seq: SequenceState, nxt: torch.Tensor) -> None:
         seq.cur = nxt[:, None]
         seq.out.append(seq.cur)
-        if seq.request.times.first_token is None:
-            seq.request.times.first_token = time.perf_counter()
+        req = seq.request
+        first = req.times.first_token is None
+        if req.on_token is not None:
+            # the streaming hook needs the tokens on the host: the first
+            # row's copy waits for the wave, the rest are free. The first
+            # token is stamped after that wait, so TTFT measures token
+            # availability, not the enqueue.
+            host = nxt.cpu().numpy()
+            if first:
+                req.times.first_token = time.perf_counter()
+            req.on_token(seq.step, host)
+        elif first:
+            req.times.first_token = time.perf_counter()
+        if first and req.trace_id is not None and self.tracer.enabled:
+            # close the flow arrow opened at admission (start)
+            self.tracer.flow_end(req.trace_id, track="wave",
+                                 t_s=req.times.first_token)
         seq.step += 1
 
     # -- speculative retrieval (RaLMSpec, arXiv 2401.14021) -----------------
@@ -610,12 +737,17 @@ class RalmEngine:
         return self._local_spec_stats
 
     def _spec_eligible(self, seq: SequenceState) -> bool:
-        """Per-row speculation gate, evaluated at each due step: greedy
-        kNN-LM rows only (sampling consumes generator state a rollback
-        cannot restore), at most ``speculate_k`` points outstanding."""
+        """Per-row speculation gate, evaluated at each due step (the
+        degrade ladder changes ``rag`` between waves): greedy kNN-LM rows
+        only (sampling consumes generator state a rollback cannot
+        restore), no streaming consumer (``on_token`` would already have
+        seen the tokens a rollback retracts), at most ``speculate_k``
+        points outstanding."""
+        req = seq.request
         return (self.speculate_k > 0
                 and self.rag.mode == "knnlm"
-                and (seq.request.greedy or seq.rng is None)
+                and (req.greedy or seq.rng is None)
+                and req.on_token is None
                 and len(seq.spec_points) < self.speculate_k)
 
     def _spec_source(self, seq: SequenceState, hidden: torch.Tensor):
@@ -808,10 +940,19 @@ class RalmEngine:
 
     def spec_finalize(self, seq: SequenceState) -> None:
         """Settle a finishing sequence's outstanding points before its
-        response leaves: force-verify them, so the response's tokens
-        carry the parity guarantee."""
-        if seq.spec_points:
-            self.spec_harvest([seq], decoded=None, force=True)
+        response leaves: a cancelled request discards them (its searches
+        are cancelled), a completed one force-verifies them, so the
+        response's tokens carry the parity guarantee."""
+        if not seq.spec_points:
+            return
+        if seq.request.cancelled:
+            stats = self.spec_stats
+            for p in seq.spec_points:
+                p.handle.cancel()
+                stats.spec_discarded += 1
+            seq.spec_points.clear()
+            return
+        self.spec_harvest([seq], decoded=None, force=True)
 
     def flush_speculation(self) -> None:
         """Force-verify EVERY outstanding speculation point (before a

@@ -5,6 +5,8 @@
   * ``RalmEngine.from_config`` without a device raises when CUDA is
     absent, and ``chip_smoke.py`` exits non-zero without printing a
     result (also when it stands alone, outside the repository);
+  * the launcher (``python -m repro_torch.launch.serve``) refuses to run
+    without CUDA unless given ``--device cpu``, and runs with it;
   * a kernel wrapper handed CPU tensors runs the plain version, builds
     nothing and launches nothing, with no ``nvcc`` in reach.
 """
@@ -40,6 +42,9 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 30, names
+assert {"repro_torch.launch.serve", "repro_torch.serve.gateway.server",
+        "repro_torch.serve.gateway.admission",
+        "repro_torch.serve.gateway.degrade"} <= set(names), names
 """)
     assert p.returncode == 0, p.stdout + p.stderr
 
@@ -68,6 +73,22 @@ RalmEngine.from_config(EngineConfig(arch.reduced, arch.rag), params, ds,
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     alone = _run("", cwd=tmp_path, args=["chip_smoke.py"])
     assert alone.returncode != 0 and '"ok"' not in alone.stdout
+
+
+def test_launcher_refuses_to_run_without_cuda():
+    for extra in ([], ["--gateway", "--port", "0"], ["--per-sequence"]):
+        p = _run("", args=["-m", "repro_torch.launch.serve", "--reduced",
+                           *extra])
+        assert p.returncode != 0 and "GPU" in p.stderr, p.stderr
+        assert "[serve]" not in p.stdout
+    ok = _run("", args=["-m", "repro_torch.launch.serve", "--device", "cpu",
+                        "--reduced", "--steps", "2", "--per-sequence",
+                        "--async-retrieval"])
+    assert ok.returncode == 0, ok.stdout + ok.stderr
+    assert "[serve] per-sequence: 2 batches, 8 tokens" in ok.stdout
+    refused = _run("", args=["-m", "repro_torch.launch.serve", "--device",
+                             "cpu", "--disaggregate"])
+    assert refused.returncode != 0 and "not ported" in refused.stderr
 
 
 def test_cpu_tensors_take_the_plain_versions_without_nvcc():

@@ -122,6 +122,30 @@ def test_decode_attention_without_slots(dev):
         2 ** -8 * exact.abs().max().item() + 1e-5
 
 
+@pytest.mark.parametrize("W,lo,hi", [(4, 448, 511), (1, 500, 500),
+                                     (3, 0, 511)])
+def test_decode_attention_per_sequence_caches(dev, W, lo, hi):
+    """The per-sequence loop's call: ``slots=None`` over a request's own
+    uncropped caches [W, 512, 8, 64] at the positions a 448-token prompt
+    reaches in 64 steps, against the f32 oracle (2^-8 of the output
+    range) and the bf16-rounding plain version (2^-5)."""
+    g = _gen(dev, 20 + W)
+    q = torch.randn((W, 1, 8, 64), generator=g, device=dev).bfloat16()
+    k = torch.randn((W, 512, 8, 64), generator=g, device=dev).bfloat16()
+    v = torch.randn((W, 512, 8, 64), generator=g, device=dev).bfloat16()
+    pos = torch.randint(lo, hi + 1, (W,), generator=g, device=dev).int()
+    before = da.KERNEL.launches
+    out = da.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert da.KERNEL.launches == before + 1
+    exact = da.ref_decode_attention(q.float(), k.float(), v.float(), pos)
+    plain = da.ref_decode_attention(q, k, v, pos)
+    scale = exact.abs().max().item()
+    assert (out.float() - exact).abs().max().item() <= 2 ** -8 * scale + 1e-5
+    assert (out.float() - plain.float()).abs().max().item() <= \
+        2 ** -5 * scale + 1e-3
+
+
 def test_decode_attention_rejects_what_it_cannot_run(dev):
     q = torch.zeros((2, 1, 8, 64), device=dev)            # float32
     k = torch.zeros((2, 16, 8, 64), device=dev)
@@ -165,6 +189,14 @@ def _check_ivf(dev, g, nq, nlist, D, nprobe, spec=registry.DEFAULT):
 def test_ivf_scan_kernel(dev, nq, nlist, D, nprobe, tile_c):
     _check_ivf(dev, _gen(dev, 2), nq, nlist, D, nprobe,
                registry.KernelSpec(tile_c=tile_c))
+
+
+@pytest.mark.parametrize("nq", [1, 32])
+@pytest.mark.parametrize("nprobe", [1, 2, 4, 8, 16])
+def test_ivf_scan_degrade_rungs(dev, nq, nprobe):
+    """The degrade ladder's nprobe rungs at the serve's index shape
+    (nlist 256, D 512), for a one-row gateway wave and a full one."""
+    _check_ivf(dev, _gen(dev, 30 + nprobe), nq, 256, 512, nprobe)
 
 
 def test_ivf_scan_back_to_back_launches(dev):
@@ -243,6 +275,31 @@ def test_fused_scan_kernel(dev, S, nq, nprobe, nlist, cap, m, ksub, kk,
     else:
         luts = torch.rand((nq, 1, m, ksub), generator=g, device=dev
                           ).expand(nq, nprobe, m, ksub)
+    before = cs.KERNEL.launches
+    dk, ik = cs.fused_scan(luts, codes, ids, lens, probe, kk)
+    p = probe.long()
+    dp, ip = cs.ref_chamvs_scan(luts, codes[:, p], ids[:, p], lens[:, p], kk)
+    torch.cuda.synchronize()
+    assert cs.KERNEL.launches == before + 1
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("nq", [1, 32])
+@pytest.mark.parametrize("nprobe", [1, 2, 4, 8, 16])
+def test_fused_scan_degrade_rungs(dev, nq, nprobe):
+    """The degrade ladder's nprobe rungs at the serve's shapes (2 shards,
+    nlist 256, lists of up to 14 976 codes of m=32, kk=63): the grid's
+    ``scan_groups`` falls with nprobe * cap // 4096, to one block per
+    (shard, query) at nprobe 1; ids and distances as the plain
+    version's."""
+    g = _gen(dev, 40 + nprobe)
+    S, nlist, cap, m, ksub, kk = 2, 256, 14976, 32, 256, 63
+    codes, ids, lens = _tables(dev, g, S, nlist, cap, m, ksub)
+    probe = torch.stack([torch.randperm(nlist, generator=g, device=dev)
+                         [:nprobe] for _ in range(nq)]).int()
+    luts = torch.rand((nq, 1, m, ksub), generator=g, device=dev
+                      ).expand(nq, nprobe, m, ksub)
     before = cs.KERNEL.launches
     dk, ik = cs.fused_scan(luts, codes, ids, lens, probe, kk)
     p = probe.long()
