@@ -89,6 +89,28 @@ failure raises, so the run exits non-zero):
      own key. Each profile (fused, staged, the armed layer without
      faults, and each degrade rung) prints the device time per decode
      wave and the host's time in CUDA synchronize calls.
+  6. the paper's other three RALMs (paper.*), after Dec-S's engines and
+     index are freed, each at full published width and depth with
+     seeded weights, one after the other: Dec-L (96 layers, d_model
+     1024, kNN-LM), EncDec-S and EncDec-L (2 encoder layers + 24 or 96
+     decoder layers, RETRO at K 10, chunks of 64 tokens; xwv and xwo
+     scaled by RETRO_XSCALE so that retrieval moves tokens). Each builds
+     its own index from its own hidden states over Dec-S's corpus
+     (SYN-1024's shapes at d_model 1024: m 64; SYN-512's at 512), RETRO
+     with a chunk table (row i = the 64 tokens after key i's position),
+     and serves Dec-S's traffic fused and staged (tokens equal, launches
+     held to the dispatches as in phase 4: decode attention = layers x
+     waves, probe and scan = flushes). Dec-L: the kernels at its shapes
+     (decode attention at 16 KV heads, the IVF probe at D 1024, the
+     fused scan and adc_scan at m 64) against their plain versions and
+     timed, three fused runs (tokens/s median, accuracy). RETRO at each
+     interval (EncDec-S 8 and 64, EncDec-L 8): flushes fewer than waves,
+     the share of tokens that differ from a mode="none" run and from a
+     run without a retriever (> 0), the pooled encoder buffer's shape,
+     and at interval 8 the per-sequence twin held by the near-tie rule.
+     Each model's decode waves are profiled, and its peak memory
+     printed. Their launch counts and kernel times join the kernel
+     report's rows under keys suffixed with the model's name.
 
 The last two lines are the kernel report and the device line, each one
 JSON object. Without a GPU (or outside the repository) it exits non-zero
@@ -175,45 +197,70 @@ class Timer:
 # set-up: weights, corpus, datastore
 # ---------------------------------------------------------------------------
 
+def build_index(torch, dev, label, cfg, params, docs, sizes, m,
+                chunk_len=None):
+    """The model's own keys over ``docs`` (its decoder's hidden state at
+    every prefix) and an IVF-PQ datastore over them (``m``
+    sub-quantizers, quantizers trained on every ``train_stride``th key),
+    with the next-token table and, for RETRO (``chunk_len``), the chunk
+    table; returns (keys, ds)."""
+    from repro_torch.serve import DatastoreBuilder
+
+    builder = DatastoreBuilder(dim=cfg.d_model, nlist=sizes["nlist"], m=m,
+                               list_cap=None, device=str(dev))
+    t1 = time.perf_counter()
+    keys, nxt = builder.corpus_keys(params, cfg, docs)
+    torch.cuda.synchronize()
+    log(f"{label}.corpus_keys", t1, keys=tuple(keys.shape),
+        docs=docs.shape[0])
+    t2 = time.perf_counter()
+    chunks = None if chunk_len is None else chunk_table(
+        torch, torch.from_numpy(docs).to(dev), chunk_len)
+    train = keys[::sizes["train_stride"]]
+    ds = builder.build(keys, payload_tokens=nxt, chunk_table=chunks,
+                       train_vectors=train)
+    lens = torch.stack([s.list_len for s in ds.shards]).float()
+    log(f"{label}.datastore", t2, vectors=ds.num_vectors, dim=cfg.d_model,
+        nlist=sizes["nlist"], m=ds.index_cfg.m, shards=ds.num_shards,
+        list_cap=ds.index_cfg.list_cap,
+        mean_list_slice=round(float(lens.mean()), 1),
+        max_list_slice=int(lens.max()),
+        chunk_table=None if chunks is None else tuple(chunks.shape),
+        train_vectors=int(train.shape[0]))
+    return keys, ds
+
+
+def kernel_queries(torch, dev, keys, sizes):
+    """One wave's worth of queries for the kernel phases: seeded picks
+    of the keys plus a little noise."""
+    W = sizes["requests"] * sizes["rows"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    pick = torch.randint(0, keys.shape[0], (W,), generator=g, device=dev)
+    return (keys[pick] + 0.01 * torch.randn(
+        (W, keys.shape[1]), generator=g, device=dev)).contiguous()
+
+
 def setup(dev, sizes):
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tf
-    from repro_torch.serve import DatastoreBuilder
 
     t0 = time.perf_counter()
     arch = get_arch("dec_s")
     cfg = arch.model
     gen = torch.Generator(device=dev).manual_seed(0)
     params = tf.init_params(gen, cfg)
-    n_params = sum(t.numel() for c in params["classes"].values()
-                   for t in c.values()) + params["embed"].numel() + \
-        params["final_norm"].numel()
     rng = np.random.default_rng(0)
     corpus = rng.integers(0, cfg.vocab_size,
                           size=(sizes["n_docs"], sizes["doc_len"]),
                           dtype=np.int32)
     log("setup.params", t0, layers=cfg.n_layers, d_model=cfg.d_model,
         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
-        d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
-        dtype=cfg.dtype)
-    builder = DatastoreBuilder(dim=cfg.d_model, nlist=sizes["nlist"],
-                               m=sizes["m"], list_cap=None, device=str(dev))
-    t1 = time.perf_counter()
-    keys, nxt = builder.corpus_keys(params, cfg, corpus)
-    torch.cuda.synchronize(dev) if dev.type == "cuda" else None
-    log("setup.corpus_keys", t1, keys=tuple(keys.shape))
-    t2 = time.perf_counter()
-    ds = builder.build(keys, payload_tokens=nxt,
-                       train_vectors=keys[::sizes["train_stride"]])
-    lens = torch.stack([s.list_len for s in ds.shards]).float()
-    log("setup.datastore", t2, vectors=ds.num_vectors, nlist=sizes["nlist"],
-        m=ds.index_cfg.m, shards=ds.num_shards,
-        list_cap=ds.index_cfg.list_cap,
-        mean_list_slice=round(float(lens.mean()), 1),
-        max_list_slice=int(lens.max()),
-        train_vectors=int(keys[::sizes["train_stride"]].shape[0]))
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        params=n_tensor_params(params), dtype=cfg.dtype)
+    keys, ds = build_index(torch, dev, "setup", cfg, params, corpus, sizes,
+                           sizes["m"])
     print(f"[cuts] vectors {ds.num_vectors} vs SYN-512's 1e9 "
           f"({1e9 / ds.num_vectors:.0f}x fewer); nlist {sizes['nlist']} "
           f"vs the paper's 32768; quantizers trained on every "
@@ -225,7 +272,8 @@ def setup(dev, sizes):
 # kernel phases
 # ---------------------------------------------------------------------------
 
-def kernel_decode_attn(torch, dev, timer, cfg, sizes, report):
+def kernel_decode_attn(torch, dev, timer, cfg, sizes, report,
+                       label="kernel.decode_attn"):
     import torch.nn.functional as F
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn import ops as da
@@ -319,7 +367,7 @@ def kernel_decode_attn(torch, dev, timer, cfg, sizes, report):
         max_abs_err=max(err, crop[7]), ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
         ms_kv464=ms_c, library_ms_kv464=lib_c, bound_ms_kv464=bound_c)
-    log("kernel.decode_attn", t0, shape=f"W={W},H={H},KV={KV},D={D},"
+    log(label, t0, shape=f"W={W},H={H},KV={KV},D={D},"
         f"S={S},P={P}", max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
         err_vs_f32=f"{err32:.3e}",
         extra_cases_err=[f"{c[7]:.3e}" for c in extra + [crop]],
@@ -330,7 +378,7 @@ def kernel_decode_attn(torch, dev, timer, cfg, sizes, report):
         kernel_tb_s=f"{nbytes / ms / 1e9:.3f}",
         copy_tb_s=f"{nbytes / copy_ms / 1e9:.3f}")
     kv_c = crop[5]["kv_len"]
-    log("kernel.decode_attn_kv464", t0, kv_len=kv_c, split=split_c,
+    log(f"{label}_kv464", t0, kv_len=kv_c, split=split_c,
         blocks=W * KV * -(-kv_c // split_c), max_abs_err=f"{crop[7]:.3e}",
         ms=f"{ms_c:.4f}", plain_ms=f"{plain_c:.4f}", sdpa_ms=f"{lib_c:.4f}",
         bound_ms=f"{bound_c:.4f}", bytes=nbytes_c,
@@ -367,7 +415,8 @@ def probe_bound(nq, nlist, D, nprobe):
     return bound(nbytes, 2 * nq * nlist * D + 3 * nq * nlist)
 
 
-def kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report):
+def kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report,
+                    label="kernel.ivf_scan"):
     from repro_torch.kernels import _build
     from repro_torch.kernels.ivf_scan import ops as iv
 
@@ -389,7 +438,7 @@ def kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report):
         replaces="src/repro/kernels/ivf_scan/kernel.py:51",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None)
-    log("kernel.ivf_scan", t0, shape=f"nq={nq},nlist={nlist},D={D},"
+    log(label, t0, shape=f"nq={nq},nlist={nlist},D={D},"
         f"nprobe={nprobe}", id_mismatch_near_ties=mism,
         max_abs_err=f"{err:.3e}", max_rel_err=f"{rel:.3e}", ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", library_ms="none",
@@ -426,7 +475,8 @@ def kernel_ivf_scan_nlist32768(torch, dev, timer, sizes):
         centroids_per_block=per_block, blocks=-(-nq // tq) * splits)
 
 
-def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
+def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report,
+                      label="kernel.fused_scan"):
     from repro_torch.core import ivfpq
     from repro_torch.core.chamvs import stack_shards
     from repro_torch.kernels import _build
@@ -480,7 +530,7 @@ def kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
         replaces="src/repro/kernels/chamvs_scan/kernel.py:93",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None)
-    log("kernel.fused_scan", t0, shape=f"S={S},nq={nq},nprobe={nprobe},"
+    log(label, t0, shape=f"S={S},nq={nq},nprobe={nprobe},"
         f"cap={st.codes.shape[2]},m={m},kk={kk}",
         mean_len=f"{float(lens.mean()):.1f}", ids_equal=True,
         max_abs_err=f"{err:.3e}", max_rel_err=f"{rel:.3e}", ms=f"{ms:.4f}",
@@ -511,7 +561,8 @@ def lookup_wavefronts(torch, rows):
     return total / count
 
 
-def kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
+def kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk, report,
+                    label="kernel.adc_scan"):
     """adc_scan at the staged serve shape of shard 0, through the entry
     the staged scan calls (``probed_adc_topk``: the shard's lists and
     the LUTs read in place), and through the reference's gathered
@@ -575,7 +626,7 @@ def kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk, report):
         replaces="src/repro/kernels/pq_adc/kernel.py:101",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None)
-    log("kernel.adc_scan", t0, shape=f"B={B},n={cap},m={m},ksub={ksub},k={k}",
+    log(label, t0, shape=f"B={B},n={cap},m={m},ksub={ksub},k={k}",
         mean_len=f"{rows / B:.1f}", ids_equal=True, dists_bit_equal=True,
         max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", library_ms="none",
@@ -738,9 +789,9 @@ def checked_engine(torch, dev, arch, cfg, params, ds, sizes, fused,
 
     def checked_prefill(*a, **k):
         nonlocal ok
-        caches, logits, hidden = prefill(*a, **k)
+        caches, enc_states, logits, hidden = prefill(*a, **k)
         ok = ok & torch.isfinite(logits).all()
-        return caches, logits, hidden
+        return caches, enc_states, logits, hidden
 
     def checked(step):
         def run(*a, **k):
@@ -1029,7 +1080,7 @@ def wave_queries(torch, dev, eng, prompts, sizes):
     (the prefill's last hidden states)."""
     return torch.cat([eng.backend.prefill(
         eng.rag, torch.from_numpy(p).to(dev, torch.int32),
-        sizes["max_seq"])[2] for p in prompts]).float()
+        sizes["max_seq"])[3] for p in prompts]).float()
 
 
 def retrieval_cache(torch, dev, eng, prompts, sizes):
@@ -1534,20 +1585,21 @@ def kernel_decode_attn_per_seq(torch, dev, timer, cfg, sizes):
 
 
 class ScoreRecorder:
-    """While installed, keeps the mixed kNN-LM scores (log-probs, float32,
-    on the engine's device) each greedy token of ``eng`` was taken from:
-    the rows of the mix that ``finish_wave`` / ``finish_step`` computes,
-    in the order of the emits that follow it (at retrieval interval 1
-    every row is due, so the two orders agree). A request gets rows when
-    it first emits; ``rows(rids, B)`` returns their slabs. Records only
-    while the engine runs kNN-LM at interval 1."""
+    """While installed, keeps the scores (float32, on the engine's
+    device) each greedy token of ``eng`` was taken from. kNN-LM at
+    interval 1: the mixed log-probs, the rows of the mix that
+    ``finish_wave`` / ``finish_step`` computes, in the order of the emits
+    that follow it (every row is due, so the two orders agree). RETRO
+    (no mix): the LM's logits that each sequence's argmax reads. A
+    request gets rows when it first emits; ``rows(rids, B)`` returns
+    their slabs."""
 
     def __init__(self, torch, eng, n_rows, steps, vocab):
         self.torch, self.eng = torch, eng
         self.scores = torch.full((n_rows, steps, vocab), float("nan"),
                                  device=eng.device)
         self.base, self.free = {}, 0
-        self.pending, self.cursor = None, 0
+        self.pending, self.cursor, self.logits_of = None, 0, {}
 
     def __enter__(self):
         from repro_torch.core import rag
@@ -1558,28 +1610,39 @@ class ScoreRecorder:
             self.pending, self.cursor = mix(*a, **k), 0
             return self.pending
 
-        def fresh(finish):
+        def fresh(finish, wave):
             def run(*a, **k):
                 self.pending = None
+                # finish_wave(seqs, decoded, ...) / finish_step(seq,
+                # logits, ...): the logits each sequence's argmax reads
+                # when nothing is mixed into them
+                self.logits_of = (
+                    {id(q): lg for q, (lg, _) in zip(a[0], a[1])} if wave
+                    else {id(a[0]): a[1]})
                 return finish(*a, **k)
             return run
+
+        def record(seq, rows):
+            B = rows.shape[0]
+            rid = seq.request.request_id
+            if rid not in self.base:
+                self.base[rid], self.free = self.free, self.free + B
+            b = self.base[rid]
+            self.scores[b:b + B, seq.step] = rows.float()
 
         def recording_emit(seq, nxt):
             if self.pending is not None and eng.rag.mode == "knnlm" and \
                     eng.rag.interval <= 1:
                 B = nxt.shape[0]
-                rid = seq.request.request_id
-                if rid not in self.base:
-                    self.base[rid], self.free = self.free, self.free + B
-                b = self.base[rid]
-                self.scores[b:b + B, seq.step] = \
-                    self.pending[self.cursor:self.cursor + B]
+                record(seq, self.pending[self.cursor:self.cursor + B])
                 self.cursor += B
+            elif eng.rag.mode == "retro" and id(seq) in self.logits_of:
+                record(seq, self.logits_of[id(seq)])
             emit(seq, nxt)
 
         rag.knnlm_interpolate = recording_mix
-        eng.finish_wave = fresh(eng.finish_wave)
-        eng.finish_step = fresh(eng.finish_step)
+        eng.finish_wave = fresh(eng.finish_wave, True)
+        eng.finish_step = fresh(eng.finish_step, False)
         eng._emit = recording_emit
         return self
 
@@ -1596,7 +1659,8 @@ class ScoreRecorder:
                                for r in rids])
 
 
-def near_tie_check(torch, label, gen_a, sc_a, gen_b, sc_b, rows):
+def near_tie_check(torch, label, gen_a, sc_a, gen_b, sc_b, rows,
+                   horizon=None):
     """Two runs of the same requests at different shapes need not agree
     bit for bit, so where their greedy tokens differ this holds the
     difference to a near tie. The noise is the largest absolute
@@ -1605,12 +1669,16 @@ def near_tie_check(torch, label, gen_a, sc_a, gen_b, sc_b, rows):
     first differing step, the gap between the two tokens' scores, in
     each run, must be within 2x that noise, and at most a quarter of the
     requests may differ. ``gen_*`` [N, steps] tokens, ``sc_*`` [N, steps,
-    V] scores, ``rows`` rows per request. Returns what it judged by."""
+    V] scores, ``rows`` rows per request. ``horizon`` [N] (default: all
+    steps) limits each row to its first ``horizon`` steps: where the two
+    runs' inputs part (a RETRO retrieval that returned other ids), later
+    steps are not compared. Returns what it judged by."""
     import numpy as np
 
     N, T = gen_a.shape
-    diff = gen_a != gen_b
-    first = np.where(diff.any(1), diff.argmax(1), T)
+    hz = np.full(N, T) if horizon is None else np.asarray(horizon)
+    diff = (gen_a != gen_b) & (np.arange(T)[None, :] < hz[:, None])
+    first = np.where(diff.any(1), diff.argmax(1), hz)
     agree = torch.from_numpy(np.arange(T)[None, :] < first[:, None]
                              ).to(sc_a.device)
     if bool(torch.isnan(sc_a[agree]).any() or
@@ -1622,7 +1690,7 @@ def near_tie_check(torch, label, gen_a, sc_a, gen_b, sc_b, rows):
     req_differ = int(diff.reshape(n_req, rows, T).any(axis=(1, 2)).sum())
     out = dict(noise=noise, requests_differ=req_differ, requests=n_req,
                rows_differ=int(diff.any(1).sum()), worst_margin=0.0)
-    for r in np.flatnonzero(first < T):
+    for r in np.flatnonzero(first < hz):
         s = int(first[r])
         a, b = int(gen_a[r, s]), int(gen_b[r, s])
         margin = max(float(sc_a[r, s, a] - sc_a[r, s, b]),
@@ -1699,23 +1767,27 @@ def rung_label(rung):
 
 
 def serve_per_sequence(torch, dev, arch, cfg, params, ds, sizes, prompts,
-                       truth):
+                       truth, rag=None, label="serve.per_sequence"):
     """The per-sequence loop (``EngineConfig(wave_decode=False)``) on the
     first ``per_seq_requests`` requests of the serve traffic, beside a
-    wave run of the same requests; decode attention must launch
-    n_layers x (steps - 1) x requests times; tokens are held to the wave
-    run's by ``near_tie_check`` (each request decodes alone at its own
-    width here, in one wave there). Returns its launch counts."""
+    wave run of the same requests (at ``rag``, the arch's by default);
+    decode attention must launch n_layers x (steps - 1) x requests
+    times; tokens are held to the wave run's by ``near_tie_check`` (each
+    request decodes alone at its own width here, in one wave there).
+    Also reports the first (request, step) whose retrieved ids differ
+    between the two runs. Returns its launch counts."""
+    import numpy as np
+
     t0 = time.perf_counter()
     R, B, steps = sizes["per_seq_requests"], sizes["rows"], sizes["steps"]
-    prompts, truth = prompts[:R], truth[:R * B]
+    prompts, truth = prompts[:R], truth[:R * B, :steps]
     runs, scores = {}, {}
     for name, wave in (("wave", True), ("per_sequence", False)):
         e, _, check = checked_engine(torch, dev, arch, cfg, params, ds, sizes,
-                                     fused=True, wave_decode=wave)
+                                     fused=True, rag=rag, wave_decode=wave)
         with ScoreRecorder(torch, e, R * B, steps, cfg.vocab_size) as rec:
             runs[name] = drive(torch, e, cfg, prompts, truth, steps,
-                               f"serve.per_sequence.{name}_run")
+                               f"{label}.{name}_run", traces=True)
         check()
         scores[name] = rec.rows(runs[name]["rids"], B)
         del e, rec
@@ -1725,10 +1797,30 @@ def serve_per_sequence(torch, dev, arch, cfg, params, ds, sizes, prompts,
         raise AssertionError(f"per-sequence decode attention launched "
                              f"{per['launches']['decode_attn_launch']} "
                              f"times, not {want}")
-    tie = near_tie_check(torch, "serve.per_sequence", per["gen"],
-                         scores["per_sequence"], wave["gen"], scores["wave"],
-                         B)
-    log("serve.per_sequence", t0, requests=R, rows=B, steps=steps,
+    # the first step at which each request's retrieved ids differ between
+    # the two runs (None: never). Under RETRO the chunks of a retrieval
+    # at step r shape the logits from step r + 1 on, so where the ids
+    # part the runs condition on other inputs: each row is compared up to
+    # that step (horizon). Step 0's query comes from the same prefill in
+    # both runs, so its ids must be equal.
+    ids_differ = []
+    for ta, tb in zip(per["traces"], wave["traces"]):
+        by_step = {e["step"]: e["ids"] for e in tb}
+        ids_differ.append(next(
+            (e["step"] for e in sorted(ta, key=lambda e: e["step"])
+             if not np.array_equal(e["ids"], by_step.get(e["step"]))), None))
+    horizon = None
+    if (rag or arch.rag).mode == "retro":
+        if 0 in ids_differ:
+            raise AssertionError(f"{label}: step 0's retrieval differs "
+                                 f"between the runs: {ids_differ}")
+        horizon = np.repeat([steps if r is None else r + 1
+                             for r in ids_differ], B)
+    tie = near_tie_check(torch, label, per["gen"], scores["per_sequence"],
+                         wave["gen"], scores["wave"], B, horizon=horizon)
+    log(label, t0, requests=R, rows=B, steps=steps,
+        retrieval_ids_differ_from_step=ids_differ,
+        rows_equal=int((per["gen"] == wave["gen"]).all(1).sum()),
         tokens_per_s=f"{per['tps']:.1f}",
         wave_tokens_per_s=f"{wave['tps']:.1f}",
         decode_ms_per_request_step=f"{per['ms_wave']:.2f}",
@@ -2174,19 +2266,15 @@ def profile_waves(torch, eng, prompts, steps, label="serve.profile"):
 
 
 def run_phases(torch, dev, sizes):
-    """Set-up, the kernel phases and the serve phases on ``dev`` at
-    ``sizes``; returns the kernel report rows."""
+    """Set-up, the kernel phases and the serve phases of Dec-S on ``dev``
+    at ``sizes``; returns the kernel report rows by kernel name."""
     from repro_torch.serve import DegradePolicy
 
     arch, cfg, params, corpus, keys, ds = setup(dev, sizes)
 
     timer = Timer(torch)
     report = {}
-    W = sizes["requests"] * sizes["rows"]
-    g = torch.Generator(device=dev).manual_seed(2)
-    pick = torch.randint(0, keys.shape[0], (W,), generator=g, device=dev)
-    queries = (keys[pick] + 0.01 * torch.randn(
-        (W, keys.shape[1]), generator=g, device=dev)).contiguous()
+    queries = kernel_queries(torch, dev, keys, sizes)
     kernel_decode_attn(torch, dev, timer, cfg, sizes, report)
     probe_ids = kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, report)
     kernel_ivf_scan_nlist32768(torch, dev, timer, sizes)
@@ -2268,12 +2356,285 @@ def run_phases(torch, dev, sizes):
         report[name].update(
             launches_gateway=gateway["load"]["launches"][sym],
             launches_gateway_in="gateway.load")
-    return [report[k] for k in ("decode_attn", "ivf_scan", "fused_scan",
-                                "adc_scan", "shared_scan",
-                                "hierarchical_topk")]
+    return report
+
+
+# ---------------------------------------------------------------------------
+# the paper's other three RALMs: Dec-L, EncDec-S, EncDec-L
+# ---------------------------------------------------------------------------
+
+# The reference's ModelConfig.param_count() of each full config (the
+# weight matrices and embeddings; the port's count adds the norms).
+REFERENCE_PARAMS = {"dec_l": 1260732416, "encdec_s": 132661248,
+                    "encdec_l": 1688584192}
+# The index each model serves from: SYN-1024's shapes at d_model 1024
+# (m 64), SYN-512's at 512 (m 32); the corpus is Dec-S's (cut to
+# ``n_docs``), the traffic Dec-S's. RETRO models run at each interval
+# listed (the paper's densest, 8, and EncDec-S's registered 64). The
+# kernels run at Dec-L's new shapes (16 KV heads, D 1024, m 64) once.
+# Cuts for the script's time: the RETRO models' corpora are 2048 docs
+# (1 048 576 keys; Dec-L's 4 194 304 keys alone take ~3 minutes on an
+# H100 80GB HBM3 at 700 W), the profiles cover profile_steps - 1 waves
+# (no retrieval in a RETRO window: steps 1-2), and the per-sequence twin
+# (``twin`` overrides the sizes) runs 4 requests, so that the near-tie
+# rule's quarter admits one, EncDec-L's for 16 steps (two retrievals).
+PAPER = (("dec_l", dict(m=64, n_docs=8192, intervals=(1,), kernels=True,
+                        profile_steps=4)),
+         ("encdec_s", dict(m=32, n_docs=2048, intervals=(8, 64),
+                           profile_steps=3,
+                           twin=dict(per_seq_requests=4))),
+         ("encdec_l", dict(m=64, n_docs=2048, intervals=(8,),
+                           profile_steps=3,
+                           twin=dict(per_seq_requests=4, steps=16))))
+# The seeded cross-attention is too weak for retrieval to move a greedy
+# token; xwv and xwo are scaled by this factor so that it does (the
+# reduced CPU recipe needs 40; at full width 40 makes the cross-attention
+# the largest term of the residual stream).
+RETRO_XSCALE = 40.0
+
+
+def n_tensor_params(tree):
+    if isinstance(tree, dict):
+        return sum(n_tensor_params(v) for v in tree.values())
+    return tree.numel()
+
+
+def chunk_table(torch, corpus, chunk_len):
+    """RETRO payload: row i = the ``chunk_len`` tokens after key i's
+    position in its document (key i is document i // (doc_len - 1),
+    position i % (doc_len - 1), as ``corpus_keys`` orders them), PAD 0
+    past the document's end. ``corpus`` [n, doc_len] int32 on the card."""
+    n, L = corpus.shape
+    padded = torch.cat([corpus, corpus.new_zeros((n, chunk_len))], dim=1)
+    idx = (torch.arange(L - 1, device=corpus.device)[:, None] + 1 +
+           torch.arange(chunk_len, device=corpus.device)[None, :])
+    return padded[:, idx].reshape(n * (L - 1), chunk_len)
+
+
+def paper_setup(torch, dev, name, opts, sizes, corpus):
+    """Seeded weights at full width and depth, the model's own keys over
+    the corpus (an encoder-decoder's decoder alone, without encoder
+    states), the chunk table (RETRO) and the IVF-PQ datastore; returns
+    (arch, cfg, params, ds, queries): 32 keys plus noise for the kernel
+    phases."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    arch = get_arch(name)
+    cfg = arch.model
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    retro = arch.rag.mode == "retro"
+    if retro:
+        for leaf in ("xwv", "xwo"):
+            params["classes"]["global"][leaf] *= RETRO_XSCALE
+    log(f"paper.{name}.params", t0, layers=cfg.n_layers,
+        enc_layers=cfg.n_enc_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, dtype=cfg.dtype,
+        tensor_params=n_tensor_params(params),
+        reference_param_count=REFERENCE_PARAMS[name],
+        rag=arch.rag, xwv_xwo_scale=RETRO_XSCALE if retro else 1.0)
+    keys, ds = build_index(
+        torch, dev, f"paper.{name}", cfg, params,
+        np.ascontiguousarray(corpus[:opts["n_docs"]]), sizes, opts["m"],
+        chunk_len=arch.rag.chunk_len if retro else None)
+    queries = kernel_queries(torch, dev, keys, sizes)
+    del keys
+    torch.cuda.empty_cache()
+    return arch, cfg, params, ds, queries
+
+
+def paper_kernels(torch, dev, timer, name, cfg, arch, ds, queries, sizes,
+                  report):
+    """The kernels at this model's shapes (decode attention at its heads,
+    the IVF probe at its width, the fused scan and adc_scan at its m),
+    each against its plain version and timed beside its bound; the
+    numbers join the kernel's report row under ``_<name>`` keys."""
+    sub = {}
+    kernel_decode_attn(torch, dev, timer, cfg, sizes, sub,
+                       label=f"paper.{name}.kernel.decode_attn")
+    probe_ids = kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, sub,
+                                label=f"paper.{name}.kernel.ivf_scan")
+    kk = ds.search_config(nprobe=sizes["nprobe"],
+                          k=arch.rag.k).k_prime(ds.num_shards)
+    kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, sub,
+                      label=f"paper.{name}.kernel.fused_scan")
+    kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk, sub,
+                    label=f"paper.{name}.kernel.adc_scan")
+    for kernel, row in sub.items():
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "ms_kv464", "library_ms_kv464",
+                    "bound_ms_kv464"):
+            if key in row:
+                report[kernel][f"{key}_{name}"] = row[key]
+    torch.cuda.empty_cache()
+
+
+def plain_run(torch, eng, cfg, prompts, steps, label):
+    """The traffic through an engine without a retriever (no retrieval,
+    no probe or scan launch), decode attention launched once per layer
+    per wave; returns the generated tokens [R * rows, steps]."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.serve import RalmRequest
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    waves0 = eng.decode_dispatches
+    t1 = time.perf_counter()
+    rids = [eng.submit(RalmRequest(prompt=torch.from_numpy(p), steps=steps))
+            for p in prompts]
+    by_id = {r.request_id: r.tokens for r in eng.run()}
+    torch.cuda.synchronize()
+    waves = eng.decode_dispatches - waves0
+    launches = {n: k.launches for n, k in _build.kernels().items()}
+    want = dict.fromkeys(launches, 0)
+    want["decode_attn_launch"] = cfg.n_layers * waves
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != {want}")
+    log(label, t1, decode_waves=waves, launches=launches)
+    R, B = len(prompts), prompts[0].shape[0]
+    return np.stack([by_id[r] for r in rids])[:, :, prompts[0].shape[1]:
+                                              ].reshape(R * B, steps)
+
+
+def paper_serve(torch, dev, name, opts, arch, cfg, params, ds, sizes,
+                corpus):
+    """The serve traffic through ``name``: fused runs (``repeats`` for
+    the kNN-LM, one a RETRO interval), a staged run whose tokens must
+    equal them, and a profile of ``opts["profile_steps"] - 1`` decode
+    waves (at the first interval). A RETRO model also runs without
+    retrieval once (``mode="none"``, and with its RETRO widths but no
+    retriever): the share of tokens that retrieval changed must be > 0 at
+    every interval; and its per-sequence twin runs at the first interval
+    (``opts["twin"]`` overrides the sizes). Returns the launch counts of
+    the first interval's fused and staged runs (and the twin's)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.serve import RalmEngine
+
+    R, B, T0 = sizes["requests"], sizes["rows"], sizes["prompt_len"]
+    steps = sizes["steps"]
+    prompts = [corpus[r * B:(r + 1) * B, :T0] for r in range(R)]
+    truth = corpus[:R * B, T0:T0 + steps]
+    retro = arch.rag.mode == "retro"
+    launches, baselines = {}, None
+    for iv in opts["intervals"]:
+        t0 = time.perf_counter()
+        first = iv == opts["intervals"][0]
+        rag = dataclasses.replace(arch.rag, interval=iv)
+        tag = f"paper.{name}" + (f".interval{iv}" if retro else "")
+        eng, _, check = checked_engine(torch, dev, arch, cfg, params, ds,
+                                       sizes, fused=True, rag=rag)
+        runs = [drive(torch, eng, cfg, prompts, truth, steps, f"{tag}.run")
+                for _ in range(1 if retro else sizes["repeats"])]
+        staged_eng, _, check_s = checked_engine(
+            torch, dev, arch, cfg, params, ds, sizes, fused=False, rag=rag)
+        staged = drive(torch, staged_eng, cfg, prompts, truth, steps,
+                       f"{tag}.staged")
+        check()
+        check_s()
+        del staged_eng
+        if not all(np.array_equal(r["gen"], runs[0]["gen"])
+                   for r in runs + [staged]):
+            raise AssertionError(f"{tag}: staged or repeated tokens differ "
+                                 "from the first fused run's")
+        run = runs[0]
+        tps = sorted(r["tps"] for r in runs)
+        extra = {}
+        if retro:
+            if not run["flushes"] < run["waves"]:
+                raise AssertionError(f"{tag}: {run['flushes']} flushes, not "
+                                     f"fewer than {run['waves']} waves")
+            if baselines is None:
+                none_eng, _, check_n = checked_engine(
+                    torch, dev, arch, cfg, params, ds, sizes, fused=True,
+                    rag=dataclasses.replace(rag, mode="none"))
+                none = drive(torch, none_eng, cfg, prompts, truth, steps,
+                             f"paper.{name}.mode_none")
+                check_n()
+                del none_eng
+                bare = RalmEngine.monolithic(params, cfg, rag, retriever=None,
+                                             max_seq=sizes["max_seq"])
+                baselines = dict(
+                    mode_none=none["gen"],
+                    no_retriever=plain_run(torch, bare, cfg, prompts, steps,
+                                           f"paper.{name}.no_retriever"))
+                del bare
+            for base, gen in baselines.items():
+                share = float((run["gen"] != gen).mean())
+                extra[f"differ_from_{base}"] = f"{share:.4f}"
+                if share <= 0.0:
+                    raise AssertionError(f"{tag}: retrieval moved no token "
+                                         f"against the {base} run")
+            extra["enc_buffer"] = tuple(eng.pool.enc.shape)
+        log(f"{tag}.summary", t0, tokens_per_s_median=f"{median(tps):.1f}",
+            tokens_per_s_range=f"{tps[0]:.1f}-{tps[-1]:.1f}",
+            decode_ms_per_wave=f"{median([r['ms_wave'] for r in runs]):.2f}",
+            decode_waves=run["waves"], search_flushes=run["flushes"],
+            continuation_accuracy=f"{run['acc']:.4f}",
+            staged_tokens_equal=True,
+            staged_tokens_per_s=f"{staged['tps']:.1f}",
+            launches=run["launches"], staged_launches=staged["launches"],
+            **extra)
+        if first:
+            launches = dict(fused=run["launches"], staged=staged["launches"])
+            profile_waves(torch, eng, prompts, steps=opts["profile_steps"],
+                          label=f"{tag}.profile")
+        del eng
+        torch.cuda.empty_cache()
+    if retro:
+        rag = dataclasses.replace(arch.rag, interval=opts["intervals"][0])
+        launches["per_sequence"] = serve_per_sequence(
+            torch, dev, arch, cfg, params, ds, dict(sizes, **opts["twin"]),
+            prompts, truth, rag=rag, label=f"paper.{name}.per_sequence")
+    return launches
+
+
+def paper_phases(torch, dev, sizes, report):
+    """Dec-L, EncDec-S and EncDec-L at full width and depth, one after
+    the other (each model's engines and index freed before the next);
+    their launch counts join the report rows of the kernels they run."""
+    import gc
+
+    import numpy as np
+
+    timer = Timer(torch)
+    rng = np.random.default_rng(0)
+    corpus = rng.integers(0, 50000, size=(sizes["n_docs"], sizes["doc_len"]),
+                          dtype=np.int32)
+    for name, opts in PAPER:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        arch, cfg, params, ds, queries = paper_setup(torch, dev, name, opts,
+                                                     sizes, corpus)
+        if opts.get("kernels"):
+            paper_kernels(torch, dev, timer, name, cfg, arch, ds, queries,
+                          sizes, report)
+        counts = paper_serve(torch, dev, name, opts, arch, cfg, params, ds,
+                             sizes, corpus)
+        for kernel, sym, run in (
+                ("decode_attn", "decode_attn_launch", "fused"),
+                ("ivf_scan", "ivf_scan_launch", "fused"),
+                ("fused_scan", "chamvs_scan_launch", "fused"),
+                ("adc_scan", "adc_scan_launch", "staged")):
+            report[kernel][f"launches_{name}"] = counts[run][sym]
+        if "per_sequence" in counts:
+            report["decode_attn"][f"launches_per_sequence_{name}"] = \
+                counts["per_sequence"]["decode_attn_launch"]
+        log(f"paper.{name}", t0,
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        del arch, cfg, params, ds, queries
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2296,7 +2657,13 @@ def main() -> int:
     for ln in ptx:
         print(f"  ptxas {ln}", flush=True)
 
-    kernels = run_phases(torch, dev, dict(FULL))
+    report = run_phases(torch, dev, dict(FULL))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paper_phases(torch, dev, dict(FULL), report)
+    kernels = [report[k] for k in ("decode_attn", "ivf_scan", "fused_scan",
+                                   "adc_scan", "shared_scan",
+                                   "hierarchical_topk")]
     log("total", t_all,
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,9 @@
 """Architecture registry (twin of ``repro.configs``).
 
-This slice registers the paper's Dec-S only; ``get_arch`` imports
-``repro_torch.configs.<name>`` on first use, as the reference does.
+The paper's four RALMs (Table 2) are registered: the kNN-LM decoders
+Dec-S and Dec-L and the RETRO encoder-decoders EncDec-S and EncDec-L.
+``get_arch`` imports ``repro_torch.configs.<name>`` on first use, as
+the reference does.
 """
 from __future__ import annotations
 

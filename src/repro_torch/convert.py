@@ -27,7 +27,9 @@ def _tensor(a: np.ndarray, device, float_dtype=None) -> torch.Tensor:
 def lm_params(tree: Mapping[str, Any], cfg: ModelConfig, device="cpu"
               ) -> Dict[str, Any]:
     """``repro.models.transformer.init_params`` layout (nested dicts of
-    numpy leaves) -> the port's params; float leaves take ``cfg.dtype``."""
+    numpy leaves: ``classes``, and an encoder-decoder's ``encoder`` tree
+    and cross-attention leaves) -> the port's params; float leaves take
+    ``cfg.dtype``."""
     def conv(x):
         if isinstance(x, Mapping):
             return {k: conv(v) for k, v in x.items()}
@@ -68,9 +70,12 @@ def datastore(index_cfg: Mapping[str, Any], coarse_centroids: np.ndarray,
               codebooks: np.ndarray,
               shards: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
               payload_tokens: Optional[np.ndarray] = None,
-              num_vectors: int = 0, device="cpu"):
+              num_vectors: int = 0, device="cpu",
+              chunk_table: Optional[np.ndarray] = None):
     """A reference ``Datastore`` (its index config's fields, quantizers,
-    shards and payload table) -> the port's ``Datastore``."""
+    shards and payload tables: next tokens [N], RETRO chunks
+    [N, chunk_len]) -> the port's ``Datastore``; tables cross as
+    int32."""
     from repro_torch.serve.datastore import Datastore
     return Datastore(
         params=ivfpq_params(coarse_centroids, codebooks, device),
@@ -78,4 +83,6 @@ def datastore(index_cfg: Mapping[str, Any], coarse_centroids: np.ndarray,
         index_cfg=index_config(index_cfg),
         payload_tokens=None if payload_tokens is None
         else _tensor(payload_tokens, device).to(torch.int32),
+        chunk_table=None if chunk_table is None
+        else _tensor(chunk_table, device).to(torch.int32),
         num_vectors=num_vectors)

@@ -1,10 +1,15 @@
-"""RALM integration (twin of ``repro.core.rag``): the kNN-LM mix.
+"""RALM integration (twin of ``repro.core.rag``), the paper's two modes.
 
 Token-level, decoder-only retrieval (kNN-LM; paper Dec-S/Dec-L,
 retrieval interval 1): the last layer's hidden state is the query, each
 database vector maps to the next token of its context, and the LM's
 next-token distribution is mixed with a distance-weighted distribution
 over the retrieved next tokens.
+
+Chunk-level, encoder-decoder retrieval (RETRO; paper EncDec-S/EncDec-L,
+intervals 8/64/512): each database vector maps to a chunk of text, the
+retrieved chunks are encoded by a shallow encoder and enter the decoder
+through cross-attention.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class RagConfig:
-    mode: str = "knnlm"            # "knnlm" | "none" (RETRO comes later)
+    mode: str = "knnlm"            # "knnlm" | "retro" | "none"
     interval: int = 1              # retrieve every N generated tokens
     k: int = 100                   # neighbors (paper Table 2)
     lam: float = 0.25              # kNN-LM interpolation weight
@@ -54,6 +59,15 @@ def gather_payload(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Vector id -> payload (paper step 9). Missing ids (-1) return row 0;
     callers mask by id."""
     return table[torch.clamp(ids, min=0).long()]
+
+
+def retro_neighbor_tokens(chunk_table: torch.Tensor, ids: torch.Tensor
+                          ) -> torch.Tensor:
+    """Retrieved chunks for the RETRO encoder: ``chunk_table``
+    [N, chunk_len] and ids [B, K] -> [B, K, chunk_len]; missing
+    neighbours (-1) give PAD (token 0) rows."""
+    toks = gather_payload(chunk_table, ids)
+    return torch.where((ids >= 0)[..., None], toks, torch.zeros_like(toks))
 
 
 def should_retrieve(step: int, interval: int) -> bool:

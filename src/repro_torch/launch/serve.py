@@ -11,7 +11,10 @@ It runs on the GPU and raises when CUDA is absent, unless given
 no kernel-backend flags: the device decides. ``--staged-scan`` serves
 the staged per-shard scan (``search_config(fused=False)``).
 ``--disaggregate`` is refused: the LM-pool / retrieval-pool split is not
-ported yet.
+ported yet. ``--arch`` serves the paper's decoders (``dec_s``, ``dec_l``);
+the RETRO encoder-decoders (``encdec_s``, ``encdec_l``) are refused: the
+launcher's datastore holds next tokens only, no chunk table, so their
+first retrieval would raise (the reference's launcher raises there).
 """
 from __future__ import annotations
 
@@ -119,6 +122,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--disaggregate is not ported yet (the LM-pool / "
                  "retrieval-pool split needs DisaggregatedBackend); serve "
                  "monolithic without it")
+    if get_arch(args.arch).model.arch == "encdec":
+        ap.error(f"--arch {args.arch} is a RETRO encoder-decoder: this "
+                 "launcher's datastore has no chunk table, so its first "
+                 "retrieval would raise; serve it through RalmEngine with "
+                 "DatastoreBuilder.build(..., chunk_table=...)")
     return args
 
 

@@ -8,8 +8,18 @@ params convert one to one (``repro_torch.convert``). Layers run in a
 Python loop in stack order; caches are updated in place.
 
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
-fills the cache), ``decode`` (one token per row against the cache). This
-slice serves the dense decoder family only.
+fills the cache), ``decode`` (one token per row against the cache). The
+port serves dense decoders (the paper's Dec-S and Dec-L) and dense
+encoder-decoders (RETRO: EncDec-S and EncDec-L). An encoder-decoder's
+decoder layers carry a cross-attention (``lnx``, ``xwq``/``xwk``/``xwv``/
+``xwo``) over ``enc_states``, the output of ``encode`` over the
+retrieved chunks; it runs after the self-attention and before the MLP.
+
+The encoder's and the cross-attention's attention is the plain
+``flash_attention`` (the reference's is plain jnp too, no Pallas). The
+reference blocks its KV axis by 512 with an online softmax; here the
+whole score row is one softmax, so for encoder widths above 512 (RETRO's
+K x chunk_len = 640) the two round the softmax weights differently.
 """
 from __future__ import annotations
 
@@ -28,10 +38,28 @@ Params = Dict[str, Any]
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.block != "dense" or cfg.arch != "decoder":
+    """Dense decoders and dense encoder-decoders with RoPE (or no
+    positions) are served; every other family is ROADMAP Queue 1 item
+    12."""
+    if cfg.block != "dense" or cfg.arch not in ("decoder", "encdec") or \
+            cfg.rope_mode not in ("rope", "none"):
         raise NotImplementedError(
-            f"repro_torch serves dense decoders; got block={cfg.block!r} "
-            f"arch={cfg.arch!r}")
+            f"repro_torch serves dense decoders and dense encoder-decoders "
+            f"(RoPE); got block={cfg.block!r} arch={cfg.arch!r} "
+            f"rope_mode={cfg.rope_mode!r} (other families: ROADMAP Queue 1 "
+            f"item 12)")
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's own config: ``n_enc_layers`` dense layers at the
+    decoder's widths (the reference builds the same one)."""
+    return ModelConfig(
+        name=cfg.name + "-enc", n_layers=cfg.n_enc_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, vocab_size=cfg.vocab_size,
+        d_head=cfg.d_head, block="dense", qkv_bias=cfg.qkv_bias,
+        rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps, act=cfg.act,
+        dtype=cfg.dtype)
 
 
 def _dense_init(gen: torch.Generator, shape, dtype, scale=0.02):
@@ -39,9 +67,10 @@ def _dense_init(gen: torch.Generator, shape, dtype, scale=0.02):
                         dtype=torch.float32) * scale).to(dtype)
 
 
-def _init_block_class(gen: torch.Generator, cfg: ModelConfig, n: int
-                      ) -> Params:
-    """Stacked params for ``n`` layers of one class."""
+def _init_block_class(gen: torch.Generator, cfg: ModelConfig, n: int,
+                      cross: bool = False) -> Params:
+    """Stacked params for ``n`` layers of one class; ``cross`` adds the
+    cross-attention's leaves (encoder-decoder layers)."""
     d, f = cfg.d_model, cfg.d_ff
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dt, dev = cfg.torch_dtype, gen.device
@@ -58,6 +87,12 @@ def _init_block_class(gen: torch.Generator, cfg: ModelConfig, n: int
     p["wg"] = _dense_init(gen, (n, d, f), dt)
     p["wu"] = _dense_init(gen, (n, d, f), dt)
     p["wd"] = _dense_init(gen, (n, f, d), dt)
+    if cross:
+        p["lnx"] = torch.ones((n, d), dtype=dt, device=dev)
+        p["xwq"] = _dense_init(gen, (n, d, H * dh), dt)
+        p["xwk"] = _dense_init(gen, (n, d, KV * dh), dt)
+        p["xwv"] = _dense_init(gen, (n, d, KV * dh), dt)
+        p["xwo"] = _dense_init(gen, (n, H * dh, d), dt)
     return p
 
 
@@ -72,25 +107,41 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = _dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                         dt)
+    encdec = cfg.arch == "encdec"
     params["classes"] = {
-        cls: _init_block_class(gen, cfg, len(cfg.class_layers(cls)))
+        cls: _init_block_class(gen, cfg, len(cfg.class_layers(cls)),
+                               cross=encdec)
         for cls in cfg.pattern_classes()}
+    if encdec:
+        params["encoder"] = {
+            "classes": {"global": _init_block_class(
+                gen, _enc_cfg(cfg), cfg.n_enc_layers)},
+            "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
     return params
 
 
 def init_cache(cfg: ModelConfig, B: int, max_seq: int,
-               device="cpu") -> Params:
+               device="cpu", enc_len: int = 0) -> Params:
     """Per-class decode caches [n_layers_of_class, B, S, KV, dh]. Local
-    (sliding) classes get ring buffers of ``cfg.window`` slots."""
+    (sliding) classes get ring buffers of ``cfg.window`` slots. An
+    encoder-decoder with ``enc_len > 0`` also caches the cross K/V
+    (``xk``/``xv`` [n, B, enc_len, KV, dh], filled at prefill); with
+    ``enc_len=0`` (the serving engine's choice) decode recomputes them
+    from ``enc_states`` every step."""
     _check_dense(cfg)
+    dt = cfg.torch_dtype
     caches: Params = {"classes": {}}
     for cls in cfg.pattern_classes():
         n = len(cfg.class_layers(cls))
         S = cfg.window if (cls == "local" and cfg.window > 0) else max_seq
         shape = (n, B, S, cfg.n_kv_heads, cfg.d_head)
-        caches["classes"][cls] = {
-            "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+        c = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+        if cfg.arch == "encdec" and enc_len > 0:
+            xshape = (n, B, enc_len, cfg.n_kv_heads, cfg.d_head)
+            c["xk"] = torch.zeros(xshape, dtype=dt, device=device)
+            c["xv"] = torch.zeros(xshape, dtype=dt, device=device)
+        caches["classes"][cls] = c
     return caches
 
 
@@ -130,14 +181,47 @@ def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
     return out.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"]
 
 
+def _cross_attention(cfg, p, h, enc_states, mode, cache, slots=None):
+    """Cross-attention over the encoder states (RETRO), with its own
+    pre-norm ``lnx``; returns ``h + out @ xwo``. Decode reads the cached
+    cross K/V when the cache has them (gathered to the wave's rows under
+    ``slots``), else recomputes them from ``enc_states`` [B, S, d]
+    (already the wave's rows). Prefill fills a cross cache in place."""
+    B, T, _ = h.shape
+    hn = rms_norm(h, p["lnx"], cfg.norm_eps)
+    q = (hn @ p["xwq"]).reshape(B, T, cfg.n_heads, cfg.d_head)
+    if mode == "decode" and cache is not None and "xk" in cache:
+        xk, xv = cache["xk"], cache["xv"]
+        if slots is not None:
+            idx = torch.as_tensor(slots, device=xk.device).long()
+            xk, xv = xk[idx], xv[idx]
+    else:
+        S = enc_states.shape[1]
+        xk = (enc_states @ p["xwk"]).reshape(B, S, cfg.n_kv_heads,
+                                             cfg.d_head)
+        xv = (enc_states @ p["xwv"]).reshape(B, S, cfg.n_kv_heads,
+                                             cfg.d_head)
+    S = xk.shape[1]
+    qpos = torch.zeros((B, T), dtype=torch.int32, device=h.device)
+    kpos = torch.arange(S, device=h.device)[None].expand(B, S)
+    out = flash_attention(q, xk, xv, qpos, kpos, causal=False)
+    if mode == "prefill" and cache is not None and "xk" in cache:
+        cache["xk"].copy_(xk.to(cache["xk"].dtype))
+        cache["xv"].copy_(xv.to(cache["xv"].dtype))
+    return h + out.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["xwo"]
+
+
 def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
                 positions: torch.Tensor, mode: str, cache: Optional[Params],
-                window: int, slots=None, kv_len=None, rope=None
-                ) -> torch.Tensor:
-    """One layer (pre-norm attention + gated MLP)."""
+                window: int, slots=None, kv_len=None, rope=None,
+                enc_states=None) -> torch.Tensor:
+    """One layer: pre-norm self-attention, the cross-attention when the
+    layer has one and ``enc_states`` are given, the gated MLP."""
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     h = h + _self_attention(cfg, p, hn, positions, mode, cache, window,
                             slots=slots, kv_len=kv_len, rope=rope)
+    if enc_states is not None and "xwq" in p:
+        h = _cross_attention(cfg, p, h, enc_states, mode, cache, slots=slots)
     return h + swiglu(rms_norm(h, p["ln2"], cfg.norm_eps), p["wg"], p["wu"],
                       p["wd"], cfg.act)
 
@@ -145,7 +229,7 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
 def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
                 positions: torch.Tensor, mode: str,
                 caches: Optional[Params] = None, slots=None,
-                kv_len=None) -> torch.Tensor:
+                kv_len=None, enc_states=None) -> torch.Tensor:
     """All ``n_layers`` in stack order; layer ``i`` of class ``cls`` is
     index ``class_layers(cls).index(i)`` of that class's stacked leaves.
     The RoPE tables are computed once and shared by every layer."""
@@ -160,8 +244,34 @@ def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
                  {name: a[idx] for name, a in caches["classes"][cls].items()})
         window = cfg.window if cls == "local" else 0
         h = apply_block(cfg, p, h, positions, mode, cache, window,
-                        slots=slots, kv_len=kv_len, rope=rope)
+                        slots=slots, kv_len=kv_len, rope=rope,
+                        enc_states=enc_states)
     return h
+
+
+def encode(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor
+           ) -> torch.Tensor:
+    """The encoder: ``n_enc_layers`` bidirectional dense layers over
+    ``enc_embeds`` [B, S, d] (the embedded retrieved chunks), then the
+    encoder's final norm -> ``enc_states`` [B, S, d]."""
+    _check_dense(cfg)
+    enc_cfg = _enc_cfg(cfg)
+    B, S, _ = enc_embeds.shape
+    pos = torch.arange(S, device=enc_embeds.device)[None].expand(B, S)
+    rope = rope_tables(pos, cfg.d_head, cfg.rope_theta)
+    h = enc_embeds
+    stacked = params["encoder"]["classes"]["global"]
+    for idx in range(cfg.n_enc_layers):
+        p = {name: a[idx] for name, a in stacked.items()}
+        hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+        q, k, v = _proj_qkv(enc_cfg, p, hn)
+        q = positional_rotate(q, pos, enc_cfg, rope)
+        k = positional_rotate(k, pos, enc_cfg, rope)
+        out = flash_attention(q, k, v, pos, pos, causal=False)
+        h = h + out.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
+        h = h + swiglu(rms_norm(h, p["ln2"], cfg.norm_eps), p["wg"],
+                       p["wu"], p["wd"], cfg.act)
+    return rms_norm(h, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -178,26 +288,28 @@ def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor
 def hidden_states(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: Optional[torch.Tensor] = None,
                   mode: str = "train", caches: Optional[Params] = None,
-                  slots=None, kv_len=None) -> torch.Tensor:
+                  slots=None, kv_len=None, enc_states=None) -> torch.Tensor:
     """The stack's output [B, T, d] before the final norm — the kNN-LM
-    key/query — without the unembedding."""
+    key/query — without the unembedding. ``enc_states`` [B, S, d] feed
+    an encoder-decoder's cross-attention (without them its decoder runs
+    alone)."""
     _check_dense(cfg)
     h = embed_tokens(params, tokens)
     B, T = h.shape[:2]
     if positions is None:
         positions = torch.arange(T, device=h.device)[None].expand(B, T)
     return apply_stack(cfg, params["classes"], h, positions, mode, caches,
-                       slots=slots, kv_len=kv_len)
+                       slots=slots, kv_len=kv_len, enc_states=enc_states)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, mode: str = "train",
             caches: Optional[Params] = None, return_hidden: bool = False,
-            slots=None, kv_len=None):
+            slots=None, kv_len=None, enc_states=None):
     """Full forward over ``tokens`` [B, T]. Returns (logits [B, T, V],
     caches[, hidden [B, T, d]]); ``caches`` are filled in place."""
     h = hidden_states(params, cfg, tokens, positions, mode, caches,
-                      slots=slots, kv_len=kv_len)
+                      slots=slots, kv_len=kv_len, enc_states=enc_states)
     logits = unembed(params, cfg, h)
     if return_hidden:
         return logits, caches, h
@@ -207,15 +319,17 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 @torch.no_grad()
 def decode_step(params: Params, cfg: ModelConfig, caches: Params,
                 token: torch.Tensor, position: torch.Tensor,
-                return_hidden: bool = False):
+                return_hidden: bool = False, enc_states=None):
     """One serving step over a request's own caches (the per-sequence
     loop): ``token`` [B, 1], ``position`` [B]; cache row ``b`` is request
     row ``b`` and every attention read covers the whole cache (no
     ``slots``, no ``kv_len`` crop). The caches are updated in place.
     Returns (logits [B, V], caches[, hidden [B, d]]); the hidden state is
-    the retrieval query."""
+    the retrieval query. ``enc_states`` [B, S, d]: the request's encoder
+    states (an encoder-decoder)."""
     out = forward(params, cfg, token, positions=position[:, None],
-                  mode="decode", caches=caches, return_hidden=return_hidden)
+                  mode="decode", caches=caches, return_hidden=return_hidden,
+                  enc_states=enc_states)
     if return_hidden:
         logits, caches, h = out
         return logits[:, 0], caches, h[:, 0]
@@ -227,15 +341,17 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Params,
 def decode_wave(params: Params, cfg: ModelConfig, caches: Params,
                 token: torch.Tensor, slots: torch.Tensor,
                 position: torch.Tensor, return_hidden: bool = False,
-                kv_len: Optional[int] = None):
+                kv_len: Optional[int] = None, enc_states=None):
     """One serving step for a whole wave over a slotted KV pool.
 
     ``caches`` hold the pool's P slot rows; ``token`` [W, 1], ``slots``
-    [W] and ``position`` [W] describe the wave. The pool is updated in
-    place. Returns (logits [W, V], caches[, hidden [W, d]])."""
+    [W] and ``position`` [W] describe the wave; ``enc_states`` (an
+    encoder-decoder) are already gathered to the wave's rows [W, S, d].
+    The pool is updated in place. Returns (logits [W, V], caches[,
+    hidden [W, d]])."""
     out = forward(params, cfg, token, positions=position[:, None],
                   mode="decode", caches=caches, return_hidden=return_hidden,
-                  slots=slots, kv_len=kv_len)
+                  slots=slots, kv_len=kv_len, enc_states=enc_states)
     if return_hidden:
         logits, caches, h = out
         return logits[:, 0], caches, h[:, 0]

@@ -174,18 +174,25 @@ class Retriever(Protocol):
 
     def resolve(self, ids: torch.Tensor, kind: str = "tokens"
                 ) -> torch.Tensor:
-        """[B, K] ids -> next tokens [B, K], -1 where the id is -1."""
+        """[B, K] ids -> next tokens [B, K] (kNN-LM), -1 where the id is
+        -1, or chunks [B, K, chunk_len] (RETRO), PAD-0 rows there."""
         ...
 
 
-def _resolve_tokens(payload_tokens: Optional[torch.Tensor], ids: torch.Tensor,
-                    kind: str) -> torch.Tensor:
-    if kind != "tokens":
-        raise ValueError(f"unsupported payload kind: {kind!r}")
-    if payload_tokens is None:
-        raise ValueError("retriever has no payload_tokens table")
-    toks = rag_lib.gather_payload(payload_tokens, ids)
-    return torch.where(ids >= 0, toks, torch.full_like(toks, -1))
+def _resolve_from_tables(payload_tokens: Optional[torch.Tensor],
+                         chunk_table: Optional[torch.Tensor],
+                         ids: torch.Tensor, kind: str) -> torch.Tensor:
+    """Gather from the table ``kind`` names and mask missing ids once."""
+    if kind == "tokens":
+        if payload_tokens is None:
+            raise ValueError("retriever has no payload_tokens table")
+        toks = rag_lib.gather_payload(payload_tokens, ids)
+        return torch.where(ids >= 0, toks, torch.full_like(toks, -1))
+    if kind == "chunks":
+        if chunk_table is None:
+            raise ValueError("retriever has no chunk_table")
+        return rag_lib.retro_neighbor_tokens(chunk_table, ids)
+    raise ValueError(f"unknown payload kind: {kind!r}")
 
 
 def _project(queries: torch.Tensor, query_proj: Optional[torch.Tensor]
@@ -204,6 +211,7 @@ class LocalRetriever:
     cfg: ChamVSConfig
     payload_tokens: Optional[torch.Tensor] = None   # [N] next-token table
     query_proj: Optional[torch.Tensor] = None       # [d_model, dq]
+    chunk_table: Optional[torch.Tensor] = None      # [N, chunk_len]
 
     def __post_init__(self):
         self.service = RetrievalService.local(
@@ -216,7 +224,8 @@ class LocalRetriever:
 
     def resolve(self, ids: torch.Tensor, kind: str = "tokens"
                 ) -> torch.Tensor:
-        return _resolve_tokens(self.payload_tokens, ids, kind)
+        return _resolve_from_tables(self.payload_tokens, self.chunk_table,
+                                    ids, kind)
 
 
 @dataclasses.dataclass
@@ -227,6 +236,7 @@ class AsyncRetriever:
     service: RetrievalService
     payload_tokens: Optional[torch.Tensor] = None
     query_proj: Optional[torch.Tensor] = None
+    chunk_table: Optional[torch.Tensor] = None
 
     def search_async(self, queries: torch.Tensor) -> SearchHandle:
         return self.service.submit(_project(queries, self.query_proj))
@@ -247,10 +257,12 @@ class AsyncRetriever:
     def resolve(self, ids: torch.Tensor, kind: str = "tokens"
                 ) -> torch.Tensor:
         if not self.service.config.measure:
-            return _resolve_tokens(self.payload_tokens, ids, kind)
+            return _resolve_from_tables(self.payload_tokens,
+                                        self.chunk_table, ids, kind)
         t0 = time.perf_counter()
         with self.service.tracer.span("retrieval.gather", "retrieval"):
-            out = _resolve_tokens(self.payload_tokens, ids, kind)
+            out = _resolve_from_tables(self.payload_tokens,
+                                       self.chunk_table, ids, kind)
             sync(out)
         self.service.stats.gather.add(time.perf_counter() - t0)
         return out

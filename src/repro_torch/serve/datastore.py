@@ -28,11 +28,12 @@ from repro_torch.serve.api import AsyncRetriever, LocalRetriever
 
 @dataclasses.dataclass
 class Datastore:
-    """A built index + its payload table."""
+    """A built index + its payload tables."""
     params: IVFPQParams
     shards: List[IVFPQShard]
     index_cfg: IVFPQConfig
     payload_tokens: Optional[torch.Tensor] = None   # [N] next-token table
+    chunk_table: Optional[torch.Tensor] = None      # [N, chunk_len] RETRO
     num_vectors: int = 0
 
     @property
@@ -47,6 +48,8 @@ class Datastore:
             index_cfg=self.index_cfg,
             payload_tokens=None if self.payload_tokens is None
             else self.payload_tokens.to(device),
+            chunk_table=None if self.chunk_table is None
+            else self.chunk_table.to(device),
             num_vectors=self.num_vectors)
 
     def search_config(self, nprobe: int = 32, k: int = 100, **kw
@@ -60,6 +63,7 @@ class Datastore:
         return LocalRetriever(params=self.params, shards=self.shards,
                               cfg=search_cfg,
                               payload_tokens=self.payload_tokens,
+                              chunk_table=self.chunk_table,
                               query_proj=query_proj)
 
     def async_retriever(self, search_cfg: ChamVSConfig,
@@ -72,6 +76,7 @@ class Datastore:
                                          search_cfg, config=service_cfg)
         return AsyncRetriever(service=service,
                               payload_tokens=self.payload_tokens,
+                              chunk_table=self.chunk_table,
                               query_proj=query_proj)
 
 
@@ -104,11 +109,13 @@ class DatastoreBuilder:
         per_shard = -(-int(counts.max()) // self.num_shards)
         return max(128, -(-per_shard // 128) * 128)
 
-    def build(self, vectors, payload_tokens=None,
+    def build(self, vectors, payload_tokens=None, chunk_table=None,
               train_vectors=None) -> Datastore:
         """Train the quantizers (on ``train_vectors`` if given, else on
         the full set) and stripe every IVF list over ``num_shards``
-        memory nodes (partition scheme 1)."""
+        memory nodes (partition scheme 1). ``payload_tokens`` [N] and
+        ``chunk_table`` [N, chunk_len] are the payload tables (kNN-LM,
+        RETRO)."""
         dev = device_lib.resolve(self.device)
         vectors = torch.as_tensor(vectors, dtype=torch.float32).to(dev)
         train = vectors if train_vectors is None else torch.as_tensor(
@@ -126,6 +133,8 @@ class DatastoreBuilder:
             params=params, shards=shards, index_cfg=icfg,
             payload_tokens=None if payload_tokens is None
             else torch.as_tensor(payload_tokens).to(dev, torch.int32),
+            chunk_table=None if chunk_table is None
+            else torch.as_tensor(chunk_table).to(dev, torch.int32),
             num_vectors=vectors.shape[0])
 
     @staticmethod

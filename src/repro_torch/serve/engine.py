@@ -11,7 +11,9 @@ per scheduler step:
     query goes to the retriever; an ``AsyncRetriever`` coalesces the
     wave into one batched probe + scan + merge;
   * ``finish_wave`` — one payload resolve + kNN-LM interpolation over
-    the due rows, one greedy argmax over the greedy rows.
+    the due rows (RETRO: one chunk resolve + one re-encode over the due
+    rows, whose encoder states the pool keeps for the next waves), one
+    greedy argmax over the greedy rows.
 
 The per-sequence loop (``wave=False``, ``EngineConfig.wave_decode=False``)
 is the reference's parity oracle: each request keeps its own caches
@@ -20,6 +22,9 @@ is the reference's parity oracle: each request keeps its own caches
 Greedy tokens are the same on both paths.
 
 The step-0 retrieval query is the prefill's last-position hidden state.
+An encoder-decoder prefills against neutral encoder states (PAD chunks),
+and each retrieval replaces them with the encoding of the retrieved
+chunks; the decoder's cross K/V are recomputed from them every step.
 
 Serving surface: a request with an ``on_token`` consumer gets its tokens
 on the host once a wave (``_emit``), and its ``first_token`` time is
@@ -77,13 +82,23 @@ from repro_torch.serve.scheduler import RalmScheduler
 @torch.no_grad()
 def _prefill(params, cfg: ModelConfig, rag: RagConfig, prompt: torch.Tensor,
              max_seq: int):
-    """Consume the prompt. Returns (caches, last_logits [B, V],
-    last_hidden [B, d]); the last hidden state is the step-0 query."""
+    """Consume the prompt. Returns (caches, enc_states, last_logits
+    [B, V], last_hidden [B, d]); the last hidden state is the step-0
+    query. An encoder-decoder gets neutral encoder states: the encoding
+    of PAD chunks, ``max(k * chunk_len, 8)`` wide under RETRO (8
+    otherwise); a decoder gets None."""
     B, _ = prompt.shape
     caches = tf.init_cache(cfg, B, max_seq=max_seq, device=prompt.device)
+    enc_states = None
+    if cfg.arch == "encdec":
+        enc_len = rag.k * rag.chunk_len if rag.mode == "retro" else 0
+        neutral = torch.zeros((B, max(enc_len, 8)), dtype=torch.int32,
+                              device=prompt.device)
+        enc_states = tf.encode(params, cfg, tf.embed_tokens(params, neutral))
     logits, caches, hidden = tf.forward(params, cfg, prompt, mode="prefill",
-                                        caches=caches, return_hidden=True)
-    return caches, logits[:, -1], hidden[:, -1]
+                                        caches=caches, return_hidden=True,
+                                        enc_states=enc_states)
+    return caches, enc_states, logits[:, -1], hidden[:, -1]
 
 
 class MonolithicBackend:
@@ -99,18 +114,28 @@ class MonolithicBackend:
     def prefill(self, rag: RagConfig, prompt: torch.Tensor, max_seq: int):
         return _prefill(self.params, self.cfg, rag, prompt, max_seq)
 
-    def decode(self, caches, token, position):
+    def decode(self, caches, token, position, enc_states=None):
         """Advance one request over its own caches: token [B, 1],
         position [B] (the per-sequence loop)."""
         self.decode_dispatches += 1
         return tf.decode_step(self.params, self.cfg, caches, token, position,
-                              return_hidden=True)
+                              return_hidden=True, enc_states=enc_states)
 
-    def decode_wave(self, caches, token, slots, position, kv_len=None):
-        """Advance one wave of pooled slots: token/slots/position [W]."""
+    def decode_wave(self, caches, token, slots, position, kv_len=None,
+                    enc_states=None):
+        """Advance one wave of pooled slots: token/slots/position [W];
+        ``enc_states`` [W, S, d] are the wave's encoder rows."""
         self.decode_dispatches += 1
         return tf.decode_wave(self.params, self.cfg, caches, token, slots,
-                              position, return_hidden=True, kv_len=kv_len)
+                              position, return_hidden=True, kv_len=kv_len,
+                              enc_states=enc_states)
+
+    @torch.no_grad()
+    def encode_chunks(self, chunks: torch.Tensor) -> torch.Tensor:
+        """RETRO re-encode of retrieved chunk tokens [B, L] -> encoder
+        states [B, L, d]."""
+        return tf.encode(self.params, self.cfg,
+                         tf.embed_tokens(self.params, chunks))
 
 
 @dataclasses.dataclass
@@ -147,9 +172,11 @@ class _SpecIssue:
 
 @dataclasses.dataclass
 class SequenceState:
-    """One active request's decode state. Wave mode: its KV lives in the
-    engine's pool at rows ``slots`` (one per prompt row) and ``caches``
-    is None; per-sequence mode: ``caches`` are its own."""
+    """One active request's decode state. Wave mode: its KV (and an
+    encoder-decoder's encoder states) live in the engine's pool at rows
+    ``slots`` (one per prompt row) and ``caches`` / ``enc_states`` are
+    None; per-sequence mode: ``caches`` and ``enc_states`` are its
+    own."""
     request: RalmRequest
     out: List[torch.Tensor]
     cur: torch.Tensor                    # [B, 1] last sampled token
@@ -160,6 +187,7 @@ class SequenceState:
     step: int = 0
     slots: Optional[np.ndarray] = None
     caches: Any = None
+    enc_states: Optional[torch.Tensor] = None
     last_neighbors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     #                                      most recent VERIFIED (dists,
     #                                      ids): the stale neighbours the
@@ -213,6 +241,16 @@ class RalmEngine:
         self.rag = rag if rag is not None else RagConfig(mode="none")
         self.cfg = backend.cfg
         self.device = backend.device
+        if wave and self.rag.mode == "retro" and \
+                self.cfg.arch == "encdec" and \
+                self.rag.k * self.rag.chunk_len < 8:
+            # the pooled enc buffer has one width for every slot, but
+            # prefill's neutral encoder rows are at least 8 wide while a
+            # re-encode's are k * chunk_len: fail here, not mid-run
+            raise ValueError(
+                f"wave decode needs rag.k * rag.chunk_len >= 8 for RETRO "
+                f"(got {self.rag.k} * {self.rag.chunk_len}); use "
+                "wave=False for this config")
         self.max_seq = max_seq
         self.wave = wave
         self.kv_slots = kv_slots
@@ -409,7 +447,7 @@ class RalmEngine:
         if seq.slots is not None and self.pool is not None:
             self.pool.release(seq.slots)
             seq.slots = None
-        seq.caches = None
+        seq.caches = seq.enc_states = None
 
     # -- the step (called by the scheduler) ---------------------------------
 
@@ -439,17 +477,20 @@ class RalmEngine:
                      args={"request_id": request.request_id, "rows": B,
                            "prompt_len": T0} if tr.enabled else None):
             if not self.wave:
-                caches, logits0, hidden0 = self.backend.prefill(
+                caches, enc_states, logits0, hidden0 = self.backend.prefill(
                     self.rag, prompt, self.max_seq or (T0 + request.steps))
                 return SequenceState(request=request, out=[prompt],
                                      cur=prompt[:, -1:], t0=T0,
                                      logits0=logits0, hidden0=hidden0,
-                                     rng=request.rng, caches=caches)
+                                     rng=request.rng, caches=caches,
+                                     enc_states=enc_states)
             pool = self._ensure_pool(B, T0 + request.steps)
             slots = pool.alloc(B)
-            caches, logits0, hidden0 = self.backend.prefill(
+            caches, enc_states, logits0, hidden0 = self.backend.prefill(
                 self.rag, prompt, pool.max_seq)
             pool.write_prefill(slots, caches)
+            if enc_states is not None:
+                pool.write_enc(slots, enc_states)
         return SequenceState(request=request, out=[prompt],
                              cur=prompt[:, -1:], t0=T0, logits0=logits0,
                              hidden0=hidden0, rng=request.rng, slots=slots)
@@ -468,8 +509,8 @@ class RalmEngine:
         B = seq.cur.shape[0]
         position = torch.full((B,), seq.t0 + seq.step - 1, dtype=torch.int32,
                               device=self.device)
-        logits, seq.caches, hidden = self.backend.decode(seq.caches, seq.cur,
-                                                         position)
+        logits, seq.caches, hidden = self.backend.decode(
+            seq.caches, seq.cur, position, enc_states=seq.enc_states)
         return logits, hidden
 
     def dispatch_search(self, seq: SequenceState, hidden: torch.Tensor):
@@ -503,6 +544,11 @@ class RalmEngine:
                 row = rag_lib.knnlm_interpolate(logits, dists, toks,
                                                 self.rag.lam,
                                                 self.rag.temperature)
+            elif self.rag.mode == "retro" and self.cfg.arch == "encdec":
+                B = seq.cur.shape[0]
+                chunks = self.retriever.resolve(ids, kind="chunks")
+                seq.enc_states = self.backend.encode_chunks(
+                    chunks.reshape(B, -1))
         if seq.request.greedy or seq.rng is None:
             self._emit(seq, torch.argmax(row.float(), dim=-1).to(torch.int32))
             return
@@ -576,7 +622,8 @@ class RalmEngine:
                            "kv_len": kv_len} if tr.enabled else None):
             logits, pool.caches, hidden = self.backend.decode_wave(
                 pool.caches, tokens, self._to_device(slots),
-                self._to_device(positions), kv_len=kv_len)
+                self._to_device(positions), kv_len=kv_len,
+                enc_states=pool.gather_enc(slots))
         off = 0
         for i, seq in wave:
             B = seq.cur.shape[0]
@@ -632,14 +679,16 @@ class RalmEngine:
     @torch.no_grad()
     def finish_wave(self, seqs: List[SequenceState], decoded: List,
                     searches: List) -> None:
-        """One resolve + one kNN-LM interpolation over the due rows, one
-        greedy argmax over the greedy rows; sampled rows draw from their
-        own request's generator, on that generator's device (a CUDA
-        generator keeps the draw on the card, a CPU one moves the row's
-        probabilities to the host)."""
+        """One resolve + one kNN-LM interpolation over the due rows (RETRO:
+        one chunk resolve + one re-encode over the due rows, written to
+        their slots' encoder rows), one greedy argmax over the greedy
+        rows; sampled rows draw from their own request's generator, on
+        that generator's device (a CUDA generator keeps the draw on the
+        card, a CPU one moves the row's probabilities to the host)."""
         rag = self.rag
         rows: List[torch.Tensor] = []
         knn = []                # (row index, logits, dists, ids)
+        retro = []              # (seq, ids)
         spec_new = []           # (seq, _SpecIssue, logits)
         for seq, (logits, _), search in zip(seqs, decoded, searches):
             if isinstance(search, _SpecIssue):
@@ -664,6 +713,8 @@ class RalmEngine:
                         # NEXT due step speculates with (a partial result
                         # would seed it with degraded neighbours)
                         seq.last_neighbors = (dists, ids)
+                elif rag.mode == "retro" and self.cfg.arch == "encdec":
+                    retro.append((seq, ids))
             rows.append(logits)
         if knn:
             toks = self.retriever.resolve(
@@ -675,6 +726,16 @@ class RalmEngine:
             for idx, logits, _, _ in knn:
                 B = logits.shape[0]
                 rows[idx] = mixed[off:off + B]
+                off += B
+        if retro:
+            chunks = self.retriever.resolve(
+                torch.cat([ids for _, ids in retro]), kind="chunks")
+            enc = self.backend.encode_chunks(
+                chunks.reshape(chunks.shape[0], -1))
+            off = 0
+            for seq, _ in retro:
+                B = seq.cur.shape[0]
+                self.pool.write_enc(seq.slots, enc[off:off + B])
                 off += B
         greedy = [i for i, seq in enumerate(seqs)
                   if seq.request.greedy or seq.rng is None]

@@ -12,9 +12,12 @@ Wave sizes are bucketed to powers of two, and attention reads are
 cropped to the wave's seq-block aligned valid prefix (``attn_len``).
 A speculation rollback rewinds a sequence's slots (``rewind``), which is
 bookkeeping only: validity comes from each row's position. Alloc,
-release and rewind drop ``kvpool.*`` instants on the ``tracer``. RETRO
-encoder rows (``write_enc``/``gather_enc``) come with the slice that
-needs them.
+release and rewind drop ``kvpool.*`` instants on the ``tracer``.
+
+An encoder-decoder (RETRO) also keeps each slot's encoder states in one
+pooled buffer ``enc`` [capacity + 1, S_enc, d], created at the first
+``write_enc``; ``gather_enc`` hands a padded wave its rows (pad rows
+read the scratch row).
 """
 from __future__ import annotations
 
@@ -84,6 +87,7 @@ class KVCachePool:
         self.device = torch.device(device)
         self.caches = tf.init_cache(cfg, capacity + 1, self.max_seq,
                                     device=self.device)
+        self.enc: Optional[torch.Tensor] = None   # [capacity + 1, S, d]
         self._free: List[int] = list(range(capacity))
         self.stats = PoolStats()
         self.tracer = NULL_TRACER    # engine.set_tracer swaps a live one in
@@ -235,6 +239,34 @@ class KVCachePool:
                 pool = self.caches["classes"][cls][key]
                 pool[:, idx] = rows.to(pool.dtype)
 
+    def write_enc(self, slots: np.ndarray, rows: torch.Tensor) -> None:
+        """Per-slot encoder states (RETRO): [B, S_enc, d] rows into the
+        pooled buffer, in place. Every write keeps the row shape of the
+        first one: the buffer is shared by every live slot. Widths differ
+        only when ``rag.k * rag.chunk_len < 8`` (prefill's neutral
+        encoder rows are at least 8 wide), which needs the per-sequence
+        loop."""
+        if self.enc is None:
+            shape = (self.capacity + 1,) + tuple(rows.shape[1:])
+            self.enc = torch.zeros(shape, dtype=rows.dtype,
+                                   device=self.device)
+        elif self.enc.shape[1:] != rows.shape[1:]:
+            raise ValueError(
+                f"pooled enc rows must keep shape {tuple(self.enc.shape[1:])}"
+                f", got {tuple(rows.shape[1:])} — heterogeneous encoder "
+                "widths (rag.k * rag.chunk_len < 8) need the per-sequence "
+                "path (wave=False)")
+        idx = torch.as_tensor(np.asarray(slots), device=self.device).long()
+        self.enc[idx] = rows.to(self.enc.dtype)
+
+    def gather_enc(self, slots: np.ndarray) -> Optional[torch.Tensor]:
+        """The wave's encoder rows [W, S_enc, d] (None before any
+        ``write_enc``: a decoder-only model)."""
+        if self.enc is None:
+            return None
+        return self.enc[torch.as_tensor(np.asarray(slots),
+                                        device=self.device).long()]
+
     # -- growth -------------------------------------------------------------
 
     def grow_slots(self, new_capacity: int) -> None:
@@ -249,6 +281,9 @@ class KVCachePool:
             for key, a in c.items():
                 c[key] = torch.cat([a, a.new_zeros(
                     (a.shape[0], delta) + tuple(a.shape[2:]))], dim=1)
+        if self.enc is not None:
+            self.enc = torch.cat([self.enc, self.enc.new_zeros(
+                (delta,) + tuple(self.enc.shape[1:]))])
         self._free.extend(range(self.capacity, new_capacity))
         self.capacity = new_capacity
         self.stats.slot_grows += 1
@@ -263,7 +298,8 @@ class KVCachePool:
         for cls, c in self.caches["classes"].items():
             if cls == "local" and self.cfg.window > 0:
                 continue
-            for key, a in c.items():
+            for key in ("k", "v"):
+                a = c[key]
                 c[key] = torch.cat([a, a.new_zeros(
                     a.shape[:2] + (delta,) + tuple(a.shape[3:]))], dim=2)
         self.max_seq = new_max_seq

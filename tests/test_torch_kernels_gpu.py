@@ -678,3 +678,124 @@ def test_new_wrappers_reject_what_they_cannot_run(dev):
     for bad in (d.double(), d.T.contiguous().T):
         with pytest.raises(ValueError):
             tk.approx_topk(bad, 5, num_blocks=4)
+
+
+# ---------------------------------------------------------------------------
+# the shapes of the paper's other RALMs: Dec-L and EncDec-L (H = KV = 16,
+# D 1024 queries, SYN-1024's m = 64) and EncDec-S (m = 32, RETRO's K = 10)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,KV,kv_len", [(16, 16, 512), (16, 16, 464)])
+def test_decode_attention_at_paper_l_heads(dev, H, KV, kv_len):
+    """Dec-L's and EncDec-L's 16 KV heads over the serve pool (W 32)."""
+    _check_decode(dev, _gen(dev, 40), H, KV, 64, 512, 0, False, kv_len,
+                  W=32, P=33)
+
+
+@pytest.mark.parametrize("nq", [1, 32])
+def test_ivf_scan_at_d1024(dev, nq):
+    """The IVF probe over SYN-1024 queries (D 1024, nlist 256)."""
+    _check_ivf(dev, _gen(dev, 41), nq, 256, 1024, 32)
+
+
+@pytest.mark.parametrize("S,nq,nprobe,nlist,cap,m,kk,residual,dup", [
+    (2, 32, 32, 64, 300, 64, 63, False, False),   # Dec-L: K 100, 2 shards
+    (2, 32, 32, 64, 300, 64, 10, False, False),   # EncDec-L: K 10
+    (2, 5, 4, 16, 700, 64, 100, True, True),      # residual, exact ties
+    (2, 32, 32, 64, 300, 32, 10, False, False),   # EncDec-S: m 32, K 10
+])
+def test_fused_scan_at_m64(dev, S, nq, nprobe, nlist, cap, m, kk, residual,
+                           dup):
+    """The fused scan's generic path (m != 32: a 64 KB LUT a block)
+    against the plain version, ids and distances bit for bit."""
+    g = _gen(dev, 42)
+    codes, ids, lens = _tables(dev, g, S, nlist, cap, m, 256, dup)
+    probe = torch.stack([torch.randperm(nlist, generator=g, device=dev)
+                         [:nprobe] for _ in range(nq)]).int()
+    if residual:
+        luts = torch.rand((nq, nprobe, m, 256), generator=g, device=dev)
+    else:
+        luts = torch.rand((nq, 1, m, 256), generator=g, device=dev
+                          ).expand(nq, nprobe, m, 256)
+    before = cs.KERNEL.launches
+    dk, ik = cs.fused_scan(luts, codes, ids, lens, probe, kk)
+    p = probe.long()
+    dp, ip = cs.ref_chamvs_scan(luts, codes[:, p], ids[:, p], lens[:, p], kk)
+    torch.cuda.synchronize()
+    assert cs.KERNEL.launches == before + 1
+    assert torch.equal(ik, ip)
+    assert torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("nq,nprobe,nlist,cap,k,residual", [
+    (32, 32, 64, 3000, 63, False),     # Dec-L's staged scan, small lists
+    (32, 32, 64, 3000, 10, False),     # EncDec-L: K 10
+    (4, 8, 16, 1000, 100, True),       # residual LUTs
+])
+def test_adc_scan_at_m64(dev, nq, nprobe, nlist, cap, k, residual):
+    """adc_scan's generic path at m 64, in place and gathered, against
+    the plain version bit for bit."""
+    _check_probed(dev, _gen(dev, 43), nq, nprobe, nlist, cap, 64, 256, k,
+                  residual)
+
+
+def test_retro_engine_on_the_card_matches_the_cpu():
+    """A reduced RETRO engine (EncDec-S's family at d_head 64, the
+    decode kernel's width; vocab 64; ``xwv``/``xwo`` x 40 so that
+    retrieval moves tokens) served on the card gives the tokens and
+    retrieval ids of the same engine on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import (DatastoreBuilder, EngineConfig, RagConfig,
+                                   RalmEngine, RalmRequest)
+
+    cfg = dataclasses.replace(get_arch("encdec_s").reduced, d_model=256,
+                              n_heads=4, n_kv_heads=4, d_head=64,
+                              vocab_size=64)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    for name in ("xwv", "xwo"):
+        params["classes"]["global"][name] *= 40
+    rng = np.random.default_rng(0)
+    corpus = [rng.integers(0, 64, size=(64,))]
+    for _ in range(31):
+        corpus.append((3 * corpus[-1] + 1) % 64)
+    corpus = np.stack(corpus, axis=1).astype(np.int32)       # [64, 32]
+    n, L, C = corpus.shape[0], corpus.shape[1], 8
+    padded = np.concatenate([corpus, np.zeros((n, C), np.int32)], axis=1)
+    chunks = padded[:, np.arange(L - 1)[:, None] + 1 + np.arange(C)
+                    ].reshape(n * (L - 1), C)
+    builder = DatastoreBuilder(dim=cfg.d_model, nlist=8, m=16, list_cap=512,
+                               device="cpu")
+    keys, nxt = builder.corpus_keys(params, cfg, corpus)
+    ds = builder.build(keys, payload_tokens=nxt, chunk_table=chunks)
+    rag = RagConfig(mode="retro", interval=4, k=2, chunk_len=C)
+
+    def run(device):
+        eng = RalmEngine.from_config(
+            EngineConfig(model=cfg, rag=rag, async_retrieval=True), params,
+            ds, ds.search_config(nprobe=4, k=2), device=device)
+        traces = [[], []]
+        rids = [eng.submit(RalmRequest(prompt=torch.from_numpy(p), steps=12,
+                                       trace=tr))
+                for p, tr in zip((corpus[:2, :8], corpus[2:5, :6]), traces)]
+        by_id = {r.request_id: r.tokens for r in eng.run()}
+        return [by_id[r] for r in rids], traces, eng
+
+    before = da.KERNEL.launches
+    gpu, gtr, geng = run("cuda")
+    assert da.KERNEL.launches - before == \
+        cfg.n_layers * geng.decode_dispatches
+    assert geng.pool.enc.is_cuda
+    cpu, ctr, _ = run("cpu")
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_array_equal(a, b)
+    for ga, ca in zip(gtr, ctr):
+        assert [e["step"] for e in ga] == [e["step"] for e in ca] == [0, 4, 8]
+        for ge, ce in zip(ga, ca):
+            np.testing.assert_array_equal(ge["ids"], ce["ids"])
