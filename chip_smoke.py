@@ -110,7 +110,24 @@ failure raises, so the run exits non-zero):
      and at interval 8 the per-sequence twin held by the near-tie rule.
      Each model's decode waves are profiled, and its peak memory
      printed. Their launch counts and kernel times join the kernel
-     report's rows under keys suffixed with the model's name.
+     report's rows under keys suffixed with the model's name. Every
+     corpus is cut to 2048 docs (Dec-L's included: 1 048 576 keys).
+  7. the dense assigned backbones (assigned.*), after the paper's:
+     decode attention at Llama-3-405B's (128:8) and Qwen2-VL-72B's
+     (64:8) head layouts at D 128 on a seeded pool (neither model fits
+     the card); then Qwen2-0.5B (GQA 14:2, QKV bias), Phi-3-mini (MHA,
+     d_head 96, untied) and Gemma-3-4B (5:1 local:global, 1024-slot
+     rings, d_head 256, vocab 262 144) at full published width and
+     depth with seeded weights, one after the other: each builds its
+     keys over its own seeded corpus (tokens below its vocab) and an
+     IVF-PQ index at m = d_model // 16 (56, 192, 160), runs the kernels
+     at its shapes (Gemma-3's local ring too) against their plain
+     versions, serves Dec-S's traffic fused and staged (tokens equal,
+     launches held to the dispatches; Gemma-3's prompts are 1040 tokens,
+     so its rings wrap in prefill and decode), prints the prefill's
+     peak memory for one request's 4 rows, tokens/s, accuracy and a
+     profile of 3 decode waves. The rows join the kernel report under
+     ``_<model>`` keys.
 
 The last two lines are the kernel report and the device line, each one
 JSON object. Without a GPU (or outside the repository) it exits non-zero
@@ -272,12 +289,100 @@ def setup(dev, sizes):
 # kernel phases
 # ---------------------------------------------------------------------------
 
-def kernel_decode_attn(torch, dev, timer, cfg, sizes, report,
-                       label="kernel.decode_attn"):
+def decode_case(torch, dev, g, W, P, H, KV, D, S, window, ring, pos_lo,
+                pos_hi, kv_len):
+    """One decode-attention launch over a seeded pool of ``P`` rows of
+    ``S`` slots (the wave's rows at random slots, positions drawn from
+    [pos_lo, pos_hi]), held against the plain version (2^-5 of the output
+    range) and a float32 oracle (2^-8); returns the inputs and errors."""
+    from repro_torch.kernels.decode_attn import ops as da
+
+    k = torch.randn((P, S, KV, D), generator=g, device=dev
+                    ).to(torch.bfloat16)
+    v = torch.randn((P, S, KV, D), generator=g, device=dev
+                    ).to(torch.bfloat16)
+    q = torch.randn((W, 1, H, D), generator=g, device=dev
+                    ).to(torch.bfloat16)
+    slots = torch.randperm(P - 1, generator=g, device=dev)[:W].int()
+    pos = torch.randint(pos_lo, pos_hi + 1, (W,), generator=g,
+                        device=dev).int()
+    kw = dict(window=window, ring=ring, slots=slots, kv_len=kv_len)
+    out = da.decode_attention(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    plain = da._gather_rows(q, k, v, slots, kv_len, ring)
+    ref = da.ref_decode_attention(q, *plain, pos, window=window, ring=ring)
+    exact = da.ref_decode_attention(q.float(), plain[0].float(),
+                                    plain[1].float(), pos, window=window,
+                                    ring=ring)
+    err = (out.float() - ref.float()).abs().max().item()
+    err32 = (out.float() - exact).abs().max().item()
+    scale = ref.float().abs().max().item()
+    # tolerance: the plain version rounds scores and softmax weights
+    # to bf16 (2^-9 relative each, amplified by |score| in exp), the
+    # kernel stays f32 — 2^-5 of the output range covers it; against
+    # the f32 oracle only the kernel's final bf16 rounding remains
+    tol = 2 ** -5 * scale + 1e-3
+    tol32 = 2 ** -8 * scale + 1e-5
+    if not (err <= tol and err32 <= tol32):
+        raise AssertionError(
+            f"decode_attn H={H} KV={KV} D={D} S={S} window={window} "
+            f"ring={ring}: err {err} (tol {tol}), vs f32 {err32} "
+            f"(tol {tol32})")
+    return dict(q=q, k=k, v=v, slots=slots, pos=pos, kw=kw, plain=plain,
+                err=err, err32=err32, tol=tol, H=H, KV=KV, D=D, S=S)
+
+
+def decode_timed(torch, dev, timer, c):
+    """Kernel, plain version, SDPA (the one-call yardstick, with the
+    bool validity mask; GQA through ``enable_gqa``), a copy that moves as
+    many bytes as the kernel must (the streaming yardstick: it reads half
+    of them and writes the other half), the bytes (K and V of every
+    valid slot once, q and the output, slots and positions) and the
+    bound, for one ``decode_case``."""
     import torch.nn.functional as F
-    from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn import ops as da
     from repro_torch.kernels.decode_attn.ref import decode_validity
+
+    q, k, v, pos, kw, plain = (c[n] for n in ("q", "k", "v", "pos", "kw",
+                                              "plain"))
+    H, KV, D = c["H"], c["KV"], c["D"]
+    W = q.shape[0]
+    ms = timer(lambda: da.decode_attention(q, k, v, pos, **kw))
+    plain_ms = timer(lambda: da.ref_decode_attention(
+        q, *da._gather_rows(q, k, v, kw["slots"], kw["kv_len"], kw["ring"]),
+        pos, window=kw["window"], ring=kw["ring"]))
+    valid = decode_validity(pos, plain[0].shape[1], kw["window"], kw["ring"])
+    mask = valid[:, None, None, :]
+    qs = q.transpose(1, 2)                       # [W, H, 1, D]
+    ks, vs = plain[0].transpose(1, 2), plain[1].transpose(1, 2)
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=H != KV))
+    n_valid = int(valid.sum())
+    nbytes = 2 * n_valid * KV * D * 2 + 2 * q.numel() * 2 + W * 8
+    src = torch.empty(nbytes // 4, dtype=torch.bfloat16, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = timer(lambda: dst.copy_(src))
+    bound_ms, bound_by = bound(nbytes, 4 * n_valid * H * D)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, copy_ms=copy_ms,
+                nbytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def decode_log(label, t0, c, t, W, P, split, **extra):
+    log(label, t0, shape=f"W={W},H={c['H']},KV={c['KV']},D={c['D']},"
+        f"S={c['S']},P={P},window={c['kw']['window']},ring={c['kw']['ring']}",
+        max_abs_err=f"{c['err']:.3e}", tol=f"{c['tol']:.3e}",
+        err_vs_f32=f"{c['err32']:.3e}", split=split,
+        ms=f"{t['ms']:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
+        sdpa_ms=f"{t['library_ms']:.4f}", bound_ms=f"{t['bound_ms']:.4f}",
+        bytes=t["nbytes"], copy_same_bytes_ms=f"{t['copy_ms']:.4f}",
+        kernel_tb_s=f"{t['nbytes'] / t['ms'] / 1e9:.3f}",
+        copy_tb_s=f"{t['nbytes'] / t['copy_ms'] / 1e9:.3f}", **extra)
+
+
+def kernel_decode_attn(torch, dev, timer, cfg, sizes, report,
+                       label="kernel.decode_attn"):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attn import ops as da
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(1)
@@ -285,106 +390,41 @@ def kernel_decode_attn(torch, dev, timer, cfg, sizes, report,
     P, S = W + 1, sizes["max_seq"]      # the serve pool: W rows + scratch
 
     def case(H, KV, D, S, window, ring, pos_lo, pos_hi, kv_len):
-        k = torch.randn((P, S, KV, D), generator=g, device=dev
-                        ).to(torch.bfloat16)
-        v = torch.randn((P, S, KV, D), generator=g, device=dev
-                        ).to(torch.bfloat16)
-        q = torch.randn((W, 1, H, D), generator=g, device=dev
-                        ).to(torch.bfloat16)
-        slots = torch.randperm(P - 1, generator=g, device=dev)[:W].int()
-        pos = torch.randint(pos_lo, pos_hi + 1, (W,), generator=g,
-                            device=dev).int()
-        args = (q, k, v, pos)
-        kw = dict(window=window, ring=ring, slots=slots, kv_len=kv_len)
-        out = da.decode_attention(*args, **kw)
-        torch.cuda.synchronize()
-        plain = da._gather_rows(q, k, v, slots, kv_len, ring)
-        ref = da.ref_decode_attention(q, *plain, pos, window=window, ring=ring)
-        exact = da.ref_decode_attention(q.float(), plain[0].float(),
-                                        plain[1].float(), pos, window=window,
-                                        ring=ring)
-        err = (out.float() - ref.float()).abs().max().item()
-        err32 = (out.float() - exact).abs().max().item()
-        scale = ref.float().abs().max().item()
-        # tolerance: the plain version rounds scores and softmax weights
-        # to bf16 (2^-9 relative each, amplified by |score| in exp), the
-        # kernel stays f32 — 2^-5 of the output range covers it; against
-        # the f32 oracle only the kernel's final bf16 rounding remains
-        tol = 2 ** -5 * scale + 1e-3
-        tol32 = 2 ** -8 * scale + 1e-5
-        if not (err <= tol and err32 <= tol32):
-            raise AssertionError(
-                f"decode_attn H={H} KV={KV} D={D} S={S} window={window} "
-                f"ring={ring}: err {err} (tol {tol}), vs f32 {err32} "
-                f"(tol {tol32})")
-        return q, k, v, slots, pos, kw, plain, err, err32, tol
+        return decode_case(torch, dev, g, W, P, H, KV, D, S, window, ring,
+                           pos_lo, pos_hi, kv_len)
 
-    # the serve phase's shape: Dec-S heads, pool of W+1 rows, ragged
+    # the serve phase's shape: the model's heads, pool of W+1 rows, ragged
     # positions over the generation window, kv_len = the pool's max_seq
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q, k, v, slots, pos, kw, plain, err, err32, tol = case(
-        H, KV, D, S, 0, False, sizes["prompt_len"], S - 1, S)
+    main = case(H, KV, D, S, 0, False, sizes["prompt_len"], S - 1, S)
     extra = [case(8, 4, 128, S, 0, False, 1, S - 1, S),            # G=2
              case(H, KV, D, 64, 64, True, 0, 700, None),           # ring
              case(H, KV, D, S, 48, False, 100, S - 1, S)]          # window
-    def timed(q, k, v, slots, pos, kw, plain, S):
-        """Kernel, plain version, SDPA (the one-call yardstick), a copy
-        that moves as many bytes as the kernel must (the streaming
-        yardstick: it reads half of them and writes the other half), the
-        bytes and the bound at one linear-cache case."""
-        ms = timer(lambda: da.decode_attention(q, k, v, pos, **kw))
-        plain_ms = timer(lambda: da.ref_decode_attention(
-            q, *da._gather_rows(q, k, v, slots, kw["kv_len"], False), pos))
-        valid = decode_validity(pos, S, 0, False)
-        mask = valid[:, None, None, :]
-        qs = q.transpose(1, 2)                       # [W, H, 1, D]
-        ks, vs = plain[0].transpose(1, 2), plain[1].transpose(1, 2)
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask))
-        n_valid = int(valid.sum())
-        nbytes = 2 * n_valid * KV * D * 2 + 2 * q.numel() * 2 + W * 8
-        src = torch.empty(nbytes // 4, dtype=torch.bfloat16, device=dev)
-        dst = torch.empty_like(src)
-        copy_ms = timer(lambda: dst.copy_(src))
-        return (ms, plain_ms, lib_ms, copy_ms, nbytes) + \
-            bound(nbytes, 4 * n_valid * H * D)
-
-    ms, plain_ms, lib_ms, copy_ms, nbytes, bound_ms, bound_by = timed(
-        q, k, v, slots, pos, kw, plain, S)
-    # the serve's first kv_len crop: prompts of 448 tokens, the pool's
-    # 16-slot quantum -> positions 448..463 read 464 slots
+    t = decode_timed(torch, dev, timer, main)
+    # the serve's first kv_len crop: the prompt's length, the pool's
+    # 16-slot quantum -> positions T0..T0+15 read T0+16 slots
     crop = case(H, KV, D, S, 0, False, sizes["prompt_len"],
                 sizes["prompt_len"] + 15, sizes["prompt_len"] + 16)
-    ms_c, plain_c, lib_c, copy_c, nbytes_c, bound_c, _ = timed(
-        *crop[:7], crop[5]["kv_len"])
+    tc = decode_timed(torch, dev, timer, crop)
+    kv_c = crop["kw"]["kv_len"]
     sms = _build.sm_count(dev)
-    split = da.pick_split(W, KV, S, sms)
-    split_c = da.pick_split(W, KV, crop[5]["kv_len"], sms)
+    res = da.resident_blocks(D, H // KV)
+    split = da.pick_split(W, KV, S, sms, None, res)
+    split_c = da.pick_split(W, KV, kv_c, sms, None, res)
     report["decode_attn"] = dict(
         name="decode_attn", route="cuda",
         source="src/repro_torch/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn/kernel.py:109",
-        max_abs_err=max(err, crop[7]), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-        ms_kv464=ms_c, library_ms_kv464=lib_c, bound_ms_kv464=bound_c)
-    log(label, t0, shape=f"W={W},H={H},KV={KV},D={D},"
-        f"S={S},P={P}", max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
-        err_vs_f32=f"{err32:.3e}",
-        extra_cases_err=[f"{c[7]:.3e}" for c in extra + [crop]],
-        split=split, blocks=W * KV * -(-S // split),
-        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        sdpa_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-        bytes=nbytes, copy_same_bytes_ms=f"{copy_ms:.4f}",
-        kernel_tb_s=f"{nbytes / ms / 1e9:.3f}",
-        copy_tb_s=f"{nbytes / copy_ms / 1e9:.3f}")
-    kv_c = crop[5]["kv_len"]
-    log(f"{label}_kv464", t0, kv_len=kv_c, split=split_c,
-        blocks=W * KV * -(-kv_c // split_c), max_abs_err=f"{crop[7]:.3e}",
-        ms=f"{ms_c:.4f}", plain_ms=f"{plain_c:.4f}", sdpa_ms=f"{lib_c:.4f}",
-        bound_ms=f"{bound_c:.4f}", bytes=nbytes_c,
-        copy_same_bytes_ms=f"{copy_c:.4f}",
-        kernel_tb_s=f"{nbytes_c / ms_c / 1e9:.3f}",
-        copy_tb_s=f"{nbytes_c / copy_c / 1e9:.3f}")
+        max_abs_err=max(main["err"], crop["err"]), ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        **{f"ms_kv{kv_c}": tc["ms"], f"library_ms_kv{kv_c}": tc["library_ms"],
+           f"bound_ms_kv{kv_c}": tc["bound_ms"]})
+    decode_log(label, t0, main, t, W, P, split,
+               extra_cases_err=[f"{c['err']:.3e}" for c in extra + [crop]],
+               blocks=W * KV * -(-S // split))
+    decode_log(f"{label}_kv{kv_c}", t0, crop, tc, W, P, split_c,
+               kv_len=kv_c, blocks=W * KV * -(-kv_c // split_c))
 
 
 def check_probe(torch, queries, cents, dk, ik, dp, ip):
@@ -2372,13 +2412,14 @@ REFERENCE_PARAMS = {"dec_l": 1260732416, "encdec_s": 132661248,
 # ``n_docs``), the traffic Dec-S's. RETRO models run at each interval
 # listed (the paper's densest, 8, and EncDec-S's registered 64). The
 # kernels run at Dec-L's new shapes (16 KV heads, D 1024, m 64) once.
-# Cuts for the script's time: the RETRO models' corpora are 2048 docs
-# (1 048 576 keys; Dec-L's 4 194 304 keys alone take ~3 minutes on an
-# H100 80GB HBM3 at 700 W), the profiles cover profile_steps - 1 waves
+# Cuts for the script's time: every corpus is 2048 docs (1 048 576
+# keys; Dec-L's 4 194 304 keys over all 8192 took ~174 s on an H100 80GB
+# HBM3 at 700 W; the prompts and truth are the first 32 docs, which the
+# cut keeps), the profiles cover profile_steps - 1 waves
 # (no retrieval in a RETRO window: steps 1-2), and the per-sequence twin
 # (``twin`` overrides the sizes) runs 4 requests, so that the near-tie
 # rule's quarter admits one, EncDec-L's for 16 steps (two retrievals).
-PAPER = (("dec_l", dict(m=64, n_docs=8192, intervals=(1,), kernels=True,
+PAPER = (("dec_l", dict(m=64, n_docs=2048, intervals=(1,), kernels=True,
                         profile_steps=4)),
          ("encdec_s", dict(m=32, n_docs=2048, intervals=(8, 64),
                            profile_steps=3,
@@ -2463,13 +2504,17 @@ def paper_kernels(torch, dev, timer, name, cfg, arch, ds, queries, sizes,
                       label=f"paper.{name}.kernel.fused_scan")
     kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk, sub,
                     label=f"paper.{name}.kernel.adc_scan")
-    for kernel, row in sub.items():
-        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "ms_kv464", "library_ms_kv464",
-                    "bound_ms_kv464"):
-            if key in row:
-                report[kernel][f"{key}_{name}"] = row[key]
+    merge_rows(report, sub, name)
     torch.cuda.empty_cache()
+
+
+def merge_rows(report, sub, name):
+    """A model's kernel rows into the report's: every measured key under
+    ``<key>_<name>``."""
+    for kernel, row in sub.items():
+        for key, value in row.items():
+            if key not in ("name", "route", "source", "replaces"):
+                report[kernel][f"{key}_{name}"] = value
 
 
 def plain_run(torch, eng, cfg, prompts, steps, label):
@@ -2632,6 +2677,225 @@ def paper_phases(torch, dev, sizes, report):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the dense assigned backbones: Qwen2-0.5B, Phi-3-mini, Gemma-3-4B served
+# at full width; Llama-3-405B's and Qwen2-VL-72B's head layouts
+# ---------------------------------------------------------------------------
+
+# The reference's ModelConfig.param_count() of each full config.
+ASSIGNED_PARAMS = {"qwen2_0_5b": 493961216, "phi3_mini_3_8b": 3820879872,
+                   "gemma3_4b": 3879731200}
+# Each model serves Dec-S's traffic shape (8 requests x 4 rows, 64
+# greedy tokens) from its own keys over its own seeded corpus (tokens
+# below its vocab and below Dec-S's 50 000), indexed at the reference's
+# default m = d_model // 16 (56, 192, 160: the scans' generic path).
+# Cuts for the script's time: the corpora (qwen2 2048 docs, phi3 1024,
+# gemma3 512: 1 048 576, 524 288 and 565 248 keys). Gemma-3's prompts are
+# 1040 tokens, so that its local layers' 1024-slot rings wrap in prefill
+# and again in decode; its documents are 1105 tokens (prompt + 64 steps
+# + 1).
+ASSIGNED_SERVED = (
+    ("qwen2_0_5b", dict(m=56, n_docs=2048)),
+    ("phi3_mini_3_8b", dict(m=192, n_docs=1024)),
+    ("gemma3_4b", dict(m=160, n_docs=512, doc_len=1105, prompt_len=1040,
+                       max_seq=1104)),
+)
+# The two backbones that do not fit the card (810 GB and 144 GB of bf16
+# weights): decode attention at their full head layouts on a seeded
+# pool at Dec-S's serve shape (W 32, 512 slots); no model.
+HEAD_LAYOUTS = (("llama3_405b", 128, 8, 128), ("qwen2_vl_72b", 64, 8, 128))
+
+
+def decode_row(torch, dev, timer, label, seed, W, P, H, KV, D, S, window,
+               ring, pos_lo, pos_hi, kv_len):
+    """One decode-attention shape checked (``decode_case``) and timed
+    (``decode_timed``); returns its measured numbers."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attn import ops as da
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = decode_case(torch, dev, g, W, P, H, KV, D, S, window, ring, pos_lo,
+                    pos_hi, kv_len)
+    t = decode_timed(torch, dev, timer, c)
+    S_read = kv_len or S
+    split = da.pick_split(W, KV, S_read, _build.sm_count(dev), None,
+                          da.resident_blocks(D, H // KV))
+    decode_log(label, t0, c, t, W, P, split,
+               blocks=W * KV * -(-S_read // split))
+    return dict(max_abs_err=c["err"], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=t["library_ms"])
+
+
+def assigned_heads(torch, dev, timer, sizes, report):
+    """Llama-3-405B's (128:8) and Qwen2-VL-72B's (64:8) head layouts at
+    D 128: decode attention on a seeded pool, positions over the serve's
+    generation window; the rows join the decode_attn report row."""
+    W = sizes["requests"] * sizes["rows"]
+    S = sizes["max_seq"]
+    for i, (name, H, KV, D) in enumerate(HEAD_LAYOUTS):
+        row = decode_row(torch, dev, timer,
+                         f"assigned.{name}.kernel.decode_attn", 80 + i, W,
+                         W + 1, H, KV, D, S, 0, False, sizes["prompt_len"],
+                         S - 1, S)
+        merge_rows(report, {"decode_attn": row}, name)
+
+
+def assigned_setup(torch, dev, name, sizes):
+    """Seeded weights at full width and depth, a seeded corpus below the
+    model's vocab, its keys and the IVF-PQ datastore; returns (arch,
+    cfg, params, corpus, ds, queries)."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    arch = get_arch(name)
+    cfg = arch.model
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    corpus = rng.integers(0, min(cfg.vocab_size, 50000),
+                          size=(sizes["n_docs"], sizes["doc_len"]),
+                          dtype=np.int32)
+    log(f"assigned.{name}.params", t0, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        d_head=cfg.d_head, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        layer_pattern=",".join(cfg.layer_pattern), window=cfg.window,
+        qkv_bias=cfg.qkv_bias, tied=cfg.tie_embeddings, dtype=cfg.dtype,
+        tensor_params=n_tensor_params(params),
+        reference_param_count=ASSIGNED_PARAMS[name],
+        weight_bytes=n_tensor_params(params) * 2, rag=arch.rag)
+    keys, ds = build_index(torch, dev, f"assigned.{name}", cfg, params,
+                           corpus, sizes, sizes["m"])
+    queries = kernel_queries(torch, dev, keys, sizes)
+    del keys
+    torch.cuda.empty_cache()
+    return arch, cfg, params, corpus, ds, queries
+
+
+def assigned_kernels(torch, dev, timer, name, cfg, arch, ds, queries, sizes,
+                     report):
+    """The kernels at this model's shapes (decode attention at its heads
+    over its serve pool, Gemma-3's local ring of 1024 slots too; the IVF
+    probe at its width; the fused scan and adc_scan at its m), each
+    against its plain version and timed; the rows join the report's
+    under ``_<name>`` keys."""
+    sub = {}
+    kernel_decode_attn(torch, dev, timer, cfg, sizes, sub,
+                       label=f"assigned.{name}.kernel.decode_attn")
+    if cfg.window:
+        W = sizes["requests"] * sizes["rows"]
+        T0, S = sizes["prompt_len"], sizes["max_seq"]
+        ring = decode_row(
+            torch, dev, timer, f"assigned.{name}.kernel.decode_attn_ring",
+            90, W, W + 1, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+            cfg.window, cfg.window, True, T0, S - 1, None)
+        sub["decode_attn"].update(
+            {f"{k}_ring": v for k, v in ring.items()})
+    probe_ids = kernel_ivf_scan(torch, dev, timer, ds, queries, sizes, sub,
+                                label=f"assigned.{name}.kernel.ivf_scan")
+    kk = ds.search_config(nprobe=sizes["nprobe"],
+                          k=arch.rag.k).k_prime(ds.num_shards)
+    kernel_fused_scan(torch, dev, timer, ds, queries, probe_ids, kk, sub,
+                      label=f"assigned.{name}.kernel.fused_scan")
+    kernel_adc_scan(torch, dev, timer, ds, queries, probe_ids, kk, sub,
+                    label=f"assigned.{name}.kernel.adc_scan")
+    merge_rows(report, sub, name)
+    torch.cuda.empty_cache()
+
+
+def assigned_serve(torch, dev, name, arch, cfg, params, corpus, ds, sizes):
+    """The serve traffic through ``name``: one fused run and one staged
+    run whose tokens must equal it (launches held to the dispatches by
+    ``drive``), a profile of 3 decode waves, and the prefill's peak
+    memory (one request's 4 rows; ``forward`` returns the prompt's
+    [4, T0, vocab] logits). Gemma-3's local rings must be shorter than
+    the prompt (they wrap). Returns the fused and staged launch counts."""
+    import numpy as np
+
+    R, B, T0 = sizes["requests"], sizes["rows"], sizes["prompt_len"]
+    steps = sizes["steps"]
+    prompts = [corpus[r * B:(r + 1) * B, :T0] for r in range(R)]
+    truth = corpus[:R * B, T0:T0 + steps]
+    t0 = time.perf_counter()
+    eng, search_cfg, check = checked_engine(torch, dev, arch, cfg, params,
+                                            ds, sizes, fused=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng.backend.prefill(arch.rag, torch.from_numpy(prompts[0]).to(dev),
+                        sizes["max_seq"])
+    torch.cuda.synchronize()
+    prefill_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    run = drive(torch, eng, cfg, prompts, truth, steps,
+                f"assigned.{name}.run")
+    staged_eng, _, check_s = checked_engine(torch, dev, arch, cfg, params,
+                                            ds, sizes, fused=False)
+    staged = drive(torch, staged_eng, cfg, prompts, truth, steps,
+                   f"assigned.{name}.staged")
+    check()
+    check_s()
+    del staged_eng
+    if not np.array_equal(staged["gen"], run["gen"]):
+        raise AssertionError(f"assigned.{name}: staged tokens differ from "
+                             "the fused run's")
+    extra = {}
+    if cfg.window:
+        ring = eng.pool.caches["classes"]["local"]["k"].shape[2]
+        if not ring == cfg.window < T0:
+            raise AssertionError(f"assigned.{name}: local ring of {ring} "
+                                 f"slots does not wrap under {T0}-token "
+                                 "prompts")
+        extra = dict(local_ring_slots=ring, ring_wraps_in_prefill=True)
+    log(f"assigned.{name}.summary", t0,
+        tokens_per_s=f"{run['tps']:.1f}",
+        decode_ms_per_wave=f"{run['ms_wave']:.2f}",
+        decode_waves=run["waves"], search_flushes=run["flushes"],
+        continuation_accuracy=f"{run['acc']:.4f}",
+        staged_tokens_equal=True, staged_tokens_per_s=f"{staged['tps']:.1f}",
+        staged_decode_ms_per_wave=f"{staged['ms_wave']:.2f}",
+        launches=run["launches"], staged_launches=staged["launches"],
+        prompt_len=T0, m=ds.index_cfg.m, nprobe=search_cfg.nprobe,
+        prefill_peak_gb_4_rows=f"{prefill_gb:.2f}", **extra)
+    profile_waves(torch, eng, prompts, steps=4,
+                  label=f"assigned.{name}.profile")
+    del eng
+    torch.cuda.empty_cache()
+    return dict(fused=run["launches"], staged=staged["launches"])
+
+
+def assigned_phases(torch, dev, sizes, report):
+    """The head layouts of the two backbones that do not fit the card,
+    then Qwen2-0.5B, Phi-3-mini and Gemma-3-4B at full width and depth,
+    one after the other (each model freed before the next)."""
+    import gc
+
+    timer = Timer(torch)
+    assigned_heads(torch, dev, timer, sizes, report)
+    for name, over in ASSIGNED_SERVED:
+        t0 = time.perf_counter()
+        msizes = dict(sizes, **over)
+        torch.cuda.reset_peak_memory_stats()
+        arch, cfg, params, corpus, ds, queries = assigned_setup(
+            torch, dev, name, msizes)
+        assigned_kernels(torch, dev, timer, name, cfg, arch, ds, queries,
+                         msizes, report)
+        counts = assigned_serve(torch, dev, name, arch, cfg, params, corpus,
+                                ds, msizes)
+        for kernel, sym, run in (
+                ("decode_attn", "decode_attn_launch", "fused"),
+                ("ivf_scan", "ivf_scan_launch", "fused"),
+                ("fused_scan", "chamvs_scan_launch", "fused"),
+                ("adc_scan", "adc_scan_launch", "staged")):
+            report[kernel][f"launches_{name}"] = counts[run][sym]
+        log(f"assigned.{name}", t0,
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        del arch, cfg, params, corpus, ds, queries
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import gc
 
@@ -2661,6 +2925,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paper_phases(torch, dev, dict(FULL), report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    assigned_phases(torch, dev, dict(FULL), report)
     kernels = [report[k] for k in ("decode_attn", "ivf_scan", "fused_scan",
                                    "adc_scan", "shared_scan",
                                    "hierarchical_topk")]

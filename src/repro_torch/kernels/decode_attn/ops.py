@@ -23,6 +23,9 @@ _P, _I, _F = _build.P, _build.I, _build.F
 KERNEL = _build.Kernel("decode_attn_launch",
                        [_P] * 10 + [_I] * 10 + [_F, _P])
 TILE = 32          # slots the kernel stages at a time (kTile)
+HEAD_DIMS = (16, 64, 96, 128, 256)   # the instances the kernel has
+MAX_G = 16         # query heads a KV head, at most
+SMEM_PER_SM = 228 * 1024
 
 
 def _gather_rows(q, k_cache, v_cache, slots, kv_len, ring):
@@ -67,17 +70,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def pick_split(W: int, KV: int, S: int, sms: int,
-               tile_n: Optional[int] = None) -> int:
+               tile_n: Optional[int] = None, blocks_per_sm: int = 8) -> int:
     """Slots per block of the CUDA kernel: ``tile_n`` when the spec sets
     it, else ``S`` cut into as many splits of whole 32-slot tiles as give
-    the grid of ``W * KV * splits`` blocks about eight blocks on each of
-    the ``sms`` SMs, which all fit on the card at once (one wave). The
-    split need not divide ``S``: the kernel masks the ragged last one."""
+    the grid of ``W * KV * splits`` blocks about ``blocks_per_sm`` blocks
+    on each of the ``sms`` SMs, which all fit on the card at once (one
+    wave). The split need not divide ``S``: the kernel masks the ragged
+    last one (a ring of 1024 slots cut in 3 gives splits of 352, 352 and
+    320)."""
     if tile_n is not None:
         return max(1, int(tile_n))
     tiles = -(-S // TILE)
-    splits = max(1, min(tiles, round(8 * sms / max(1, W * KV))))
+    splits = max(1, min(tiles, round(blocks_per_sm * sms / max(1, W * KV))))
     return TILE * -(-tiles // splits)
+
+
+def resident_blocks(D: int, G: int) -> int:
+    """Blocks of the kernel's instance for (D, G) that one SM's shared
+    memory holds at once, at most 8: the instance's dynamic shared memory
+    (``Shape::kSmem`` in ``csrc/decode_attn.cu``: two stages of 32-slot K
+    and V tiles, or the [J, GM, D] float32 P.V reduction buffer when that
+    is larger), its static score and softmax arrays, and the 1 KB the
+    card reserves a block, against 228 KB an SM. 8 at D 64, 6 at D 128,
+    3 at D 256."""
+    gm = 1 << max(0, G - 1).bit_length()
+    j = 128 // (D // 2)
+    dyn = max(4 * TILE * D * 2, j * gm * D * 4)
+    static = gm * (TILE + 3) * 4 + 4
+    return max(1, min(8, SMEM_PER_SM // (dyn + static + 1024)))
 
 
 def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
@@ -90,9 +110,9 @@ def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} "
                          f"k {tuple(k_cache.shape)} v {tuple(v_cache.shape)}")
     G = H // KV
-    if D not in (64, 128) or G > 8:
-        raise ValueError(f"decode kernel supports D in (64, 128) and "
-                         f"H/KV <= 8, got D={D}, G={G}")
+    if D not in HEAD_DIMS or G > MAX_G:
+        raise ValueError(f"decode kernel supports D in {HEAD_DIMS} and "
+                         f"H/KV <= {MAX_G}, got D={D}, G={G}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or \
                 t.device != q.device or t.data_ptr() % 16:
@@ -109,7 +129,8 @@ def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
     pos = position.to(device=q.device, dtype=torch.int32).contiguous()
     if slots.shape != (W,) or pos.shape != (W,):
         raise ValueError("slots and position must be [W]")
-    split = pick_split(W, KV, S, _build.sm_count(q.device), spec.tile_n)
+    split = pick_split(W, KV, S, _build.sm_count(q.device), spec.tile_n,
+                       resident_blocks(D, G))
     NS = -(-S // split)
     part_m = torch.empty((W, KV, NS, G), device=q.device, dtype=torch.float32)
     part_l = torch.empty_like(part_m)

@@ -11,10 +11,15 @@ It runs on the GPU and raises when CUDA is absent, unless given
 no kernel-backend flags: the device decides. ``--staged-scan`` serves
 the staged per-shard scan (``search_config(fused=False)``).
 ``--disaggregate`` is refused: the LM-pool / retrieval-pool split is not
-ported yet. ``--arch`` serves the paper's decoders (``dec_s``, ``dec_l``);
-the RETRO encoder-decoders (``encdec_s``, ``encdec_l``) are refused: the
+ported yet. ``--arch`` serves the paper's decoders (``dec_s``, ``dec_l``)
+and the dense assigned backbones (``qwen2_0_5b``, ``phi3_mini_3_8b``,
+``gemma3_4b``, ``llama3_405b``, ``qwen2_vl_72b``; at published width
+where they fit the card, ``--reduced`` on either device) as kNN-LMs. The
+RETRO encoder-decoders (``encdec_s``, ``encdec_l``) are refused: the
 launcher's datastore holds next tokens only, no chunk table, so their
 first retrieval would raise (the reference's launcher raises there).
+The non-dense assigned backbones are refused too: their block families
+are not ported.
 """
 from __future__ import annotations
 
@@ -51,8 +56,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "CUDA). 'cpu' runs the kernels' plain versions")
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced test shape instead of the published "
-                         "widths (CPU only: the GPU decode kernel needs "
-                         "d_head 64 or 128)")
+                         "widths")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--requests", type=int, default=2,
@@ -122,7 +126,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--disaggregate is not ported yet (the LM-pool / "
                  "retrieval-pool split needs DisaggregatedBackend); serve "
                  "monolithic without it")
-    if get_arch(args.arch).model.arch == "encdec":
+    try:
+        spec = get_arch(args.arch)
+    except NotImplementedError as err:
+        ap.error(f"--arch {args.arch}: {err}")
+    if spec.model.arch == "encdec":
         ap.error(f"--arch {args.arch} is a RETRO encoder-decoder: this "
                  "launcher's datastore has no chunk table, so its first "
                  "retrieval would raise; serve it through RalmEngine with "

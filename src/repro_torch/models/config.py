@@ -2,9 +2,9 @@
 
 The dtype stays a string (``"bfloat16"``, ``"float32"``) so configs
 compare and hash like the reference's; ``torch_dtype`` turns it into a
-``torch.dtype`` where tensors are made. This slice serves the dense
-decoder family only, but the fields of the other families are kept so
-configs convert one to one.
+``torch.dtype`` where tensors are made. The port serves the dense
+families (decoders, with RoPE or M-RoPE, and encoder-decoders); the
+fields of the other families are kept so configs convert one to one.
 """
 from __future__ import annotations
 
@@ -31,8 +31,8 @@ class ModelConfig:
 
     qkv_bias: bool = False
     rope_theta: float = 1e4
-    rope_mode: str = "rope"              # "rope" | "none"
-    mrope_sections: Tuple[int, ...] = (16, 24, 24)
+    rope_mode: str = "rope"              # "rope" | "mrope" | "none"
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)   # qwen2-vl t/h/w split
 
     n_experts: int = 0
     top_k: int = 0

@@ -1,5 +1,5 @@
 """Primitive layers (twin of ``repro.models.layers``): RMSNorm, the gated
-MLP, rotary position embeddings."""
+MLP, rotary position embeddings (RoPE and Qwen2-VL's M-RoPE)."""
 from __future__ import annotations
 
 import torch
@@ -50,15 +50,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
 
 
-def positional_rotate(x: torch.Tensor, positions: torch.Tensor, cfg,
-                      tables=None) -> torch.Tensor:
-    """Dispatch on ``cfg.rope_mode`` (``"rope"`` or ``"none"``; M-RoPE
-    comes with the model families that use it). ``tables`` are
-    ``rope_tables`` of ``positions`` when the caller has them."""
+def mrope_tables(positions: torch.Tensor, d_head: int, theta: float,
+                 sections) -> tuple:
+    """(cos, sin), each [B, T, 1, d_head/2] float32, for M-RoPE positions
+    [3, B, T] (Qwen2-VL §3.1): the frequency bands are cut into
+    (temporal, height, width) ``sections``, and band ``i`` turns by the
+    position stream of its section. For text the three streams are equal
+    and the tables are ``rope_tables``'."""
+    half = d_head // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"d_head/2 = {half}")
+    inv = rope_freqs(d_head, theta, device=positions.device)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=positions.device),
+        torch.tensor(sections, device=positions.device))      # [half]
+    pos = positions.float()[sec_id]                           # [half, B, T]
+    ang = pos.movedim(0, -1) * inv                            # [B, T, half]
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """x [B, T, H, Dh], positions [3, B, T] -> rotated x."""
+    return rotate(x, *mrope_tables(positions, x.shape[-1], theta, sections))
+
+
+def position_tables(positions: torch.Tensor, cfg, d_head: int):
+    """The rotation tables of ``cfg.rope_mode`` for ``positions``, which
+    every layer shares: ``rope_tables`` of [B, T], ``mrope_tables`` of
+    [3, B, T] (a [B, T] input broadcasts to three equal streams), None
+    for ``"none"``."""
     if cfg.rope_mode == "none":
-        return x
+        return None
+    if cfg.rope_mode == "mrope":
+        if positions.ndim == 2:
+            positions = positions[None].expand((3,) + positions.shape)
+        return mrope_tables(positions, d_head, cfg.rope_theta,
+                            cfg.mrope_sections)
     if cfg.rope_mode != "rope":
         raise NotImplementedError(f"rope_mode={cfg.rope_mode!r}")
+    return rope_tables(positions, d_head, cfg.rope_theta)
+
+
+def positional_rotate(x: torch.Tensor, positions: torch.Tensor, cfg,
+                      tables=None) -> torch.Tensor:
+    """Dispatch on ``cfg.rope_mode`` (``"rope"``, ``"mrope"`` or
+    ``"none"``); positions are [B, T], or [3, B, T] under M-RoPE.
+    ``tables`` are ``position_tables`` of ``positions`` when the caller
+    has them."""
     if tables is None:
-        tables = rope_tables(positions, x.shape[-1], cfg.rope_theta)
-    return rotate(x, *tables)
+        tables = position_tables(positions, cfg, x.shape[-1])
+    return x if tables is None else rotate(x, *tables)

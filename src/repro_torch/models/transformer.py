@@ -9,8 +9,11 @@ Python loop in stack order; caches are updated in place.
 
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
 fills the cache), ``decode`` (one token per row against the cache). The
-port serves dense decoders (the paper's Dec-S and Dec-L) and dense
-encoder-decoders (RETRO: EncDec-S and EncDec-L). An encoder-decoder's
+port serves dense decoders (the paper's Dec-S and Dec-L; the assigned
+Qwen2-0.5B, Phi-3-mini, Gemma-3-4B with its local ring layers,
+Llama-3-405B, and Qwen2-VL-72B's backbone with M-RoPE, whose positions
+are [3, B, T]) and dense encoder-decoders (RETRO: EncDec-S and
+EncDec-L). An encoder-decoder's
 decoder layers carry a cross-attention (``lnx``, ``xwq``/``xwk``/``xwv``/
 ``xwo``) over ``enc_states``, the output of ``encode`` over the
 retrieved chunks; it runs after the self-attention and before the MLP.
@@ -31,23 +34,23 @@ from repro_torch.kernels.decode_attn.ops import decode_attention
 from repro_torch.models.attention import (flash_attention, prefill_cache,
                                           update_cache)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (positional_rotate, rms_norm,
-                                       rope_tables, swiglu)
+from repro_torch.models.layers import (position_tables, positional_rotate,
+                                       rms_norm, rope_tables, swiglu)
 
 Params = Dict[str, Any]
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    """Dense decoders and dense encoder-decoders with RoPE (or no
-    positions) are served; every other family is ROADMAP Queue 1 item
-    12."""
+    """Dense decoders and dense encoder-decoders with RoPE, M-RoPE (or no
+    positions) are served; every other block family (MoE, hybrid, RWKV6)
+    is ROADMAP Queue 1 item 12b."""
     if cfg.block != "dense" or cfg.arch not in ("decoder", "encdec") or \
-            cfg.rope_mode not in ("rope", "none"):
+            cfg.rope_mode not in ("rope", "mrope", "none"):
         raise NotImplementedError(
             f"repro_torch serves dense decoders and dense encoder-decoders "
-            f"(RoPE); got block={cfg.block!r} arch={cfg.arch!r} "
-            f"rope_mode={cfg.rope_mode!r} (other families: ROADMAP Queue 1 "
-            f"item 12)")
+            f"(RoPE or M-RoPE); got block={cfg.block!r} arch={cfg.arch!r} "
+            f"rope_mode={cfg.rope_mode!r} (the other block families: "
+            f"ROADMAP Queue 1 item 12b)")
 
 
 def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -161,20 +164,23 @@ def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
 
     ``slots``: the cache is the KV pool and wave row ``w`` lives in pool
     row ``slots[w]``. ``kv_len`` crops every full-cache attention read
-    to the wave's block-aligned valid prefix (ring caches never crop)."""
+    to the wave's block-aligned valid prefix (ring caches never crop).
+    Under M-RoPE ``positions`` are [3, B, T]; cache slots, validity and
+    masks follow the first (temporal) stream, as in the reference."""
     B, T, _ = h.shape
     q, k, v = _proj_qkv(cfg, p, h)
+    pos1d = positions[0] if positions.ndim == 3 else positions
     q = positional_rotate(q, positions, cfg, rope)
     k = positional_rotate(k, positions, cfg, rope)
     ring = window > 0
     if mode == "decode":
-        update_cache(cache["k"], cache["v"], k, v, positions[:, 0],
+        update_cache(cache["k"], cache["v"], k, v, pos1d[:, 0],
                      ring=ring, slots=slots)
-        out = decode_attention(q, cache["k"], cache["v"], positions[:, 0],
+        out = decode_attention(q, cache["k"], cache["v"], pos1d[:, 0],
                                window=window, ring=ring, slots=slots,
                                kv_len=kv_len)
     else:
-        out = flash_attention(q, k, v, positions, positions, causal=True,
+        out = flash_attention(q, k, v, pos1d, pos1d, causal=True,
                               window=window)
         if mode == "prefill":
             prefill_cache(cache["k"], cache["v"], k, v, ring=ring)
@@ -232,9 +238,9 @@ def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
                 kv_len=None, enc_states=None) -> torch.Tensor:
     """All ``n_layers`` in stack order; layer ``i`` of class ``cls`` is
     index ``class_layers(cls).index(i)`` of that class's stacked leaves.
-    The RoPE tables are computed once and shared by every layer."""
-    rope = (rope_tables(positions, cfg.d_head, cfg.rope_theta)
-            if cfg.rope_mode == "rope" else None)
+    The rotation tables (RoPE, or M-RoPE's from its per-frequency
+    positions) are computed once and shared by every layer."""
+    rope = position_tables(positions, cfg, cfg.d_head)
     seen: Dict[str, int] = {}
     for cls in cfg.layer_classes():
         idx = seen.get(cls, 0)
@@ -316,6 +322,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, caches
 
 
+def _step_positions(cfg: ModelConfig, position: torch.Tensor
+                    ) -> torch.Tensor:
+    """A decode step's positions: [B, 1], or [3, B, 1] under M-RoPE
+    (three equal streams: text)."""
+    pos = position[:, None]
+    if cfg.rope_mode == "mrope":
+        pos = pos[None].expand((3,) + pos.shape)
+    return pos
+
+
 @torch.no_grad()
 def decode_step(params: Params, cfg: ModelConfig, caches: Params,
                 token: torch.Tensor, position: torch.Tensor,
@@ -327,7 +343,8 @@ def decode_step(params: Params, cfg: ModelConfig, caches: Params,
     Returns (logits [B, V], caches[, hidden [B, d]]); the hidden state is
     the retrieval query. ``enc_states`` [B, S, d]: the request's encoder
     states (an encoder-decoder)."""
-    out = forward(params, cfg, token, positions=position[:, None],
+    out = forward(params, cfg, token, positions=_step_positions(cfg,
+                                                                position),
                   mode="decode", caches=caches, return_hidden=return_hidden,
                   enc_states=enc_states)
     if return_hidden:
@@ -349,7 +366,8 @@ def decode_wave(params: Params, cfg: ModelConfig, caches: Params,
     encoder-decoder) are already gathered to the wave's rows [W, S, d].
     The pool is updated in place. Returns (logits [W, V], caches[,
     hidden [W, d]])."""
-    out = forward(params, cfg, token, positions=position[:, None],
+    out = forward(params, cfg, token, positions=_step_positions(cfg,
+                                                                position),
                   mode="decode", caches=caches, return_hidden=return_hidden,
                   slots=slots, kv_len=kv_len, enc_states=enc_states)
     if return_hidden:

@@ -86,8 +86,9 @@ def _prefill(params, cfg: ModelConfig, rag: RagConfig, prompt: torch.Tensor,
     [B, V], last_hidden [B, d]); the last hidden state is the step-0
     query. An encoder-decoder gets neutral encoder states: the encoding
     of PAD chunks, ``max(k * chunk_len, 8)`` wide under RETRO (8
-    otherwise); a decoder gets None."""
-    B, _ = prompt.shape
+    otherwise); a decoder gets None. Under M-RoPE the prompt's
+    positions are three equal streams [3, B, T] (text)."""
+    B, T0 = prompt.shape
     caches = tf.init_cache(cfg, B, max_seq=max_seq, device=prompt.device)
     enc_states = None
     if cfg.arch == "encdec":
@@ -95,8 +96,12 @@ def _prefill(params, cfg: ModelConfig, rag: RagConfig, prompt: torch.Tensor,
         neutral = torch.zeros((B, max(enc_len, 8)), dtype=torch.int32,
                               device=prompt.device)
         enc_states = tf.encode(params, cfg, tf.embed_tokens(params, neutral))
-    logits, caches, hidden = tf.forward(params, cfg, prompt, mode="prefill",
-                                        caches=caches, return_hidden=True,
+    pos = torch.arange(T0, device=prompt.device)[None].expand(B, T0)
+    if cfg.rope_mode == "mrope":
+        pos = pos[None].expand(3, B, T0)
+    logits, caches, hidden = tf.forward(params, cfg, prompt, positions=pos,
+                                        mode="prefill", caches=caches,
+                                        return_hidden=True,
                                         enc_states=enc_states)
     return caches, enc_states, logits[:, -1], hidden[:, -1]
 

@@ -799,3 +799,161 @@ def test_retro_engine_on_the_card_matches_the_cpu():
         assert [e["step"] for e in ga] == [e["step"] for e in ca] == [0, 4, 8]
         for ge, ce in zip(ga, ca):
             np.testing.assert_array_equal(ge["ids"], ce["ids"])
+
+
+# ---------------------------------------------------------------------------
+# the dense assigned backbones' head layouts: Qwen2-0.5B (14:2, D 64),
+# Phi-3-mini (32:32, D 96), Gemma-3-4B (8:4, D 256; a 1024-slot ring on
+# its local layers), Llama-3-405B (128:8, D 128, G 16), Qwen2-VL-72B
+# (64:8, D 128) and the reduced configs' D 16
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,KV,D,S,window,ring,kv_len", [
+    (14, 2, 64, 512, 0, False, 512),        # qwen2_0_5b, G 7
+    (32, 32, 96, 512, 0, False, 512),       # phi3_mini_3_8b
+    (32, 32, 96, 512, 0, False, 464),       # phi3, the first kv_len crop
+    (8, 4, 256, 1024, 1024, True, None),    # gemma3_4b local: the ring
+    (8, 4, 256, 512, 0, False, 512),        # gemma3_4b global
+    (128, 8, 128, 512, 0, False, 512),      # llama3_405b, G 16
+    (64, 8, 128, 512, 0, False, 512),       # qwen2_vl_72b, G 8
+    (4, 2, 16, 64, 0, False, 48),           # the reduced configs
+    (4, 2, 16, 8, 8, True, None),           # reduced gemma3's ring
+])
+def test_decode_attention_at_assigned_heads(dev, H, KV, D, S, window, ring,
+                                            kv_len):
+    """Each backbone's head layout over the serve pool (W 32, P 33):
+    ring positions run to three times round the ring."""
+    _check_decode(dev, _gen(dev, 50 + D + H), H, KV, D, S, window, ring,
+                  kv_len, W=32, P=33)
+
+
+@pytest.mark.parametrize("G,D,S,window,ring,kv_len,tile_n", [
+    (1, 96, 497, 0, False, None, 64),       # ragged last split and tile
+    (1, 96, 200, 24, True, None, 48),       # ring + window, split < tile
+    (1, 96, 464, 0, False, 30, None),       # kv_len inside one tile
+    (2, 256, 1024, 1024, True, None, 352),  # the ring cut in 3 ragged
+    (2, 256, 497, 0, False, None, None),
+    (2, 256, 128, 0, False, 20, None),      # kv_len inside one tile
+    (7, 64, 497, 0, False, None, 96),       # qwen2's G 7
+    (16, 128, 497, 0, False, None, 64),     # llama3's G 16
+    (16, 128, 200, 24, True, None, None),   # G 16 ring + window
+    (16, 64, 464, 0, False, 25, None),      # G 16 at D 64
+    (16, 256, 300, 0, False, None, 96),     # G 16 at D 256
+    (2, 16, 97, 0, False, None, 32),        # D 16
+])
+def test_decode_attention_new_shapes_tiles(dev, G, D, S, window, ring,
+                                           kv_len, tile_n):
+    """The new head dims and G above 8 with split lengths that do not
+    divide S (or the 32-slot tile), ring and window, kv_len below one
+    tile."""
+    KV = max(1, 8 // G)
+    _check_decode(dev, _gen(dev, 60 + G + D), KV * G, KV, D, S, window, ring,
+                  kv_len, W=9, P=12, spec=registry.KernelSpec(tile_n=tile_n))
+
+
+@pytest.mark.parametrize("H,KV,D", [(32, 32, 96), (8, 4, 256), (128, 8, 128)])
+def test_decode_attention_new_shapes_back_to_back(dev, H, KV, D):
+    """Launches in a row on one stream at each new shape, each right:
+    the in-kernel merge leaves its counters at 0."""
+    g = _gen(dev, 70 + D)
+    for S, kv_len in ((512, 464), (512, 496), (300, None)):
+        _check_decode(dev, g, H, KV, D, S, 0, False, kv_len, W=8, P=9)
+
+
+def test_decode_attention_rejects_unbuilt_head_shapes(dev):
+    """A head dim the kernel has no instance for, and G above 16, raise
+    on the host before anything launches."""
+    before = da.KERNEL.launches
+    for H, KV, D in ((4, 4, 32), (32, 1, 64)):
+        q = torch.zeros((2, 1, H, D), device=dev, dtype=torch.bfloat16)
+        k = torch.zeros((2, 16, KV, D), device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="decode kernel supports"):
+            da.decode_attention(q, k, k, torch.zeros(2, device=dev).int())
+    assert da.KERNEL.launches == before
+
+
+def _bigram_corpus(vocab):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    seqs = [rng.integers(0, vocab, size=(64,))]
+    for _ in range(31):
+        seqs.append((3 * seqs[-1] + 1) % vocab)
+    return np.stack(seqs, axis=1).astype(np.int32)           # [64, 32]
+
+
+@pytest.mark.parametrize("arch,heads", [
+    ("llama3_405b", None), ("qwen2_vl_72b", None),
+    ("llama3_405b", (16, 1, 128)), ("qwen2_vl_72b", (8, 1, 128))])
+def test_assigned_reduced_engine_on_the_card_matches_the_cpu(arch, heads):
+    """The reduced Llama-3-405B and Qwen2-VL-72B (as registered: d_head
+    16; and with the full models' query heads a KV head at d_head 128,
+    Qwen2-VL with its published M-RoPE sections) served as kNN-LMs on
+    the card give the CPU's greedy tokens, decode attention launched
+    once a layer a wave; one prefill + decode wave's logits agree within
+    2^-5 of their range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import (DatastoreBuilder, EngineConfig, RagConfig,
+                                   RalmEngine, RalmRequest)
+
+    cfg = dataclasses.replace(get_arch(arch).reduced, vocab_size=64)
+    if heads is not None:
+        H, KV, D = heads
+        over = dict(n_heads=H, n_kv_heads=KV, d_head=D)
+        if cfg.rope_mode == "mrope":
+            over["mrope_sections"] = get_arch(arch).model.mrope_sections
+        cfg = dataclasses.replace(cfg, **over)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    if cfg.qkv_bias:
+        g = torch.Generator().manual_seed(1)
+        for name in ("bq", "bk", "bv"):
+            leaf = params["classes"]["global"][name]
+            leaf.copy_(0.5 * torch.randn(leaf.shape, generator=g))
+    corpus = _bigram_corpus(64)
+    ds = DatastoreBuilder(dim=cfg.d_model, nlist=8, m=8, list_cap=512,
+                          device="cpu").from_corpus(params, cfg, corpus)
+    rag = RagConfig(mode="knnlm", interval=1, k=8, lam=0.999,
+                    temperature=1.0)
+
+    def run(device):
+        eng = RalmEngine.from_config(
+            EngineConfig(model=cfg, rag=rag, async_retrieval=True), params,
+            ds, ds.search_config(nprobe=4, k=8), device=device)
+        rids = [eng.submit(RalmRequest(prompt=torch.from_numpy(p), steps=s))
+                for p, s in ((corpus[:2, :8], 8), (corpus[2:5, :6], 6))]
+        by_id = {r.request_id: r.tokens for r in eng.run()}
+        return [np.asarray(by_id[r]) for r in rids], eng
+
+    before = da.KERNEL.launches
+    gpu, geng = run("cuda")
+    assert da.KERNEL.launches - before == \
+        cfg.n_layers * geng.decode_dispatches
+    cpu, _ = run("cpu")
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_array_equal(a, b)
+
+    def wave_logits(device):
+        p = _to(params, device)
+        toks = torch.from_numpy(corpus[:4, :10]).to(device)
+        caches = tf.init_cache(cfg, 4, 16, device=device)
+        tf.forward(p, cfg, toks[:, :9], mode="prefill", caches=caches)
+        lg, _ = tf.decode_wave(p, cfg, caches, toks[:, 9:],
+                               torch.arange(4, device=device),
+                               torch.full((4,), 9, device=device), kv_len=16)
+        return lg.float().cpu()
+
+    lg_gpu, lg_cpu = wave_logits("cuda"), wave_logits("cpu")
+    scale = lg_cpu.abs().max().item()
+    assert (lg_gpu - lg_cpu).abs().max().item() <= 2 ** -5 * scale
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

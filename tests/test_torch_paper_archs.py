@@ -216,10 +216,10 @@ def test_prefill_decode_consistency(arch):
 
 @pytest.mark.parametrize("arch,field", [
     ("dbrx_132b", "block"), ("hymba_1_5b", "block"), ("rwkv6_3b", "block"),
-    ("qwen2_vl_72b", "rope_mode")])
+    ("phi3_5_moe_42b", "block")])
 def test_other_families_still_raise(arch, field):
-    """Every other block (MoE, hybrid, RWKV6) and M-RoPE raise
-    NotImplementedError, naming the ROADMAP item that ports them."""
+    """Every other block (MoE, hybrid, RWKV6) raises NotImplementedError,
+    naming the ROADMAP item that ports them (12b)."""
     cfg = convert.model_config(dataclasses.asdict(jax_arch(arch).reduced))
     with pytest.raises(NotImplementedError, match="item 12") as err:
         ttf.init_params(torch.Generator().manual_seed(0), cfg)
