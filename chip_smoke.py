@@ -36,7 +36,18 @@ failure raises, so the run exits non-zero):
      same traffic through a staged deployment (search_config(fused=False):
      one adc_scan launch per shard per flush), three runs alternating
      with three more fused runs, whose tokens must all equal the fused
-     runs'. Then serve.spec: the same traffic with speculative retrieval
+     runs'. Then serve.disaggregated: the same traffic through
+     EngineConfig(disaggregate=True, ret_devices=2), the LM pool in this
+     process and two memory-node processes on the card (one DB shard
+     each; each probes with the IVF kernel and scans with adc_scan),
+     three runs alternating with three of the monolithic engine of the
+     same config with synchronous retrieval and the staged scan: tokens
+     equal in every run, one wave's search bit-equal, each node's probe
+     and adc_scan launches equal to the searches it served (and none
+     here), tokens/s beside the monolithic runs', PoolTimes medians and
+     the Fig. 13 optimal ratio, the fabric's round trips, bytes and ms
+     per search and gather, each node's card and memory, and no node
+     process alive after close(). Then serve.spec: the same traffic with speculative retrieval
      (speculate_k 1 and 2, each run once beside a fused run), whose
      tokens must equal the fused runs' and whose speculation counters
      are printed; and retrieval.cache: the service's result cache on the
@@ -135,6 +146,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import socket
@@ -1033,6 +1045,211 @@ def serve_staged(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
         fused_decode_ms_per_wave_median=(
             f"{median([r['ms_wave'] for r in fused]):.2f}"))
     return eng, staged[0]["launches"]
+
+
+def sync_run(torch, eng, cfg, prompts, truth, steps, label, fabric=None,
+             traces=False):
+    """One run of the traffic through a synchronous engine (no service):
+    the monolithic staged engine, or the disaggregated one, whose
+    retrieval runs on ``fabric``'s memory nodes. The launch counters of
+    this process (and of every node) are zeroed just before and read
+    just after: here decode attention once per layer per wave and, when
+    monolithic, the IVF probe once per search and adc_scan once per shard
+    per search; with a fabric no probe or scan here, and on each node the
+    probe and adc_scan once per search it served (every node serves every
+    search). Returns the tokens, rates, launches and node stats."""
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.serve import RalmRequest
+
+    service = getattr(eng.retriever, "service", None)
+
+    def searches():
+        if fabric is not None:
+            c = fabric.counters.get("search")
+            return c.round_trips if c is not None else 0
+        return service.stats.num_batches
+
+    trace_lists = [[] if traces else None for _ in prompts]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    if fabric is not None:
+        fabric.reset()
+        fabric.reset_counters()
+    waves0, searches0 = eng.decode_dispatches, searches()
+    times0 = None if eng.times is None else (len(eng.times.decode_s),
+                                            len(eng.times.search_s))
+    t1 = time.perf_counter()
+    rids = [eng.submit(RalmRequest(prompt=torch.from_numpy(p), steps=steps,
+                                   trace=tr))
+            for p, tr in zip(prompts, trace_lists)]
+    done = eng.step()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    done += eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {n: k.launches for n, k in _build.kernels().items()}
+    waves = eng.decode_dispatches - waves0
+    n_search = searches() - searches0
+    by_id = {r.request_id: r for r in done}
+    R, B = len(prompts), prompts[0].shape[0]
+    gen = np.stack([by_id[r].tokens for r in rids])[
+        :, :, prompts[0].shape[1]:].reshape(R * B, steps)
+    acc = float((gen == truth).mean())
+    want = dict.fromkeys(launches, 0)
+    want["decode_attn_launch"] = cfg.n_layers * waves
+    nodes = []
+    if fabric is None:
+        want.update(ivf_scan_launch=n_search,
+                    adc_scan_launch=len(eng.retriever.shards) * n_search)
+    else:
+        nodes = fabric.stats()
+        for node in nodes:
+            node_want = dict.fromkeys(node["launches"], 0)
+            node_want.update(ivf_scan_launch=n_search,
+                             adc_scan_launch=n_search)
+            if node["launches"] != node_want or \
+                    node["searches"] != n_search:
+                raise AssertionError(
+                    f"{label}: node {node['pid']} launches "
+                    f"{node['launches']} != {node_want} ({node['searches']} "
+                    f"searches served of {n_search})")
+    if launches != want or n_search <= 0:
+        raise AssertionError(f"{label}: launches {launches} != {want} "
+                             f"({n_search} searches)")
+    extra = {}
+    if times0 is not None:
+        dec = eng.times.decode_s[times0[0]:]
+        sea = eng.times.search_s[times0[1]:]
+        extra = dict(pool_decode_ms_median=f"{median(dec) * 1e3:.3f}",
+                     pool_search_ms_median=f"{median(sea) * 1e3:.3f}",
+                     optimal_ratio=f"{median(dec) / median(sea):.2f}")
+    log(label, t1, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{R * B * steps / wall:.1f}",
+        first_step_s=f"{t_first:.3f}",
+        decode_ms_per_wave=f"{(wall - t_first) / max(waves, 1) * 1e3:.2f}",
+        decode_waves=waves, searches=n_search,
+        continuation_accuracy=f"{acc:.4f}", launches=launches,
+        node_launches=[n["launches"] for n in nodes] or None, **extra)
+    return dict(tps=R * B * steps / wall, gen=gen, acc=acc, waves=waves,
+                ms_wave=(wall - t_first) / max(waves, 1) * 1e3,
+                searches=n_search, launches=launches, nodes=nodes,
+                traces=trace_lists, extra=extra)
+
+
+def card_memory_used_mb() -> int:
+    """The card's used memory in MiB, every process's (nvidia-smi): the
+    difference across starting the memory nodes is what they hold,
+    their CUDA contexts included."""
+    return int(nvidia_smi("memory.used").split()[0])
+
+
+def serve_disaggregated(torch, dev, arch, cfg, params, ds, sizes, prompts,
+                        truth):
+    """The paper's disaggregated deployment on one card: the LM pool in
+    this process and two memory-node processes (one DB shard each,
+    ``EngineConfig(disaggregate=True, ret_devices=2)``), against the
+    monolithic engine of the same config with synchronous retrieval and
+    the staged scan, runs alternating. Tokens must be equal in every
+    run; one wave's search bit-equal; each node's probe and adc_scan
+    launches equal to the searches it served; no node alive after
+    ``close()``."""
+    import numpy as np
+    from repro_torch.serve import EngineConfig, RalmEngine
+
+    t0 = time.perf_counter()
+    search_cfg = ds.search_config(nprobe=sizes["nprobe"], k=arch.rag.k,
+                                  fused=False)
+    config = EngineConfig(model=cfg, rag=arch.rag, max_seq=sizes["max_seq"],
+                          ret_devices=ds.num_shards)
+    mono = RalmEngine.from_config(config, params, ds, search_cfg, device=dev)
+    torch.cuda.synchronize()
+    used0 = card_memory_used_mb()
+    dis = RalmEngine.from_config(
+        dataclasses.replace(config, disaggregate=True), params, ds,
+        search_cfg, device=dev)
+    fabric = dis.retriever.router.fabric
+    pids = fabric.pids
+    added_mb = card_memory_used_mb() - used0
+    try:
+        # one wave's search (the step-0 queries) first, which also warms
+        # the nodes up: bit-equal to the monolithic staged pipeline's
+        q = wave_queries(torch, dev, mono, prompts, sizes)
+        d_m, i_m = mono.retriever.search(q)
+        d_d, i_d = dis.retriever.search(q)
+        if not (torch.equal(d_m, d_d) and torch.equal(i_m, i_d)):
+            raise AssertionError("one wave's disaggregated search differs "
+                                 "from the monolithic staged pipeline's")
+        nodes = fabric.stats()
+        log("serve.disaggregated.setup", t0, memory_nodes=fabric.size,
+            node_devices=list(fabric.devices), pids=pids,
+            node_device_names=[n["device_name"] for n in nodes],
+            node_held_gb=[f"{n['held_bytes'] / 1e9:.3f}" for n in nodes],
+            card_mb_added_by_nodes=added_mb,
+            placement_ms=f"{fabric.counters['place'].seconds * 1e3:.1f}",
+            placement_mb=f"{fabric.counters['place'].bytes_out / 1e6:.1f}",
+            wave_search_bit_equal=True, rows=q.shape[0])
+        if any(n["device_name"] != torch.cuda.get_device_name(0)
+               for n in nodes):
+            raise AssertionError(f"nodes off the card: {nodes}")
+        monos, diss = [], []
+        steps = sizes["steps"]
+        for _ in range(sizes["repeats"]):
+            monos.append(sync_run(torch, mono, cfg, prompts, truth, steps,
+                                  "serve.disaggregated.mono_run"))
+            diss.append(sync_run(torch, dis, cfg, prompts, truth, steps,
+                                 "serve.disaggregated.run", fabric=fabric))
+        fab = {op: dict(round_trips=c.round_trips,
+                        kb_out=f"{c.bytes_out / max(c.round_trips, 1) / 1e3:.1f}",
+                        kb_in=f"{c.bytes_in / max(c.round_trips, 1) / 1e3:.1f}",
+                        ms=f"{c.seconds / max(c.round_trips, 1) * 1e3:.3f}",
+                        node_ms=f"{c.node_seconds / max(c.round_trips, 1) * 1e3:.3f}")
+               for op, c in fabric.counters.items()}
+        want = monos[0]["gen"]
+        for r in monos + diss:
+            if not np.array_equal(r["gen"], want):
+                diag = sync_run(torch, dis, cfg, prompts, truth, steps,
+                                "serve.disaggregated.diag", fabric=fabric,
+                                traces=True)
+                ref = sync_run(torch, mono, cfg, prompts, truth, steps,
+                               "serve.disaggregated.diag_mono", traces=True)
+                first = first_difference(diag["gen"], ref["gen"],
+                                         prompts[0].shape[0])
+                tr_d = diag["traces"][first["request"]][first["step"]]
+                tr_m = ref["traces"][first["request"]][first["step"]]
+                raise AssertionError(
+                    f"disaggregated tokens differ from the monolithic "
+                    f"staged engine's: {first}; retrieval ids differ "
+                    f"there: {not np.array_equal(tr_d['ids'], tr_m['ids'])}")
+        tps_m = sorted(r["tps"] for r in monos)
+        tps_d = sorted(r["tps"] for r in diss)
+        ms_m = sorted(r["ms_wave"] for r in monos)
+        ms_d = sorted(r["ms_wave"] for r in diss)
+        dec = sorted(float(r["extra"]["pool_decode_ms_median"]) for r in diss)
+        sea = sorted(float(r["extra"]["pool_search_ms_median"]) for r in diss)
+        log("serve.disaggregated.summary", t0, tokens_equal_to_mono=True,
+            tokens_per_s_median=f"{median(tps_d):.1f}",
+            tokens_per_s_range=f"{tps_d[0]:.1f}-{tps_d[-1]:.1f}",
+            mono_tokens_per_s_median=f"{median(tps_m):.1f}",
+            mono_tokens_per_s_range=f"{tps_m[0]:.1f}-{tps_m[-1]:.1f}",
+            tokens_per_s_ratio=f"{median(tps_d) / median(tps_m):.3f}",
+            decode_ms_per_wave_median=f"{median(ms_d):.2f}",
+            mono_decode_ms_per_wave_median=f"{median(ms_m):.2f}",
+            pool_decode_ms_median=f"{median(dec):.3f}",
+            pool_search_ms_median=f"{median(sea):.3f}",
+            optimal_ratio=f"{dis.times.optimal_ratio():.2f}",
+            fabric_last_run=fab,
+            node_peak_gb=[f"{n['peak_bytes'] / 1e9:.3f}"
+                          for n in diss[-1]["nodes"]],
+            continuation_accuracy=f"{diss[0]['acc']:.4f}")
+    finally:
+        dis.close()
+    if any(fabric.alive()) or any(pathlib.Path(f"/proc/{p}").exists()
+                                  for p in pids):
+        raise AssertionError(f"memory nodes {pids} alive after close()")
+    log("serve.disaggregated.closed", t0, nodes_alive=0)
+    return diss[0]
 
 
 def first_difference(got, want, rows):
@@ -2333,6 +2550,8 @@ def run_phases(torch, dev, sizes):
                                       ds, sizes)
     staged_eng, staged = serve_staged(torch, dev, arch, cfg, params, ds,
                                       sizes, prompts, truth, eng)
+    disagg = serve_disaggregated(torch, dev, arch, cfg, params, ds, sizes,
+                                 prompts, truth)
     serve_spec(torch, dev, arch, cfg, params, ds, sizes, prompts, truth, eng,
                runs[0]["gen"])
     retrieval_cache(torch, dev, eng, prompts, sizes)
@@ -2387,6 +2606,14 @@ def run_phases(torch, dev, sizes):
              "no serve path (entry point approx_topk)", fused)):
         report[name]["launches"] = counts[sym]
         report[name]["launches_in"] = path
+    for name, sym in (("ivf_scan", "ivf_scan_launch"),
+                      ("adc_scan", "adc_scan_launch")):
+        report[name].update(
+            launches_nodes=[n["launches"][sym] for n in disagg["nodes"]],
+            launches_nodes_in="serve.disaggregated (each memory node)")
+    report["decode_attn"].update(
+        launches_disaggregated=disagg["launches"]["decode_attn_launch"],
+        launches_disaggregated_in="serve.disaggregated (the LM pool)")
     report["decode_attn"].update(
         launches_per_sequence=per_seq["decode_attn_launch"],
         launches_per_sequence_in="serve.per_sequence")

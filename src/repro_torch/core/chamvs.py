@@ -8,11 +8,16 @@ launch covers ADC + top-k' for every shard of a retrieval wave.
 with ``kernels/pq_adc`` — the kernel on the card, which reads the lists
 in place, the plain version on the CPU. Both give the fused scan's ids
 and distances.
+
+``make_distributed_search`` / ``make_distributed_gather`` are the
+reference's deprecated wrappers: they warn and delegate to
+``repro_torch.retrieval.router``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+import warnings
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -76,3 +81,33 @@ def stack_shards(shards: List[IVFPQShard]) -> IVFPQShard:
         ids=torch.stack([s.ids for s in shards]),
         list_len=torch.stack([s.list_len for s in shards]),
     )
+
+
+# ---------------------------------------------------------------------------
+# deprecated wrappers (moved to repro_torch.retrieval.router)
+# ---------------------------------------------------------------------------
+
+def make_distributed_search(mesh, cfg: ChamVSConfig,
+                            db_axes: Tuple[str, ...] = ("data",),
+                            query_axis: Optional[str] = "model",
+                            nq: Optional[int] = None):
+    """Deprecated: use ``repro_torch.retrieval.router.build_search`` (or a
+    ``ShardRouter``, which also owns placement)."""
+    warnings.warn(
+        "chamvs.make_distributed_search moved to "
+        "repro.retrieval.router.build_search", DeprecationWarning,
+        stacklevel=2)
+    from repro_torch.retrieval.router import build_search
+    return build_search(mesh, cfg, db_axes=db_axes, query_axis=query_axis,
+                        nq=nq)
+
+
+def make_distributed_gather(mesh, table_axes: Tuple[str, ...]):
+    """Deprecated: use ``repro_torch.retrieval.router.build_gather`` (or a
+    ``ShardRouter``)."""
+    warnings.warn(
+        "chamvs.make_distributed_gather moved to "
+        "repro.retrieval.router.build_gather", DeprecationWarning,
+        stacklevel=2)
+    from repro_torch.retrieval.router import build_gather
+    return build_gather(mesh, table_axes)

@@ -10,11 +10,14 @@ It runs on the GPU and raises when CUDA is absent, unless given
 ``--device cpu`` (the plain PyTorch versions of the kernels). There are
 no kernel-backend flags: the device decides. ``--staged-scan`` serves
 the staged per-shard scan (``search_config(fused=False)``).
-``--disaggregate`` is refused: the LM-pool / retrieval-pool split is not
-ported yet. ``--arch`` serves the paper's decoders (``dec_s``, ``dec_l``)
-and the dense assigned backbones (``qwen2_0_5b``, ``phi3_mini_3_8b``,
-``gemma3_4b``, ``llama3_405b``, ``qwen2_vl_72b``; at published width
-where they fit the card, ``--reduced`` on either device) as kNN-LMs. The
+``--disaggregate`` serves from an LM pool (this process) and a
+retrieval pool of two memory-node processes on the same device kind,
+one DB shard each (the datastore is built with as many shards), and
+prints the pools' step times and the fabric's traffic. ``--arch``
+serves the paper's decoders (``dec_s``, ``dec_l``) and the dense
+assigned backbones (``qwen2_0_5b``, ``phi3_mini_3_8b``, ``gemma3_4b``,
+``llama3_405b``, ``qwen2_vl_72b``; at published width where they fit
+the card, ``--reduced`` on either device) as kNN-LMs. The
 RETRO encoder-decoders (``encdec_s``, ``encdec_l``) are refused: the
 launcher's datastore holds next tokens only, no chunk table, so their
 first retrieval would raise (the reference's launcher raises there).
@@ -34,6 +37,9 @@ from repro_torch.configs import get_arch
 from repro_torch.models import transformer as tf
 from repro_torch.serve import (DatastoreBuilder, EngineConfig, RalmEngine,
                                RalmRequest)
+
+
+RET_DEVICES = 2      # memory nodes of --disaggregate (the reference's)
 
 
 def build_datastore(params, cfg, rng, device, n_docs=64, doc_len=32,
@@ -62,8 +68,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--requests", type=int, default=2,
                     help="concurrent request batches (pipelined)")
     ap.add_argument("--disaggregate", action="store_true",
-                    help="split devices into LM + retrieval pools (not "
-                         "ported: refused)")
+                    help="serve from an LM pool (this process) and a "
+                         "retrieval pool of 2 memory-node processes")
     ap.add_argument("--async-retrieval", action="store_true",
                     help="route searches through a RetrievalService "
                          "(wave coalescing + result cache)")
@@ -122,10 +128,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--host", default="127.0.0.1",
                     help="gateway bind address (with --gateway)")
     args = ap.parse_args(argv)
-    if args.disaggregate:
-        ap.error("--disaggregate is not ported yet (the LM-pool / "
-                 "retrieval-pool split needs DisaggregatedBackend); serve "
-                 "monolithic without it")
     try:
         spec = get_arch(args.arch)
     except NotImplementedError as err:
@@ -146,11 +148,14 @@ def build_engine(args: argparse.Namespace) -> RalmEngine:
     rag = spec.rag
     gen = torch.Generator(device=dev).manual_seed(0)
     params = tf.init_params(gen, cfg)
-    ds = build_datastore(params, cfg, np.random.default_rng(0), dev)
+    ret_devices = RET_DEVICES if args.disaggregate else 1
+    ds = build_datastore(params, cfg, np.random.default_rng(0), dev,
+                         num_shards=ret_devices if args.disaggregate else 2)
     ccfg = ds.search_config(nprobe=4, k=min(rag.k, 8),
                             fused=not args.staged_scan)
     econfig = EngineConfig(
-        model=cfg, rag=rag, async_retrieval=args.async_retrieval,
+        model=cfg, rag=rag, disaggregate=args.disaggregate, lm_devices=1,
+        ret_devices=ret_devices, async_retrieval=args.async_retrieval,
         retrieval_cache=args.retrieval_cache,
         retrieval_measure=not args.no_retrieval_measure,
         speculate_k=args.speculate_k,
@@ -182,6 +187,20 @@ def report(engine: RalmEngine, responses, dt: float) -> None:
               f"{ps.blocks_skipped}/{ps.blocks_total} seq blocks skipped "
               f"({ps.skip_fraction():.0%} of pool padding), "
               f"{ps.decode_compiles} wave shapes")
+    if engine.times is not None:
+        t = engine.times
+        print(f"[serve] pools: decode {np.median(t.decode_s) * 1e3:.2f} ms "
+              f"a step, search {np.median(t.search_s) * 1e3:.2f} ms a "
+              f"step (medians of {len(t.decode_s)} / {len(t.search_s)}); "
+              f"optimal LM:retrieval ratio {t.optimal_ratio():.2f}")
+    router = getattr(engine.retriever, "router", None)
+    if router is not None:
+        for op, c in sorted(router.fabric.counters.items()):
+            print(f"[serve] fabric {op}: {c.round_trips} round trips, "
+                  f"{c.bytes_out / max(c.round_trips, 1):.0f} B out / "
+                  f"{c.bytes_in / max(c.round_trips, 1):.0f} B in and "
+                  f"{c.seconds / max(c.round_trips, 1) * 1e3:.3f} ms each, "
+                  f"{router.fabric.size} memory nodes")
     service = getattr(engine.retriever, "service", None)
     if service is None:
         return
@@ -212,7 +231,11 @@ def report(engine: RalmEngine, responses, dt: float) -> None:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    engine = build_engine(args)
+    with build_engine(args) as engine:
+        serve(args, engine)
+
+
+def serve(args: argparse.Namespace, engine: RalmEngine) -> None:
     if args.gateway:
         from repro_torch.serve import Gateway, GatewayConfig
         if engine.device.type == "cuda":

@@ -1,5 +1,5 @@
 """``RetrievalService`` — ChamVS as a vector-search service (twin of
-``repro.retrieval.service``, local pipeline only).
+``repro.retrieval.service``).
 
 Queries from many sequences are submitted as they arise; each
 ``submit`` returns a ``SearchHandle`` future, and pending rows coalesce
@@ -38,8 +38,12 @@ it is armed.
 Everything runs on the caller's CUDA stream (or the CPU); each flushed
 entry carries an event recorded after its results were enqueued, so the
 engine can tell whether a search has landed without waiting for later
-work. Spans of the ``tracer`` are host wall time. The mesh
-``RouterPipeline`` is a later slice.
+work. Spans of the ``tracer`` are host wall time.
+
+Two pipelines sit under the service: ``LocalPipeline`` (every shard in
+this process) and ``RouterPipeline`` (the shards on the memory-node
+processes of a ``ShardRouter``, merged by the router: one fault domain,
+and flushes padded to the router's query-split columns).
 """
 from __future__ import annotations
 
@@ -189,6 +193,37 @@ class LocalPipeline:
         return merge_lib.merge_topk(d, i, self.cfg.k, fanout=fanout)
 
 
+class RouterPipeline:
+    """Scan/merge over a retrieval pool through a ``ShardRouter``. The
+    router merges the nodes' survivors itself, so the merge stage is a
+    pass-through (its time counts under scan, and
+    ``ServiceConfig.merge_fanout`` does not apply)."""
+
+    scan_dispatches = 1   # one router search a flush, whatever the nodes
+    fault_domains = 1     # the router merges before the service sees the
+    #                       candidates, so the pool fails (or answers) as
+    #                       one domain: a partial result is a total loss
+
+    def __init__(self, router, params: IVFPQParams,
+                 shards: List[IVFPQShard]):
+        self.router = router
+        self.cfg = router.cfg
+        # flushed batches must divide over the pool's query-split columns
+        self.row_multiple = router.query_size
+        self.db_params = router.place_params(params)
+        self.db_shard = router.place_shards(shards)
+
+    @property
+    def k(self) -> int:
+        return self.cfg.k
+
+    def scan(self, queries: torch.Tensor):
+        return self.router.search(self.db_params, self.db_shard, queries)
+
+    def merge(self, candidates, fanout: Optional[int] = None):
+        return candidates
+
+
 # ---------------------------------------------------------------------------
 # futures + the service
 # ---------------------------------------------------------------------------
@@ -282,7 +317,7 @@ class RetrievalService:
     """Deadline-batched, cached, fault-tolerant, instrumented front door
     to ChamVS."""
 
-    def __init__(self, pipeline: LocalPipeline,
+    def __init__(self, pipeline,
                  config: Optional[ServiceConfig] = None):
         self.pipeline = pipeline
         self.config = config or ServiceConfig()
@@ -353,6 +388,18 @@ class RetrievalService:
               cfg: ChamVSConfig, config: Optional[ServiceConfig] = None
               ) -> "RetrievalService":
         return cls(LocalPipeline(params, shards, cfg), config=config)
+
+    @classmethod
+    def distributed(cls, router, params: IVFPQParams,
+                    shards: List[IVFPQShard],
+                    config: Optional[ServiceConfig] = None
+                    ) -> "RetrievalService":
+        """Service over a retrieval pool (one memory node per mesh
+        position). The router owns its ``ChamVSConfig`` and its nodes'
+        devices pick the kernels; the reference refuses the
+        ``ServiceConfig`` kernel overrides here, and the port's
+        ``ServiceConfig`` has none to refuse."""
+        return cls(RouterPipeline(router, params, shards), config=config)
 
     @property
     def num_inflight(self) -> int:
@@ -425,7 +472,13 @@ class RetrievalService:
             self.flush()
 
     def _bucket(self, n: int) -> int:
-        return next_pow2(n) if self.config.bucket_pow2 else n
+        b = next_pow2(n) if self.config.bucket_pow2 else n
+        # a router pipeline query-splits over its columns, which needs
+        # the row count to divide evenly
+        mult = getattr(self.pipeline, "row_multiple", 1)
+        if b % mult:
+            b += mult - b % mult
+        return b
 
     def _dispatch_scan(self, batch: torch.Tensor
                        ) -> Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]],

@@ -5,6 +5,11 @@ local and service-backed implementations.
 ``EngineConfig`` keeps the reference's field names for the fields the
 port implements. It has no kernel-selection knobs: the device decides
 (kernels on the GPU, plain versions on the CPU).
+
+``DistributedRetriever`` is the disaggregated deployment's retriever:
+the DB shards and payload tables live on memory-node processes behind a
+``ShardRouter`` (``retrieval/router.py``), and it owns them: ``close()``
+(or a ``with`` block) stops the nodes.
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ from repro_torch.core import rag as rag_lib
 from repro_torch.core.chamvs import ChamVSConfig
 from repro_torch.core.ivfpq import IVFPQParams, IVFPQShard
 from repro_torch.core.rag import RagConfig
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ModelConfig
+from repro_torch.retrieval.router import ShardRouter
 from repro_torch.retrieval.service import (RetrievalService, SearchHandle,
                                            ServiceConfig, sync)
 
@@ -100,10 +107,17 @@ class RalmResponse:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Deployment shape of one monolithic RALM engine."""
+    """Deployment shape of one RALM engine (the Fig. 13 knobs)."""
     model: ModelConfig
     rag: RagConfig
     max_seq: Optional[int] = None        # KV budget; default T0 + steps
+    disaggregate: bool = False           # split into an LM pool (this
+    #                                      process) and a retrieval pool
+    #                                      (memory-node processes)
+    lm_devices: int = 1                  # LM pool size (disaggregated;
+    #                                      only 1: the LM shards nothing)
+    ret_devices: int = 1                 # retrieval pool size: memory
+    #                                      nodes, one DB shard each
     max_active: Optional[int] = None     # scheduler admission limit
     async_retrieval: bool = False        # route search through a
     #                                      RetrievalService (AsyncRetriever)
@@ -179,19 +193,22 @@ class Retriever(Protocol):
         ...
 
 
-def _resolve_from_tables(payload_tokens: Optional[torch.Tensor],
-                         chunk_table: Optional[torch.Tensor],
-                         ids: torch.Tensor, kind: str) -> torch.Tensor:
-    """Gather from the table ``kind`` names and mask missing ids once."""
+def _resolve_from_tables(payload_tokens, chunk_table, ids: torch.Tensor,
+                         kind: str, gather=rag_lib.gather_payload
+                         ) -> torch.Tensor:
+    """Gather from the table ``kind`` names with ``gather(table, ids)``
+    and mask missing ids once."""
     if kind == "tokens":
         if payload_tokens is None:
             raise ValueError("retriever has no payload_tokens table")
-        toks = rag_lib.gather_payload(payload_tokens, ids)
+        toks = gather(payload_tokens, ids)
         return torch.where(ids >= 0, toks, torch.full_like(toks, -1))
     if kind == "chunks":
         if chunk_table is None:
             raise ValueError("retriever has no chunk_table")
-        return rag_lib.retro_neighbor_tokens(chunk_table, ids)
+        chunks = gather(chunk_table, ids)
+        return torch.where((ids >= 0)[..., None], chunks,
+                           torch.zeros_like(chunks))
     raise ValueError(f"unknown payload kind: {kind!r}")
 
 
@@ -226,6 +243,60 @@ class LocalRetriever:
                 ) -> torch.Tensor:
         return _resolve_from_tables(self.payload_tokens, self.chunk_table,
                                     ids, kind)
+
+
+class DistributedRetriever:
+    """ChamVS over a retrieval pool, routed by a ``ShardRouter``: the
+    router places the quantizers, the DB shards and the payload tables
+    on the memory nodes, each search goes to them and is merged here,
+    and ``resolve`` gathers each id's payload from the node holding its
+    row (never the whole table). Queries are projected here, on the LM
+    pool's device; results come back to it.
+
+    The router's nodes are processes: ``close()`` (or a ``with`` block)
+    stops them, which the reference's single controller never needed."""
+
+    def __init__(self, mesh: Mesh, params: IVFPQParams,
+                 shards: List[IVFPQShard], cfg: ChamVSConfig,
+                 payload_tokens: Optional[torch.Tensor] = None,
+                 chunk_table: Optional[torch.Tensor] = None,
+                 query_proj: Optional[torch.Tensor] = None,
+                 db_axes: Tuple[str, ...] = ("data",),
+                 query_axis: Optional[str] = None):
+        self.mesh, self.cfg = mesh, cfg
+        self.query_proj = query_proj
+        self.router = ShardRouter(mesh, cfg, db_axes=db_axes,
+                                  query_axis=query_axis)
+        try:
+            self.db_params = self.router.place_params(params)
+            self.db_shard = self.router.place_shards(shards)
+            self.payload_tokens = self.router.place_table(payload_tokens)
+            self.chunk_table = self.router.place_table(chunk_table)
+        except BaseException:
+            self.router.close()
+            raise
+
+    def search(self, queries: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.router.search(self.db_params, self.db_shard,
+                                  _project(queries, self.query_proj))
+
+    def resolve(self, ids: torch.Tensor, kind: str = "tokens"
+                ) -> torch.Tensor:
+        def gather(table, ids):
+            return self.router.gather(table, ids.clamp(min=0))
+        return _resolve_from_tables(self.payload_tokens, self.chunk_table,
+                                    ids, kind, gather=gather)
+
+    def close(self) -> None:
+        """Stop and join the memory nodes."""
+        self.router.close()
+
+    def __enter__(self) -> "DistributedRetriever":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 @dataclasses.dataclass

@@ -51,7 +51,16 @@ Fault tolerance: ``EngineConfig.shard_replicas`` /
 ``retrieval_deadline_s`` / ``chaos_plan`` arm the retrieval service's
 fault-tolerant dispatch (``retrieval/replica.py``, ``retrieval/chaos.py``);
 a step served from a partial result counts in the response's
-``partial_steps``. The disaggregated backend is a later slice.
+``partial_steps``.
+
+Disaggregation (``EngineConfig.disaggregate``, ``RalmEngine.disaggregated``):
+the paper's split of an LM pool from a retrieval pool. The LM pool is
+the calling process (``DisaggregatedBackend``: prefill, waves, RETRO
+re-encodes); the retrieval pool is ``ret_devices`` memory-node
+processes, one DB shard each, behind a ``DistributedRetriever``.
+``PoolTimes`` records both pools' step times, waiting for the card at
+each, for the Fig. 13 ratio. An engine that owns memory nodes is closed
+with ``close()`` (or a ``with`` block).
 """
 from __future__ import annotations
 
@@ -66,17 +75,33 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import rag as rag_lib
 from repro_torch.core.chamvs import ChamVSConfig
+from repro_torch.core.ivfpq import IVFPQParams, IVFPQShard
 from repro_torch.core.rag import RagConfig
+from repro_torch.launch.mesh import Mesh, make_mesh_for
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.retrieval.replica import FailoverConfig
-from repro_torch.retrieval.service import ServiceConfig
+from repro_torch.retrieval.service import ServiceConfig, sync
 from repro_torch.retrieval.stats import RetrievalStats
-from repro_torch.serve.api import (EngineConfig, RalmRequest, RalmResponse,
-                                   Retriever)
+from repro_torch.serve.api import (DistributedRetriever, EngineConfig,
+                                   RalmRequest, RalmResponse, Retriever)
 from repro_torch.serve.kvpool import KVCachePool, next_pow2
 from repro_torch.serve.scheduler import RalmScheduler
+
+
+@dataclasses.dataclass
+class PoolTimes:
+    """Per-pool step times (paper Fig. 13 instrumentation)."""
+    decode_s: List[float] = dataclasses.field(default_factory=list)
+    search_s: List[float] = dataclasses.field(default_factory=list)
+
+    def optimal_ratio(self) -> float:
+        """Paper Fig. 13: LM-pool units needed to saturate one retrieval
+        engine = (retrieval throughput) / (decode throughput) per batch."""
+        if not self.decode_s or not self.search_s:
+            return float("nan")
+        return float(np.median(self.decode_s) / np.median(self.search_s))
 
 
 @torch.no_grad()
@@ -141,6 +166,51 @@ class MonolithicBackend:
         states [B, L, d]."""
         return tf.encode(self.params, self.cfg,
                          tf.embed_tokens(self.params, chunks))
+
+
+class DisaggregatedBackend(MonolithicBackend):
+    """The paper's split: the LM pool (this process, on the params'
+    device) and a retrieval pool of ``ret_devices`` memory-node
+    processes, laid out by ``ret_mesh`` for a ``DistributedRetriever``.
+    ``measure=True`` records ``PoolTimes`` (decode here, search in the
+    engine), waiting for the card at each pool step; ``measure=False``
+    skips the waits.
+
+    ``lm_devices`` must be 1: the reference's LM mesh shards nothing (it
+    runs its unannotated jit under ``use_mesh``), so a wider LM pool
+    would only duplicate the weights."""
+
+    def __init__(self, params, cfg: ModelConfig, lm_devices: int = 1,
+                 ret_devices: int = 1, measure: bool = True):
+        if lm_devices != 1:
+            raise ValueError(
+                f"lm_devices={lm_devices}: the LM pool is the calling "
+                "process and shards nothing (the reference's LM mesh runs "
+                "unannotated under use_mesh), so only 1 is meaningful")
+        super().__init__(params, cfg)
+        self.times = PoolTimes() if measure else None
+        self.lm_mesh = Mesh(("data", "model"), (1, 1), (str(self.device),))
+        self.ret_mesh = make_mesh_for(data=ret_devices,
+                                      device=self.device.type)
+
+    def _timed(self, step, *a, **kw):
+        t0 = time.perf_counter()
+        logits, caches, hidden = step(*a, **kw)
+        if self.times is not None:
+            sync(logits)
+            self.times.decode_s.append(time.perf_counter() - t0)
+        return logits, caches, hidden
+
+    def decode(self, caches, token, position, enc_states=None):
+        return self._timed(super().decode, caches, token, position,
+                           enc_states=enc_states)
+
+    def decode_wave(self, caches, token, slots, position, kv_len=None,
+                    enc_states=None):
+        """One LM-pool step for the whole wave (paper §5: the GPU pool
+        batches inference across requests)."""
+        return self._timed(super().decode_wave, caches, token, slots,
+                           position, kv_len=kv_len, enc_states=enc_states)
 
 
 @dataclasses.dataclass
@@ -224,7 +294,7 @@ def _to_device(tree: Any, device) -> Any:
 class RalmEngine:
     """One decode backend + one ``Retriever`` + the canonical step."""
 
-    def __init__(self, backend: MonolithicBackend,
+    def __init__(self, backend,
                  retriever: Optional[Retriever] = None,
                  rag: Optional[RagConfig] = None,
                  max_seq: Optional[int] = None,
@@ -289,6 +359,7 @@ class RalmEngine:
             self._spec_depth = 1
         self._local_spec_stats: Optional[RetrievalStats] = None
         self.pool: Optional[KVCachePool] = None   # built at first admission
+        self.times: Optional[PoolTimes] = getattr(backend, "times", None)
         self.scheduler = RalmScheduler(self, max_active=max_active)
         self._unclaimed: List[RalmResponse] = []
         self.tracer = NULL_TRACER      # set_tracer swaps a live one in
@@ -337,24 +408,92 @@ class RalmEngine:
                    speculate_verify=speculate_verify)
 
     @classmethod
+    def disaggregated(cls, params, cfg: ModelConfig, rag: RagConfig,
+                      db_params: IVFPQParams, db_shards: List[IVFPQShard],
+                      search_cfg: ChamVSConfig,
+                      payload_tokens: Optional[torch.Tensor] = None,
+                      chunk_table: Optional[torch.Tensor] = None,
+                      lm_devices: int = 1, ret_devices: int = 1,
+                      query_proj: Optional[torch.Tensor] = None,
+                      max_seq: Optional[int] = None, measure: bool = True,
+                      wave: bool = True, kv_slots: Optional[int] = None,
+                      attn_seq_block: int = 16) -> "RalmEngine":
+        """An LM pool on the params' device and ``ret_devices`` memory
+        nodes, one per DB shard, on that device's kind (round-robin over
+        the cards). The engine owns the nodes: ``close()`` them."""
+        backend = DisaggregatedBackend(params, cfg, lm_devices=lm_devices,
+                                       ret_devices=ret_devices,
+                                       measure=measure)
+        retriever = DistributedRetriever(
+            backend.ret_mesh, db_params, db_shards, search_cfg,
+            payload_tokens=payload_tokens, chunk_table=chunk_table,
+            query_proj=query_proj)
+        return cls(backend, retriever, rag, max_seq=max_seq, wave=wave,
+                   kv_slots=kv_slots, attn_seq_block=attn_seq_block)
+
+    @classmethod
     def from_config(cls, config: EngineConfig, params, datastore,
                     search_cfg: ChamVSConfig,
                     query_proj: Optional[torch.Tensor] = None,
                     device=None) -> "RalmEngine":
         """Stand an engine up from an ``EngineConfig`` and a built
         ``Datastore``, on ``device`` — the GPU when ``None`` (raises when
-        there is none). Params and datastore are moved there."""
+        there is none). Params and datastore are moved there.
+
+        ``config.disaggregate`` always serves disaggregated: a pool
+        member is a process, so one device is enough, and the
+        reference's monolithic fallback on a single device has no
+        counterpart. As in the reference, that path warns and ignores
+        ``async_retrieval`` and ``speculate_k`` (the synchronous
+        ``DistributedRetriever`` has no service and no async handles)."""
         dev = device_lib.resolve(device)
         params = _to_device(params, dev)
         datastore = datastore.to(dev)
         if query_proj is not None:
             query_proj = query_proj.to(dev)
+        if config.disaggregate:
+            if config.async_retrieval:
+                warnings.warn(
+                    "EngineConfig.async_retrieval is not wired into the "
+                    "disaggregated path yet — falling back to the "
+                    "synchronous DistributedRetriever (no RetrievalService "
+                    "coalescing or cache).", RuntimeWarning, stacklevel=2)
+            if config.speculate_k > 0:
+                warnings.warn(
+                    "EngineConfig.speculate_k is not wired into the "
+                    "disaggregated path (the synchronous "
+                    "DistributedRetriever has no async handles) — "
+                    "speculation stays off.", RuntimeWarning, stacklevel=2)
+            eng = cls.disaggregated(
+                params, config.model, config.rag, datastore.params,
+                datastore.shards, search_cfg,
+                payload_tokens=datastore.payload_tokens,
+                chunk_table=datastore.chunk_table,
+                lm_devices=config.lm_devices,
+                ret_devices=config.ret_devices, query_proj=query_proj,
+                max_seq=config.max_seq, wave=config.wave_decode,
+                kv_slots=config.kv_slots,
+                attn_seq_block=config.attn_seq_block)
+        else:
+            eng = cls._monolithic_from_config(config, params, datastore,
+                                              search_cfg, query_proj)
+        eng.scheduler.max_active = config.max_active
+        if config.trace:
+            eng.set_tracer(Tracer(enabled=True))
+        eng.trace_path = config.trace_path
+        return eng
+
+    @classmethod
+    def _monolithic_from_config(cls, config: EngineConfig, params,
+                                datastore, search_cfg: ChamVSConfig,
+                                query_proj: Optional[torch.Tensor]
+                                ) -> "RalmEngine":
         if config.retrieval_cache > 0 and not config.async_retrieval:
             warnings.warn(
                 "EngineConfig.retrieval_cache requires "
                 "async_retrieval=True (the cache lives in the "
                 "RetrievalService) — ignoring it.", RuntimeWarning,
-                stacklevel=2)
+                stacklevel=3)
         speculate_k = config.speculate_k
         if speculate_k > 0 and not config.async_retrieval:
             warnings.warn(
@@ -362,7 +501,7 @@ class RalmEngine:
                 "async_retrieval=True (speculation hides the "
                 "RetrievalService's async scan behind decode; a "
                 "synchronous retriever has nothing to hide) — "
-                "disabling speculation.", RuntimeWarning, stacklevel=2)
+                "disabling speculation.", RuntimeWarning, stacklevel=3)
             speculate_k = 0
         ft_wanted = (config.shard_replicas > 1 or
                      config.retrieval_deadline_s > 0.0 or
@@ -373,7 +512,7 @@ class RalmEngine:
                 "(shard_replicas / retrieval_deadline_s / chaos_plan) "
                 "require async_retrieval=True (the dispatch loop "
                 "lives in the RetrievalService) — ignoring them.",
-                RuntimeWarning, stacklevel=2)
+                RuntimeWarning, stacklevel=3)
         if config.async_retrieval:
             failover = None
             if ft_wanted:
@@ -390,18 +529,13 @@ class RalmEngine:
                 retriever.service.install_chaos(config.chaos_plan)
         else:
             retriever = datastore.retriever(search_cfg, query_proj=query_proj)
-        eng = cls.monolithic(params, config.model, config.rag,
-                             retriever=retriever, max_seq=config.max_seq,
-                             wave=config.wave_decode,
-                             kv_slots=config.kv_slots,
-                             attn_seq_block=config.attn_seq_block,
-                             speculate_k=speculate_k,
-                             speculate_verify=config.speculate_verify)
-        eng.scheduler.max_active = config.max_active
-        if config.trace:
-            eng.set_tracer(Tracer(enabled=True))
-        eng.trace_path = config.trace_path
-        return eng
+        return cls.monolithic(params, config.model, config.rag,
+                              retriever=retriever, max_seq=config.max_seq,
+                              wave=config.wave_decode,
+                              kv_slots=config.kv_slots,
+                              attn_seq_block=config.attn_seq_block,
+                              speculate_k=speculate_k,
+                              speculate_verify=config.speculate_verify)
 
     # -- KV-cache pool admission -------------------------------------------
 
@@ -540,7 +674,7 @@ class RalmEngine:
                 if search.partial:
                     seq.request.partial_steps += 1
             else:
-                dists, ids = self.retriever.search(hidden)
+                dists, ids = self._search(hidden)
             if seq.request.trace is not None:
                 seq.request.trace.append(dict(step=seq.step,
                                               ids=ids.cpu().numpy()))
@@ -561,6 +695,16 @@ class RalmEngine:
         draw = torch.multinomial(probs.to(seq.rng.device), 1,
                                  generator=seq.rng)[:, 0]
         self._emit(seq, draw.to(self.device, torch.int32))
+
+    def _search(self, queries: torch.Tensor):
+        """A synchronous search; under ``PoolTimes`` timed to the moment
+        its results are on the card."""
+        t0 = time.perf_counter()
+        dists, ids = self.retriever.search(queries)
+        if self.times is not None:
+            sync(dists)
+            self.times.search_s.append(time.perf_counter() - t0)
+        return dists, ids
 
     def _retrieval_due(self, step: int) -> bool:
         return (self.retriever is not None and self.rag.mode != "none" and
@@ -673,7 +817,7 @@ class RalmEngine:
                                     args={"points": issued})
             return searches
         queries = torch.cat([decoded[i][1] for i in due], dim=0)
-        dists, ids = self.retriever.search(queries)
+        dists, ids = self._search(queries)
         off = 0
         for i in due:
             B = decoded[i][1].shape[0]
@@ -1029,6 +1173,21 @@ class RalmEngine:
         seqs = [s for s in self.scheduler.active if s.spec_points]
         if seqs:
             self.spec_harvest(seqs, decoded=None, force=True)
+
+    # -- lifetime -----------------------------------------------------------
+
+    def close(self) -> None:
+        """Stop the retriever's memory-node processes, if it has any
+        (a disaggregated engine); a no-op otherwise."""
+        close = getattr(self.retriever, "close", None)
+        if close is not None:
+            close()
+
+    def __enter__(self) -> "RalmEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     # -- serving API --------------------------------------------------------
 

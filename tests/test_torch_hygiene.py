@@ -6,7 +6,8 @@
     absent, and ``chip_smoke.py`` exits non-zero without printing a
     result (also when it stands alone, outside the repository);
   * the launcher (``python -m repro_torch.launch.serve``) refuses to run
-    without CUDA unless given ``--device cpu``, and runs with it;
+    without CUDA unless given ``--device cpu``, and runs with it (also
+    disaggregated, its memory nodes on the CPU);
   * a kernel wrapper handed CPU tensors runs the plain version, builds
     nothing and launches nothing, with no ``nvcc`` in reach.
 """
@@ -44,7 +45,9 @@ assert not bad, bad
 assert len(names) >= 30, names
 assert {"repro_torch.launch.serve", "repro_torch.serve.gateway.server",
         "repro_torch.serve.gateway.admission",
-        "repro_torch.serve.gateway.degrade"} <= set(names), names
+        "repro_torch.serve.gateway.degrade", "repro_torch.launch.mesh",
+        "repro_torch.retrieval.fabric",
+        "repro_torch.retrieval.router"} <= set(names), names
 """)
     assert p.returncode == 0, p.stdout + p.stderr
 
@@ -76,7 +79,8 @@ RalmEngine.from_config(EngineConfig(arch.reduced, arch.rag), params, ds,
 
 
 def test_launcher_refuses_to_run_without_cuda():
-    for extra in ([], ["--gateway", "--port", "0"], ["--per-sequence"]):
+    for extra in ([], ["--gateway", "--port", "0"], ["--per-sequence"],
+                  ["--disaggregate"]):
         p = _run("", args=["-m", "repro_torch.launch.serve", "--reduced",
                            *extra])
         assert p.returncode != 0 and "GPU" in p.stderr, p.stderr
@@ -86,9 +90,12 @@ def test_launcher_refuses_to_run_without_cuda():
                         "--async-retrieval"])
     assert ok.returncode == 0, ok.stdout + ok.stderr
     assert "[serve] per-sequence: 2 batches, 8 tokens" in ok.stdout
-    refused = _run("", args=["-m", "repro_torch.launch.serve", "--device",
-                             "cpu", "--disaggregate"])
-    assert refused.returncode != 0 and "not ported" in refused.stderr
+    split = _run("", args=["-m", "repro_torch.launch.serve", "--device",
+                           "cpu", "--reduced", "--steps", "2",
+                           "--disaggregate"])
+    assert split.returncode == 0, split.stdout + split.stderr
+    assert "[serve] wave: 2 batches, 8 tokens" in split.stdout
+    assert "2 memory nodes" in split.stdout
 
 
 def test_cpu_tensors_take_the_plain_versions_without_nvcc():

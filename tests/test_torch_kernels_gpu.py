@@ -957,3 +957,121 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# disaggregation: memory-node processes on the card
+# ---------------------------------------------------------------------------
+
+def _disaggregated_fixture():
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import DatastoreBuilder, RagConfig
+
+    cfg = dataclasses.replace(get_arch("dec_s").reduced, vocab_size=64)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    corpus = _bigram_corpus(64)
+    ds = DatastoreBuilder(dim=cfg.d_model, nlist=8, m=8, list_cap=512,
+                          device="cpu").from_corpus(params, cfg, corpus)
+    rag = RagConfig(mode="knnlm", interval=1, k=8, lam=0.999,
+                    temperature=1.0)
+    prompts = [corpus[:4, :8],
+               np.random.default_rng(0).integers(0, 64, size=(2, 8),
+                                                 dtype=np.int32)]
+    return cfg, params, ds, rag, prompts
+
+
+def test_disaggregated_engine_on_the_card_matches_the_cpu():
+    """A reduced Dec-S served disaggregated on the card (the LM here, two
+    memory-node processes on the card) gives the CPU's disaggregated and
+    monolithic greedy tokens; each node reports the card, and launched
+    the IVF probe and adc_scan once for every search it served, while
+    this process launched only decode attention (once a layer a wave)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import os
+
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve import EngineConfig, RalmEngine
+
+    cfg, params, ds, rag, prompts = _disaggregated_fixture()
+    config = EngineConfig(model=cfg, rag=rag, disaggregate=True,
+                          ret_devices=2)
+    tprompts = [torch.from_numpy(p) for p in prompts]
+    with RalmEngine.from_config(config, params, ds,
+                                ds.search_config(nprobe=4, k=8),
+                                device="cuda") as eng:
+        fabric = eng.retriever.router.fabric
+        assert fabric.devices == tuple(
+            f"cuda:{r % torch.cuda.device_count()}" for r in (1, 2))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        fabric.reset()
+        gpu = eng.generate_batches(tprompts, steps=8)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in _build.kernels().items()}
+        nodes = fabric.stats()
+        searches = fabric.counters["search"].round_trips
+        waves = eng.decode_dispatches
+        pids = fabric.pids
+    assert not any(fabric.alive())
+    for pid in pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
+    want = dict.fromkeys(launches, 0)
+    want["decode_attn_launch"] = cfg.n_layers * waves
+    assert launches == want
+    assert searches == 8
+    for node in nodes:
+        assert node["device_name"] == torch.cuda.get_device_name(0)
+        assert node["searches"] == searches
+        node_want = dict.fromkeys(node["launches"], 0)
+        node_want.update(ivf_scan_launch=searches, adc_scan_launch=searches)
+        assert node["launches"] == node_want
+    with RalmEngine.from_config(config, params, ds,
+                                ds.search_config(nprobe=4, k=8),
+                                device="cpu") as cpu_eng:
+        cpu = cpu_eng.generate_batches(tprompts, steps=8)
+    mono = RalmEngine.from_config(
+        EngineConfig(model=cfg, rag=rag), params, ds,
+        ds.search_config(nprobe=4, k=8, fused=False), device="cuda")
+    mono_gpu = mono.generate_batches(tprompts, steps=8)
+    for a, b, c in zip(gpu, cpu, mono_gpu):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+def test_disaggregated_node_kernel_refusal_raises_at_the_coordinator():
+    """A node whose IVF probe refuses its launch (nprobe above the
+    kernel's MAX_NPROBE) makes the coordinator raise with the node's
+    error; nothing runs in its place, and the nodes stay up."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import dataclasses
+
+    from repro_torch.retrieval import FabricError
+    from repro_torch.serve import DistributedRetriever
+    from repro_torch.launch.mesh import make_mesh_for
+
+    cfg, params, ds, rag, prompts = _disaggregated_fixture()
+    dsc = ds.to("cuda")
+    bad = dataclasses.replace(dsc.search_config(nprobe=4, k=8),
+                              nprobe=iv.MAX_NPROBE + 1)
+    mesh = make_mesh_for(data=2, device="cuda")
+    with DistributedRetriever(mesh, dsc.params, dsc.shards, bad,
+                              payload_tokens=dsc.payload_tokens) as r:
+        q = torch.randn(4, cfg.d_model, device="cuda")
+        with pytest.raises(FabricError, match="ivf_index_scan"):
+            r.search(q)
+        fabric = r.router.fabric
+        assert all(fabric.alive()) and not fabric.closed
+        assert [n["searches"] for n in fabric.stats()] == [0, 0]
+        assert all(n["launches"]["ivf_scan_launch"] == 0
+                   for n in fabric.stats())
+    assert not any(fabric.alive())
