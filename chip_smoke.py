@@ -121,8 +121,8 @@ failure raises, so the run exits non-zero):
      and at interval 8 the per-sequence twin held by the near-tie rule.
      Each model's decode waves are profiled, and its peak memory
      printed. Their launch counts and kernel times join the kernel
-     report's rows under keys suffixed with the model's name. Every
-     corpus is cut to 2048 docs (Dec-L's included: 1 048 576 keys).
+     report's rows under keys suffixed with the model's name. Dec-L's
+     corpus is cut to 512 docs, the RETRO models' to 2048.
   7. the dense assigned backbones (assigned.*), after the paper's:
      decode attention at Llama-3-405B's (128:8) and Qwen2-VL-72B's
      (64:8) head layouts at D 128 on a seeded pool (neither model fits
@@ -139,6 +139,25 @@ failure raises, so the run exits non-zero):
      peak memory for one request's 4 rows, tokens/s, accuracy and a
      profile of 3 decode waves. The rows join the kernel report under
      ``_<model>`` keys.
+  8. the non-dense assigned backbones (assigned.*), after the dense
+     ones: decode attention at DBRX-132B's 48:8 D 128 head layout on a
+     seeded pool, and one full-width DBRX MoE FFN layer (16 experts of
+     d_ff 10 752, top-4, 6.3 GB of expert weights) on a 32-row wave, two
+     runs bit-equal, timed against the bytes of its experts (DBRX does
+     not fit the card); then Hymba-1.5B (attention and a Mamba head in
+     every block, 2 global + 30 local layers with 1024-slot rings, 25:5
+     heads of 64), RWKV-6-3B (no attention: decode-attention launches
+     must be 0; its recurrent state rides in the pool's rows) and
+     Phi-3.5-MoE (16 experts top-2, 32:8 heads of 128; depth cut to 16 of
+     32 layers, m cut to 128) at full width with seeded weights, each
+     with its own corpus and index (m 100, 160, 128), the kernels at its
+     shapes, the serve traffic fused and staged (tokens equal, launches
+     held to the dispatches), prefill time and peak memory for 4 rows,
+     the weight-read bound a wave, and a profile of 3 decode waves; then
+     SeamlessM4T-medium (12 + 12 layers, 16:16 heads of 64, vocab
+     256 206) through RETRO at interval 64, K 10, chunks of 64, fused,
+     staged, without retrieval and without a retriever (the share of
+     tokens retrieval moves must be > 0).
 
 The last two lines are the kernel report and the device line, each one
 JSON object. Without a GPU (or outside the repository) it exits non-zero
@@ -238,10 +257,11 @@ def build_index(torch, dev, label, cfg, params, docs, sizes, m,
     builder = DatastoreBuilder(dim=cfg.d_model, nlist=sizes["nlist"], m=m,
                                list_cap=None, device=str(dev))
     t1 = time.perf_counter()
-    keys, nxt = builder.corpus_keys(params, cfg, docs)
+    keys, nxt = builder.corpus_keys(params, cfg, docs,
+                                    batch=sizes.get("key_batch", 64))
     torch.cuda.synchronize()
     log(f"{label}.corpus_keys", t1, keys=tuple(keys.shape),
-        docs=docs.shape[0])
+        docs=docs.shape[0], doc_len=docs.shape[1])
     t2 = time.perf_counter()
     chunks = None if chunk_len is None else chunk_table(
         torch, torch.from_numpy(docs).to(dev), chunk_len)
@@ -890,8 +910,9 @@ def drive(torch, eng, cfg, prompts, truth, steps, label,
           every_flush_scans=True, traces=False):
     """One run of the traffic, with the launch counters zeroed just
     before and read just after. Every kernel must have launched exactly
-    as the engine dispatched: decode attention once per layer per LM step
-    (a wave, or one request's step on the per-sequence loop), the IVF
+    as the engine dispatched: decode attention once per attention layer
+    (none in RWKV-6) per LM step (a wave, or one request's step on the
+    per-sequence loop), the IVF
     probe once per scan the pipeline ran, and the scan kernel of the
     deployment (fused scan, or adc_scan per shard) once per scan
     dispatch; no other kernel. The pipeline scans once per search flush
@@ -902,6 +923,7 @@ def drive(torch, eng, cfg, prompts, truth, steps, label,
     retrieved ids per step."""
     import numpy as np
     from repro_torch.kernels import _build
+    from repro_torch.models.transformer import attention_layers
     from repro_torch.serve import RalmRequest
 
     service = eng.retriever.service
@@ -958,7 +980,7 @@ def drive(torch, eng, cfg, prompts, truth, steps, label,
     scan_kernel = ("chamvs_scan_launch" if pipeline.cfg.fused
                    else "adc_scan_launch")
     want = dict.fromkeys(launches, 0)
-    want.update({"decode_attn_launch": cfg.n_layers * waves,
+    want.update({"decode_attn_launch": attention_layers(cfg) * waves,
                  "ivf_scan_launch": len(scanned), scan_kernel: scans})
     retrieving = eng.rag.mode != "none"
     if scans != pipeline.scan_dispatches * len(scanned) or \
@@ -2633,20 +2655,24 @@ def run_phases(torch, dev, sizes):
 # The reference's ModelConfig.param_count() of each full config (the
 # weight matrices and embeddings; the port's count adds the norms).
 REFERENCE_PARAMS = {"dec_l": 1260732416, "encdec_s": 132661248,
-                    "encdec_l": 1688584192}
+                    "encdec_l": 1688584192,
+                    "seamless_m4t_medium": 977694720}
 # The index each model serves from: SYN-1024's shapes at d_model 1024
 # (m 64), SYN-512's at 512 (m 32); the corpus is Dec-S's (cut to
 # ``n_docs``), the traffic Dec-S's. RETRO models run at each interval
 # listed (the paper's densest, 8, and EncDec-S's registered 64). The
 # kernels run at Dec-L's new shapes (16 KV heads, D 1024, m 64) once.
-# Cuts for the script's time: every corpus is 2048 docs (1 048 576
-# keys; Dec-L's 4 194 304 keys over all 8192 took ~174 s on an H100 80GB
-# HBM3 at 700 W; the prompts and truth are the first 32 docs, which the
-# cut keeps), the profiles cover profile_steps - 1 waves
+# Cuts for the script's time: Dec-L's corpus is 512 docs (262 144 keys,
+# 2048 before; its 4 194 304 keys over all 8192 took ~174 s on an H100
+# 80GB HBM3 at 700 W; the prompts and truth are the first 32 docs, which
+# every cut keeps), the RETRO models' 2048 (1 048 576 keys: on smaller
+# corpora their per-sequence twins parted from their wave runs in more
+# requests than the near-tie rule's quarter, EncDec-S at 512 docs,
+# EncDec-L at 1024), the profiles cover profile_steps - 1 waves
 # (no retrieval in a RETRO window: steps 1-2), and the per-sequence twin
 # (``twin`` overrides the sizes) runs 4 requests, so that the near-tie
 # rule's quarter admits one, EncDec-L's for 16 steps (two retrievals).
-PAPER = (("dec_l", dict(m=64, n_docs=2048, intervals=(1,), kernels=True,
+PAPER = (("dec_l", dict(m=64, n_docs=512, intervals=(1,), kernels=True,
                         profile_steps=4)),
          ("encdec_s", dict(m=32, n_docs=2048, intervals=(8, 64),
                            profile_steps=3,
@@ -2664,7 +2690,17 @@ RETRO_XSCALE = 40.0
 def n_tensor_params(tree):
     if isinstance(tree, dict):
         return sum(n_tensor_params(v) for v in tree.values())
+    if isinstance(tree, tuple):            # the hybrid's MambaParams
+        return sum(n_tensor_params(v) for v in tree)
     return tree.numel()
+
+
+def n_tensor_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(n_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return sum(n_tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
 
 
 def chunk_table(torch, corpus, chunk_len):
@@ -2750,6 +2786,7 @@ def plain_run(torch, eng, cfg, prompts, steps, label):
     per wave; returns the generated tokens [R * rows, steps]."""
     import numpy as np
     from repro_torch.kernels import _build
+    from repro_torch.models.transformer import attention_layers
     from repro_torch.serve import RalmRequest
 
     torch.cuda.synchronize()
@@ -2763,7 +2800,7 @@ def plain_run(torch, eng, cfg, prompts, steps, label):
     waves = eng.decode_dispatches - waves0
     launches = {n: k.launches for n, k in _build.kernels().items()}
     want = dict.fromkeys(launches, 0)
-    want["decode_attn_launch"] = cfg.n_layers * waves
+    want["decode_attn_launch"] = attention_layers(cfg) * waves
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != {want}")
     log(label, t1, decode_waves=waves, launches=launches)
@@ -2858,7 +2895,7 @@ def paper_serve(torch, dev, name, opts, arch, cfg, params, ds, sizes,
                           label=f"{tag}.profile")
         del eng
         torch.cuda.empty_cache()
-    if retro:
+    if retro and opts.get("twin") is not None:
         rag = dataclasses.replace(arch.rag, interval=opts["intervals"][0])
         launches["per_sequence"] = serve_per_sequence(
             torch, dev, arch, cfg, params, ds, dict(sizes, **opts["twin"]),
@@ -2911,21 +2948,25 @@ def paper_phases(torch, dev, sizes, report):
 
 # The reference's ModelConfig.param_count() of each full config.
 ASSIGNED_PARAMS = {"qwen2_0_5b": 493961216, "phi3_mini_3_8b": 3820879872,
-                   "gemma3_4b": 3879731200}
+                   "gemma3_4b": 3879731200, "hymba_1_5b": 1391875200,
+                   "rwkv6_3b": 3114270720,
+                   # at the 16 layers served (41 872 261 120 at 32)
+                   "phi3_5_moe_42b": 21067464704}
 # Each model serves Dec-S's traffic shape (8 requests x 4 rows, 64
 # greedy tokens) from its own keys over its own seeded corpus (tokens
 # below its vocab and below Dec-S's 50 000), indexed at the reference's
 # default m = d_model // 16 (56, 192, 160: the scans' generic path).
-# Cuts for the script's time: the corpora (qwen2 2048 docs, phi3 1024,
-# gemma3 512: 1 048 576, 524 288 and 565 248 keys). Gemma-3's prompts are
+# Cuts for the script's time: the corpora (qwen2 1024 docs, phi3 512,
+# gemma3 256: 524 288, 262 144 and 282 624 keys; twice as many before).
+# Gemma-3's prompts are
 # 1040 tokens, so that its local layers' 1024-slot rings wrap in prefill
 # and again in decode; its documents are 1105 tokens (prompt + 64 steps
 # + 1).
 ASSIGNED_SERVED = (
-    ("qwen2_0_5b", dict(m=56, n_docs=2048)),
-    ("phi3_mini_3_8b", dict(m=192, n_docs=1024)),
-    ("gemma3_4b", dict(m=160, n_docs=512, doc_len=1105, prompt_len=1040,
-                       max_seq=1104)),
+    ("qwen2_0_5b", dict(m=56, n_docs=1024)),
+    ("phi3_mini_3_8b", dict(m=192, n_docs=512)),
+    ("gemma3_4b", dict(m=160, n_docs=256, doc_len=1105, prompt_len=1040,
+                       max_seq=1104, ring_wraps=True)),
 )
 # The two backbones that do not fit the card (810 GB and 144 GB of bf16
 # weights): decode attention at their full head layouts on a seeded
@@ -2980,6 +3021,8 @@ def assigned_setup(torch, dev, name, sizes):
     t0 = time.perf_counter()
     arch = get_arch(name)
     cfg = arch.model
+    if "n_layers" in sizes:                 # a depth cut (listed in PERF.md)
+        cfg = dataclasses.replace(cfg, n_layers=sizes["n_layers"])
     params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     rng = np.random.default_rng(0)
     corpus = rng.integers(0, min(cfg.vocab_size, 50000),
@@ -2990,9 +3033,11 @@ def assigned_setup(torch, dev, name, sizes):
         d_head=cfg.d_head, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
         layer_pattern=",".join(cfg.layer_pattern), window=cfg.window,
         qkv_bias=cfg.qkv_bias, tied=cfg.tie_embeddings, dtype=cfg.dtype,
+        block=cfg.block, experts=cfg.n_experts, top_k=cfg.top_k,
+        ssm_state=cfg.ssm_state, rope_mode=cfg.rope_mode,
         tensor_params=n_tensor_params(params),
         reference_param_count=ASSIGNED_PARAMS[name],
-        weight_bytes=n_tensor_params(params) * 2, rag=arch.rag)
+        weight_bytes=n_tensor_bytes(params), rag=arch.rag)
     keys, ds = build_index(torch, dev, f"assigned.{name}", cfg, params,
                            corpus, sizes, sizes["m"])
     queries = kernel_queries(torch, dev, keys, sizes)
@@ -3008,9 +3053,12 @@ def assigned_kernels(torch, dev, timer, name, cfg, arch, ds, queries, sizes,
     probe at its width; the fused scan and adc_scan at its m), each
     against its plain version and timed; the rows join the report's
     under ``_<name>`` keys."""
+    from repro_torch.models.transformer import attention_layers
+
     sub = {}
-    kernel_decode_attn(torch, dev, timer, cfg, sizes, sub,
-                       label=f"assigned.{name}.kernel.decode_attn")
+    if attention_layers(cfg):
+        kernel_decode_attn(torch, dev, timer, cfg, sizes, sub,
+                           label=f"assigned.{name}.kernel.decode_attn")
     if cfg.window:
         W = sizes["requests"] * sizes["rows"]
         T0, S = sizes["prompt_len"], sizes["max_seq"]
@@ -3038,7 +3086,8 @@ def assigned_serve(torch, dev, name, arch, cfg, params, corpus, ds, sizes):
     ``drive``), a profile of 3 decode waves, and the prefill's peak
     memory (one request's 4 rows; ``forward`` returns the prompt's
     [4, T0, vocab] logits). Gemma-3's local rings must be shorter than
-    the prompt (they wrap). Returns the fused and staged launch counts."""
+    the prompt where ``sizes["ring_wraps"]`` says so (they wrap).
+    Returns the fused and staged launch counts."""
     import numpy as np
 
     R, B, T0 = sizes["requests"], sizes["rows"], sizes["prompt_len"]
@@ -3051,9 +3100,11 @@ def assigned_serve(torch, dev, name, arch, cfg, params, corpus, ds, sizes):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    t_pre = time.perf_counter()
     eng.backend.prefill(arch.rag, torch.from_numpy(prompts[0]).to(dev),
                         sizes["max_seq"])
     torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t_pre) * 1e3
     prefill_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     run = drive(torch, eng, cfg, prompts, truth, steps,
                 f"assigned.{name}.run")
@@ -3070,11 +3121,12 @@ def assigned_serve(torch, dev, name, arch, cfg, params, corpus, ds, sizes):
     extra = {}
     if cfg.window:
         ring = eng.pool.caches["classes"]["local"]["k"].shape[2]
-        if not ring == cfg.window < T0:
+        wraps = ring == cfg.window < T0
+        if sizes.get("ring_wraps") and not wraps:
             raise AssertionError(f"assigned.{name}: local ring of {ring} "
                                  f"slots does not wrap under {T0}-token "
                                  "prompts")
-        extra = dict(local_ring_slots=ring, ring_wraps_in_prefill=True)
+        extra = dict(local_ring_slots=ring, ring_wraps_in_prefill=wraps)
     log(f"assigned.{name}.summary", t0,
         tokens_per_s=f"{run['tps']:.1f}",
         decode_ms_per_wave=f"{run['ms_wave']:.2f}",
@@ -3084,7 +3136,10 @@ def assigned_serve(torch, dev, name, arch, cfg, params, corpus, ds, sizes):
         staged_decode_ms_per_wave=f"{staged['ms_wave']:.2f}",
         launches=run["launches"], staged_launches=staged["launches"],
         prompt_len=T0, m=ds.index_cfg.m, nprobe=search_cfg.nprobe,
-        prefill_peak_gb_4_rows=f"{prefill_gb:.2f}", **extra)
+        prefill_ms_4_rows=f"{prefill_ms:.1f}",
+        prefill_peak_gb_4_rows=f"{prefill_gb:.2f}",
+        weight_read_bound_ms=f"{n_tensor_bytes(params) / HBM_BYTES_PER_S * 1e3:.3f}",
+        **extra)
     profile_waves(torch, eng, prompts, steps=4,
                   label=f"assigned.{name}.profile")
     del eng
@@ -3123,6 +3178,143 @@ def assigned_phases(torch, dev, sizes, report):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the non-dense assigned backbones: Hymba-1.5B, RWKV-6-3B and Phi-3.5-MoE
+# served at full width, SeamlessM4T-medium through RETRO; DBRX-132B's head
+# layout and one full-width MoE layer
+# ---------------------------------------------------------------------------
+
+# Dec-S's traffic shape again, each model on its own seeded corpus,
+# m = d_model // 16 where the LUT fits shared memory. Cuts: Phi-3.5-MoE's
+# depth 16 of 32 layers (32 are ~84 GB of bf16 weights, over the 80 GB
+# card) and its m 128 (the default 256 needs a 256 KB LUT, over the
+# 227 KB of shared memory a block may hold); the corpora (Hymba 512
+# docs, 262 144 keys; RWKV-6 256 docs of 544 tokens, 139 008 keys: 544
+# is 17 chunks of 32, so the keys' forward takes the chunked time mix,
+# 512 docs took 22.4 s of keys; Phi-3.5-MoE 512 docs, 262 144 keys;
+# SeamlessM4T 1024 docs, 524 288 keys). The kNN-LM keys of Hymba run its
+# Mamba loop, 128 documents a batch.
+NONDENSE_SERVED = (
+    ("hymba_1_5b", dict(m=100, n_docs=512, key_batch=128)),
+    ("rwkv6_3b", dict(m=160, n_docs=256, doc_len=544)),
+    ("phi3_5_moe_42b", dict(m=128, n_docs=512, n_layers=16)),
+)
+# SeamlessM4T-medium: a dense RETRO encoder-decoder (12 + 12 layers, 16:16
+# heads of 64, vocab 256 206) at its registered interval 64, K 10, chunks
+# of 64; its decode-attention shape is Dec-L's (16:16, D 64, timed there).
+SEAMLESS = (("seamless_m4t_medium", dict(m=64, n_docs=1024, intervals=(64,),
+                                         profile_steps=4)),)
+# DBRX-132B (~264 GB of bf16 weights) does not fit: its decode attention
+# at 48:8 D 128 (G 6) on a seeded pool at the serve shape, and one of its
+# MoE FFN layers at full width (d 6144, 16 experts of d_ff 10 752, top-4;
+# 6.3 GB) on a W-32 wave (None skips them).
+DBRX = "dbrx_132b"
+
+
+def dbrx_phases(torch, dev, timer, sizes, report):
+    """DBRX's head layout (decode attention against its plain version and
+    timed) and one full-width MoE FFN layer: two runs bit-equal, timed
+    against the bytes of its expert weights."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    cfg = get_arch(DBRX).model
+    W, S = sizes["requests"] * sizes["rows"], sizes["max_seq"]
+    row = decode_row(torch, dev, timer, f"assigned.{DBRX}.kernel.decode_attn",
+                     88, W, W + 1, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, S,
+                     0, False, sizes["prompt_len"], S - 1, S)
+    merge_rows(report, {"decode_attn": row}, DBRX)
+
+    t0 = time.perf_counter()
+    E, d, f, k = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.top_k
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def w(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype) * 0.02
+    router = w(d, E, dtype=torch.float32)
+    wg, wu, wd = w(E, d, f), w(E, d, f), w(E, f, d)
+    x = torch.randn((W, d), generator=g, device=dev, dtype=torch.bfloat16)
+    a = moe.moe_ffn(x, router, wg, wu, wd, k, act=cfg.act)
+    b = moe.moe_ffn(x, router, wg, wu, wd, k, act=cfg.act)
+    torch.cuda.synchronize()
+    if not (torch.equal(a, b) and bool(torch.isfinite(a).all())):
+        raise AssertionError("dbrx moe_ffn: two runs differ or not finite")
+    _, ids = moe.route_topk(x, router, k)
+    counts = torch.bincount(ids.reshape(-1), minlength=E)
+    C = moe.capacity(W, E, k)
+    ms = timer(lambda: moe.moe_ffn(x, router, wg, wu, wd, k, act=cfg.act))
+    nbytes = 3 * E * d * f * 2 + d * E * 4
+    bound_ms, bound_by = bound(nbytes, 0.0)
+    log(f"assigned.{DBRX}.moe_layer", t0, W=W, d=d, experts=E, d_ff=f,
+        top_k=k, capacity=C, experts_hit=int((counts > 0).sum()),
+        dropped=int((counts - C).clamp(min=0).sum()),
+        expert_bytes=nbytes, ms=f"{ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, tb_s=f"{nbytes / ms / 1e9:.3f}",
+        bit_equal_runs=True)
+    del wg, wu, wd
+    torch.cuda.empty_cache()
+
+
+def nondense_phases(torch, dev, sizes, report):
+    """DBRX's head layout and MoE layer; Hymba-1.5B, RWKV-6-3B and
+    Phi-3.5-MoE (16 layers) at full width, one after the other, each with
+    its own corpus and index, the kernels at its shapes and the serve
+    traffic fused and staged; then SeamlessM4T-medium through RETRO
+    (``paper_setup`` / ``paper_serve``: fused, staged, without retrieval,
+    the share of tokens retrieval moves)."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_arch
+
+    timer = Timer(torch)
+    if DBRX:
+        dbrx_phases(torch, dev, timer, sizes, report)
+    for name, over in NONDENSE_SERVED:
+        t0 = time.perf_counter()
+        msizes = dict(sizes, **over)
+        torch.cuda.reset_peak_memory_stats()
+        arch, cfg, params, corpus, ds, queries = assigned_setup(
+            torch, dev, name, msizes)
+        assigned_kernels(torch, dev, timer, name, cfg, arch, ds, queries,
+                         msizes, report)
+        counts = assigned_serve(torch, dev, name, arch, cfg, params, corpus,
+                                ds, msizes)
+        for kernel, sym, run in (
+                ("decode_attn", "decode_attn_launch", "fused"),
+                ("ivf_scan", "ivf_scan_launch", "fused"),
+                ("fused_scan", "chamvs_scan_launch", "fused"),
+                ("adc_scan", "adc_scan_launch", "staged")):
+            report[kernel][f"launches_{name}"] = counts[run][sym]
+        log(f"assigned.{name}", t0,
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        del arch, cfg, params, corpus, ds, queries
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, opts in SEAMLESS:
+        t0 = time.perf_counter()
+        vocab = get_arch(name).model.vocab_size
+        corpus = np.random.default_rng(0).integers(
+            0, min(vocab, 50000), size=(sizes["n_docs"], sizes["doc_len"]),
+            dtype=np.int32)
+        torch.cuda.reset_peak_memory_stats()
+        arch, cfg, params, ds, queries = paper_setup(torch, dev, name, opts,
+                                                     sizes, corpus)
+        counts = paper_serve(torch, dev, name, opts, arch, cfg, params, ds,
+                             sizes, corpus)
+        for kernel, sym, run in (
+                ("decode_attn", "decode_attn_launch", "fused"),
+                ("ivf_scan", "ivf_scan_launch", "fused"),
+                ("fused_scan", "chamvs_scan_launch", "fused"),
+                ("adc_scan", "adc_scan_launch", "staged")):
+            report[kernel][f"launches_{name}"] = counts[run][sym]
+        log(f"assigned.{name}", t0,
+            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        del arch, cfg, params, ds, queries
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import gc
 
@@ -3155,6 +3347,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     assigned_phases(torch, dev, dict(FULL), report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    nondense_phases(torch, dev, dict(FULL), report)
     kernels = [report[k] for k in ("decode_attn", "ivf_scan", "fused_scan",
                                    "adc_scan", "shared_scan",
                                    "hierarchical_topk")]

@@ -2,11 +2,12 @@
 
 The paper's four RALMs (Table 2) are registered: the kNN-LM decoders
 Dec-S and Dec-L and the RETRO encoder-decoders EncDec-S and EncDec-L;
-and the five dense assigned backbones, served as kNN-LMs: Qwen2-0.5B,
-Phi-3-mini, Gemma-3-4B, Llama-3-405B and Qwen2-VL-72B. ``get_arch``
-imports ``repro_torch.configs.<name>`` on first use, as the reference
-does; the other five assigned backbones (MoE, hybrid, RWKV6 and the
-audio encoder-decoder) are not ported yet and raise.
+and the ten assigned backbones: the dense Qwen2-0.5B, Phi-3-mini,
+Gemma-3-4B, Llama-3-405B and Qwen2-VL-72B, the MoE Phi-3.5-MoE and
+DBRX, the hybrid attention-and-Mamba Hymba-1.5B and the attention-free
+RWKV-6-3B, served as kNN-LMs, and SeamlessM4T-medium, a RETRO
+encoder-decoder. ``get_arch`` imports ``repro_torch.configs.<name>`` on
+first use, as the reference does.
 """
 from __future__ import annotations
 
@@ -24,9 +25,6 @@ ASSIGNED = (
     "phi3_5_moe_42b", "rwkv6_3b",
 )
 PAPER = ("dec_s", "dec_l", "encdec_s", "encdec_l")
-#: assigned backbones whose block family the port does not serve yet
-NOT_PORTED = ("seamless_m4t_medium", "hymba_1_5b", "dbrx_132b",
-              "phi3_5_moe_42b", "rwkv6_3b")
 
 # the assigned input-shape grid (LM transformer shapes: seq_len x global_batch)
 SHAPES: Dict[str, Dict] = {
@@ -61,10 +59,6 @@ def register(spec: ArchSpec) -> ArchSpec:
 
 def get_arch(name: str) -> ArchSpec:
     name = name.replace("-", "_").replace(".", "_")
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: its block family is not ported to repro_torch yet "
-            f"(ROADMAP Queue 1 item 12b)")
     if name not in _REGISTRY:
         importlib.import_module(f"repro_torch.configs.{name}")
     return _REGISTRY[name]

@@ -14,7 +14,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.ivfpq import IVFPQConfig, IVFPQParams, IVFPQShard
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import FLOAT32_LEAVES
+
+#: the reference's NamedTuple subtrees, by class name -> the port's
+NAMED_TUPLES = {"MambaParams": ssm.MambaParams}
 
 
 def _tensor(a: np.ndarray, device, float_dtype=None) -> torch.Tensor:
@@ -27,13 +32,19 @@ def _tensor(a: np.ndarray, device, float_dtype=None) -> torch.Tensor:
 def lm_params(tree: Mapping[str, Any], cfg: ModelConfig, device="cpu"
               ) -> Dict[str, Any]:
     """``repro.models.transformer.init_params`` layout (nested dicts of
-    numpy leaves: ``classes``, and an encoder-decoder's ``encoder`` tree
-    and cross-attention leaves) -> the port's params; float leaves take
-    ``cfg.dtype``."""
-    def conv(x):
+    numpy leaves: ``classes``, an encoder-decoder's ``encoder`` tree and
+    cross-attention leaves, the hybrid's ``mamba`` NamedTuple) -> the
+    port's params. A float leaf takes the reference's dtype: float32 for
+    ``FLOAT32_LEAVES`` (the MoE router, the Mamba head's ``a_log``,
+    ``dt_bias`` and ``d_skip``), ``cfg.dtype`` otherwise."""
+    def conv(x, name=None):
         if isinstance(x, Mapping):
-            return {k: conv(v) for k, v in x.items()}
-        return _tensor(np.asarray(x), device, cfg.torch_dtype)
+            return {k: conv(v, k) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return NAMED_TUPLES[type(x).__name__](
+                **{f: conv(getattr(x, f), f) for f in x._fields})
+        dtype = torch.float32 if name in FLOAT32_LEAVES else cfg.torch_dtype
+        return _tensor(np.asarray(x), device, dtype)
     return conv(tree)
 
 

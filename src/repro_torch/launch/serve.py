@@ -14,15 +14,15 @@ the staged per-shard scan (``search_config(fused=False)``).
 retrieval pool of two memory-node processes on the same device kind,
 one DB shard each (the datastore is built with as many shards), and
 prints the pools' step times and the fabric's traffic. ``--arch``
-serves the paper's decoders (``dec_s``, ``dec_l``) and the dense
-assigned backbones (``qwen2_0_5b``, ``phi3_mini_3_8b``, ``gemma3_4b``,
-``llama3_405b``, ``qwen2_vl_72b``; at published width where they fit
-the card, ``--reduced`` on either device) as kNN-LMs. The
-RETRO encoder-decoders (``encdec_s``, ``encdec_l``) are refused: the
+serves the paper's decoders (``dec_s``, ``dec_l``) and the assigned
+decoder backbones (dense: ``qwen2_0_5b``, ``phi3_mini_3_8b``,
+``gemma3_4b``, ``llama3_405b``, ``qwen2_vl_72b``; MoE:
+``phi3_5_moe_42b``, ``dbrx_132b``; hybrid: ``hymba_1_5b``; RWKV-6:
+``rwkv6_3b``; at published width where they fit the card,
+``--reduced`` on either device) as kNN-LMs. The RETRO encoder-decoders
+(``encdec_s``, ``encdec_l``, ``seamless_m4t_medium``) are refused: the
 launcher's datastore holds next tokens only, no chunk table, so their
 first retrieval would raise (the reference's launcher raises there).
-The non-dense assigned backbones are refused too: their block families
-are not ported.
 """
 from __future__ import annotations
 
@@ -128,10 +128,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--host", default="127.0.0.1",
                     help="gateway bind address (with --gateway)")
     args = ap.parse_args(argv)
-    try:
-        spec = get_arch(args.arch)
-    except NotImplementedError as err:
-        ap.error(f"--arch {args.arch}: {err}")
+    spec = get_arch(args.arch)
     if spec.model.arch == "encdec":
         ap.error(f"--arch {args.arch} is a RETRO encoder-decoder: this "
                  "launcher's datastore has no chunk table, so its first "

@@ -2,9 +2,8 @@
 
 The dtype stays a string (``"bfloat16"``, ``"float32"``) so configs
 compare and hash like the reference's; ``torch_dtype`` turns it into a
-``torch.dtype`` where tensors are made. The port serves the dense
-families (decoders, with RoPE or M-RoPE, and encoder-decoders); the
-fields of the other families are kept so configs convert one to one.
+``torch.dtype`` where tensors are made. Every field converts one to
+one from the reference's config.
 """
 from __future__ import annotations
 
@@ -25,7 +24,7 @@ class ModelConfig:
     vocab_size: int
     d_head: int = 0                      # 0 -> d_model // n_heads
 
-    block: str = "dense"                 # only "dense" is served here
+    block: str = "dense"                 # dense | moe | hybrid | rwkv6
     layer_pattern: Tuple[str, ...] = ("global",)
     window: int = 0                      # sliding window for "local" layers
 

@@ -13,12 +13,42 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
+def add_norm(h: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5):
+    """(h + y, rms_norm(h + y)) as the reference computes them under
+    XLA: the residual stream keeps the sum rounded to h's dtype, the norm
+    reads it before that rounding (XLA drops a bfloat16 round trip that
+    feeds a float32 convert)."""
+    s32 = h.float() + y.float()
+    var = (s32 * s32).mean(-1, keepdim=True)
+    return s32.to(h.dtype), (s32 * torch.rsqrt(var + eps)).to(h.dtype) * scale
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """Gated MLP: (act(x @ w_gate) * (x @ w_up)) @ w_down."""
-    g = x @ w_gate
-    g = F.silu(g) if act == "silu" else F.gelu(g)
-    return (g * (x @ w_up)) @ w_down
+    return (activation(x @ w_gate, act) * (x @ w_up)) @ w_down
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function as the reference computes it: in bfloat16,
+    XLA rounds after the exp, the sum and the reciprocal, and so does
+    this (``torch.sigmoid`` rounds once, and differs in ~30 % of bf16
+    inputs on [-8, 8]); other dtypes use ``torch.sigmoid``."""
+    if x.dtype == torch.bfloat16:
+        return 1 / (1 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x), rounded as the reference rounds it (``sigmoid``)."""
+    return x * sigmoid(x) if x.dtype == torch.bfloat16 else F.silu(x)
+
+
+def activation(g: torch.Tensor, act: str) -> torch.Tensor:
+    """The gate's activation: SiLU, or GELU in its tanh form (the
+    reference's ``jax.nn.gelu`` defaults to ``approximate=True``)."""
+    return F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:

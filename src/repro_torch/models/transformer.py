@@ -1,4 +1,4 @@
-"""The dense decoder stack (twin of ``repro.models.transformer``).
+"""The decoder stack (twin of ``repro.models.transformer``).
 
 Parameters keep the reference's layout leaf for leaf: ``embed``,
 ``final_norm`` (``lm_head`` when untied) and ``classes[cls][name]``,
@@ -8,15 +8,24 @@ params convert one to one (``repro_torch.convert``). Layers run in a
 Python loop in stack order; caches are updated in place.
 
 Modes: ``train`` (full sequence, no cache), ``prefill`` (full sequence,
-fills the cache), ``decode`` (one token per row against the cache). The
-port serves dense decoders (the paper's Dec-S and Dec-L; the assigned
-Qwen2-0.5B, Phi-3-mini, Gemma-3-4B with its local ring layers,
-Llama-3-405B, and Qwen2-VL-72B's backbone with M-RoPE, whose positions
-are [3, B, T]) and dense encoder-decoders (RETRO: EncDec-S and
-EncDec-L). An encoder-decoder's
-decoder layers carry a cross-attention (``lnx``, ``xwq``/``xwk``/``xwv``/
-``xwo``) over ``enc_states``, the output of ``encode`` over the
-retrieved chunks; it runs after the self-attention and before the MLP.
+fills the cache), ``decode`` (one token per row against the cache).
+The four block families of the reference are served: ``dense`` (the
+paper's Dec-S and Dec-L; Qwen2-0.5B, Phi-3-mini, Gemma-3-4B with its
+local ring layers, Llama-3-405B, and Qwen2-VL-72B's backbone with
+M-RoPE, whose positions are [3, B, T]), ``moe`` (Phi-3.5-MoE, DBRX:
+the FFN is ``moe.moe_ffn``), ``hybrid`` (Hymba: one normed input
+through attention and through ``ssm.mamba_scan``, the two outputs
+normed and averaged) and ``rwkv6`` (RWKV-6: time mix and channel mix,
+no attention), and dense encoder-decoders (RETRO: EncDec-S, EncDec-L,
+SeamlessM4T-medium). An encoder-decoder's decoder layers carry a
+cross-attention (``lnx``, ``xwq``/``xwk``/``xwv``/``xwo``) over
+``enc_states``, the output of ``encode`` over the retrieved chunks; it
+runs after the self-attention and before the MLP.
+
+Recurrent state (RWKV-6's ``wkv``/``st``/``sc``, the hybrid's
+``ssm``/``conv``) lives in the caches beside K/V. Over a slotted pool a
+wave gathers its rows by ``slots`` and writes them back in place; pad
+rows share the scratch slot, the only row written twice.
 
 The encoder's and the cross-attention's attention is the plain
 ``flash_attention`` (the reference's is plain jnp too, no Pallas). The
@@ -31,26 +40,38 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.kernels.decode_attn.ops import decode_attention
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import (flash_attention, prefill_cache,
                                           update_cache)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (position_tables, positional_rotate,
+from repro_torch.models.layers import (add_norm, position_tables,
+                                       positional_rotate,
                                        rms_norm, rope_tables, swiglu)
 
 Params = Dict[str, Any]
 
+BLOCKS = ("dense", "moe", "hybrid", "rwkv6")
+#: leaves the reference keeps in float32 whatever ``cfg.dtype`` is
+FLOAT32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip"})
 
-def _check_dense(cfg: ModelConfig) -> None:
-    """Dense decoders and dense encoder-decoders with RoPE, M-RoPE (or no
-    positions) are served; every other block family (MoE, hybrid, RWKV6)
-    is ROADMAP Queue 1 item 12b."""
-    if cfg.block != "dense" or cfg.arch not in ("decoder", "encdec") or \
+
+def _check_block(cfg: ModelConfig) -> None:
+    """The reference's block families (dense, MoE, hybrid attention and
+    Mamba, RWKV-6), in decoders and encoder-decoders, with RoPE, M-RoPE or
+    no positions; anything else raises."""
+    if cfg.block not in BLOCKS or cfg.arch not in ("decoder", "encdec") or \
             cfg.rope_mode not in ("rope", "mrope", "none"):
         raise NotImplementedError(
-            f"repro_torch serves dense decoders and dense encoder-decoders "
-            f"(RoPE or M-RoPE); got block={cfg.block!r} arch={cfg.arch!r} "
-            f"rope_mode={cfg.rope_mode!r} (the other block families: "
-            f"ROADMAP Queue 1 item 12b)")
+            f"repro_torch serves the blocks {BLOCKS} in decoders and "
+            f"encoder-decoders (RoPE, M-RoPE or none); got "
+            f"block={cfg.block!r} arch={cfg.arch!r} "
+            f"rope_mode={cfg.rope_mode!r}")
+
+
+def attention_layers(cfg: ModelConfig) -> int:
+    """Decoder layers that run decode attention (RWKV-6 has none)."""
+    return 0 if cfg.block == "rwkv6" else cfg.n_layers
 
 
 def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -77,7 +98,27 @@ def _init_block_class(gen: torch.Generator, cfg: ModelConfig, n: int,
     d, f = cfg.d_model, cfg.d_ff
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dt, dev = cfg.torch_dtype, gen.device
-    p: Params = {"ln1": torch.ones((n, d), dtype=dt, device=dev)}
+    f32 = torch.float32
+
+    def ones(*shape, dtype=dt):
+        return torch.ones((n,) + shape, dtype=dtype, device=dev)
+
+    if cfg.block == "rwkv6":
+        D = H * dh
+
+        def v(*shape, scale=0.02):
+            return _dense_init(gen, (n,) + shape, dt, scale)
+        return dict(
+            ln1=ones(d), ln2=ones(d),
+            mu_r=v(d, scale=0.5), mu_k=v(d, scale=0.5),
+            mu_v=v(d, scale=0.5), mu_g=v(d, scale=0.5),
+            mu_w=v(d, scale=0.5),
+            w_r=v(d, D), w_k=v(d, D), w_v=v(d, D), w_g=v(d, D), w_o=v(D, d),
+            w0=v(D, scale=0.5), w_lora_a=v(d, 64), w_lora_b=v(64, D),
+            bonus_u=v(H, dh, scale=0.5), ln_x=ones(D),
+            mu_ck=v(d, scale=0.5), mu_cr=v(d, scale=0.5),
+            w_ck=v(d, f), w_cv=v(f, d), w_cr=v(d, d))
+    p: Params = {"ln1": ones(d)}
     p["wq"] = _dense_init(gen, (n, d, H * dh), dt)
     p["wk"] = _dense_init(gen, (n, d, KV * dh), dt)
     p["wv"] = _dense_init(gen, (n, d, KV * dh), dt)
@@ -86,10 +127,29 @@ def _init_block_class(gen: torch.Generator, cfg: ModelConfig, n: int,
         p["bq"] = torch.zeros((n, H * dh), dtype=dt, device=dev)
         p["bk"] = torch.zeros((n, KV * dh), dtype=dt, device=dev)
         p["bv"] = torch.zeros((n, KV * dh), dtype=dt, device=dev)
-    p["ln2"] = torch.ones((n, d), dtype=dt, device=dev)
-    p["wg"] = _dense_init(gen, (n, d, f), dt)
-    p["wu"] = _dense_init(gen, (n, d, f), dt)
-    p["wd"] = _dense_init(gen, (n, f, d), dt)
+    p["ln2"] = ones(d)
+    if cfg.block == "moe":
+        E = cfg.n_experts
+        p["router"] = _dense_init(gen, (n, d, E), f32)
+        p["wg"] = _dense_init(gen, (n, E, d, f), dt)
+        p["wu"] = _dense_init(gen, (n, E, d, f), dt)
+        p["wd"] = _dense_init(gen, (n, E, f, d), dt)
+    else:
+        p["wg"] = _dense_init(gen, (n, d, f), dt)
+        p["wu"] = _dense_init(gen, (n, d, f), dt)
+        p["wd"] = _dense_init(gen, (n, f, d), dt)
+    if cfg.block == "hybrid":
+        d_in, ds, cw = H * dh, cfg.ssm_state, cfg.conv_width
+        p["mamba"] = ssm_lib.MambaParams(
+            w_in=_dense_init(gen, (n, d, 2 * d_in), dt),
+            conv_w=_dense_init(gen, (n, cw, d_in), dt, 0.2),
+            w_bcdt=_dense_init(gen, (n, d_in, 2 * ds + H), dt),
+            a_log=torch.zeros((n, H, ds), dtype=f32, device=dev),
+            dt_bias=torch.zeros((n, H), dtype=f32, device=dev),
+            d_skip=ones(H, dtype=f32),
+            w_out=_dense_init(gen, (n, d_in, d), dt))
+        p["ln_attn_out"] = ones(d)
+        p["ln_ssm_out"] = ones(d)
     if cross:
         p["lnx"] = torch.ones((n, d), dtype=dt, device=dev)
         p["xwq"] = _dense_init(gen, (n, d, H * dh), dt)
@@ -100,8 +160,9 @@ def _init_block_class(gen: torch.Generator, cfg: ModelConfig, n: int,
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Random weights (N(0, 0.02), norms at 1) on ``gen.device``."""
-    _check_dense(cfg)
+    """Random weights (N(0, 0.02), norms at 1; the reference's scales and
+    float32 leaves) on ``gen.device``."""
+    _check_block(cfg)
     dt, dev = cfg.torch_dtype, gen.device
     params: Params = {
         "embed": _dense_init(gen, (cfg.vocab_size, cfg.d_model), dt),
@@ -126,20 +187,36 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
 def init_cache(cfg: ModelConfig, B: int, max_seq: int,
                device="cpu", enc_len: int = 0) -> Params:
     """Per-class decode caches [n_layers_of_class, B, S, KV, dh]. Local
-    (sliding) classes get ring buffers of ``cfg.window`` slots. An
-    encoder-decoder with ``enc_len > 0`` also caches the cross K/V
-    (``xk``/``xv`` [n, B, enc_len, KV, dh], filled at prefill); with
-    ``enc_len=0`` (the serving engine's choice) decode recomputes them
-    from ``enc_states`` every step."""
-    _check_dense(cfg)
+    (sliding) classes get ring buffers of ``cfg.window`` slots. RWKV-6
+    caches its recurrent state instead (``wkv`` [n, B, H, dh, dh]
+    float32, the shifts ``st``/``sc`` [n, B, d]); a hybrid block adds the
+    Mamba state beside K/V (``ssm`` [n, B, H, dh, ssm_state] float32,
+    ``conv`` [n, B, conv_width - 1, H * dh]). An encoder-decoder with
+    ``enc_len > 0`` also caches the cross K/V (``xk``/``xv`` [n, B,
+    enc_len, KV, dh], filled at prefill); with ``enc_len=0`` (the
+    serving engine's choice) decode recomputes them from ``enc_states``
+    every step."""
+    _check_block(cfg)
     dt = cfg.torch_dtype
+    H, dh, d = cfg.n_heads, cfg.d_head, cfg.d_model
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     caches: Params = {"classes": {}}
     for cls in cfg.pattern_classes():
         n = len(cfg.class_layers(cls))
+        if cfg.block == "rwkv6":
+            caches["classes"][cls] = {
+                "wkv": zeros(n, B, H, dh, dh, dtype=torch.float32),
+                "st": zeros(n, B, d), "sc": zeros(n, B, d)}
+            continue
         S = cfg.window if (cls == "local" and cfg.window > 0) else max_seq
         shape = (n, B, S, cfg.n_kv_heads, cfg.d_head)
-        c = {"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}
+        c = {"k": zeros(*shape), "v": zeros(*shape)}
+        if cfg.block == "hybrid":
+            c["ssm"] = zeros(n, B, H, dh, cfg.ssm_state, dtype=torch.float32)
+            c["conv"] = zeros(n, B, cfg.conv_width - 1, H * dh)
         if cfg.arch == "encdec" and enc_len > 0:
             xshape = (n, B, enc_len, cfg.n_kv_heads, cfg.d_head)
             c["xk"] = torch.zeros(xshape, dtype=dt, device=device)
@@ -187,14 +264,13 @@ def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
     return out.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"]
 
 
-def _cross_attention(cfg, p, h, enc_states, mode, cache, slots=None):
-    """Cross-attention over the encoder states (RETRO), with its own
-    pre-norm ``lnx``; returns ``h + out @ xwo``. Decode reads the cached
-    cross K/V when the cache has them (gathered to the wave's rows under
-    ``slots``), else recomputes them from ``enc_states`` [B, S, d]
+def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None):
+    """Cross-attention over the encoder states (RETRO) of ``hn``, the
+    input normed by ``lnx``; returns ``out @ xwo``. Decode reads the
+    cached cross K/V when the cache has them (gathered to the wave's rows
+    under ``slots``), else recomputes them from ``enc_states`` [B, S, d]
     (already the wave's rows). Prefill fills a cross cache in place."""
-    B, T, _ = h.shape
-    hn = rms_norm(h, p["lnx"], cfg.norm_eps)
+    B, T, _ = hn.shape
     q = (hn @ p["xwq"]).reshape(B, T, cfg.n_heads, cfg.d_head)
     if mode == "decode" and cache is not None and "xk" in cache:
         xk, xv = cache["xk"], cache["xv"]
@@ -208,28 +284,116 @@ def _cross_attention(cfg, p, h, enc_states, mode, cache, slots=None):
         xv = (enc_states @ p["xwv"]).reshape(B, S, cfg.n_kv_heads,
                                              cfg.d_head)
     S = xk.shape[1]
-    qpos = torch.zeros((B, T), dtype=torch.int32, device=h.device)
-    kpos = torch.arange(S, device=h.device)[None].expand(B, S)
+    qpos = torch.zeros((B, T), dtype=torch.int32, device=hn.device)
+    kpos = torch.arange(S, device=hn.device)[None].expand(B, S)
     out = flash_attention(q, xk, xv, qpos, kpos, causal=False)
     if mode == "prefill" and cache is not None and "xk" in cache:
         cache["xk"].copy_(xk.to(cache["xk"].dtype))
         cache["xv"].copy_(xv.to(cache["xv"].dtype))
-    return h + out.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["xwo"]
+    return out.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["xwo"]
+
+
+def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The block's FFN: the gated MLP, or the MoE over the flattened
+    tokens (the capacity follows B * T)."""
+    if cfg.block == "moe":
+        B, T, d = x.shape
+        out = moe_lib.moe_ffn(x.reshape(B * T, d), p["router"], p["wg"],
+                              p["wu"], p["wd"], cfg.top_k, act=cfg.act)
+        return out.reshape(B, T, d).to(x.dtype)
+    return swiglu(x, p["wg"], p["wu"], p["wd"], cfg.act)
+
+
+def _rows(cache: Params, keys, slots) -> list:
+    """The wave's state rows of ``cache[key]`` (all rows without
+    ``slots``)."""
+    if slots is None:
+        return [cache[key] for key in keys]
+    idx = torch.as_tensor(slots, device=cache[keys[0]].device).long()
+    return [cache[key][idx] for key in keys]
+
+
+def _write_rows(cache: Params, rows: Dict[str, torch.Tensor], slots) -> None:
+    """Write state rows back into ``cache`` in place (by ``slots``)."""
+    idx = None if slots is None else torch.as_tensor(
+        slots, device=next(iter(rows.values())).device).long()
+    for key, val in rows.items():
+        if idx is None:
+            cache[key].copy_(val)
+        else:
+            cache[key][idx] = val.to(cache[key].dtype)
+
+
+def _residual_norm(cfg: ModelConfig, h: torch.Tensor, y: torch.Tensor,
+                   scale: torch.Tensor):
+    """(h + y, its RMS norm). The non-dense blocks norm the sum before it
+    is rounded, as XLA does (``layers.add_norm``): without it a bf16 ulp
+    flips a near-tied expert choice, or an RWKV-6 token, against the JAX
+    engine. Dense blocks norm the rounded sum: their tokens equal the
+    JAX engine's either way, and with the unrounded sum the reduced
+    Llama-3's tokens on the card parted from the CPU's at a near tie."""
+    if cfg.block == "dense":
+        h = h + y
+        return h, rms_norm(h, scale, cfg.norm_eps)
+    return add_norm(h, y, scale, cfg.norm_eps)
+
+
+def _rwkv6_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
+                 cache: Optional[Params], slots) -> torch.Tensor:
+    """RWKV-6: time mix then channel mix, each pre-normed and residual;
+    the state starts from the cache's rows (zeros without a cache) and
+    goes back into them."""
+    rp = ssm_lib.RWKV6Params(**{f: p[f] for f in ssm_lib.RWKV6Params._fields})
+    if cache is not None:
+        st = ssm_lib.RWKVState(*_rows(cache, ("wkv", "st", "sc"), slots))
+    else:
+        st = ssm_lib.rwkv6_init_state(h.shape[0], cfg.n_heads, cfg.d_head,
+                                      cfg.d_model, h.dtype, h.device)
+    y, wkv, sh_t = ssm_lib.rwkv6_time_mix_chunked(
+        rp, rms_norm(h, p["ln1"], cfg.norm_eps), st, cfg.n_heads)
+    h, hn = _residual_norm(cfg, h, y, p["ln2"])
+    y2, sh_c = ssm_lib.rwkv6_channel_mix(rp, hn, st.shift_c)
+    if cache is not None:
+        _write_rows(cache, dict(wkv=wkv, st=sh_t, sc=sh_c), slots)
+    return h + y2
 
 
 def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
                 positions: torch.Tensor, mode: str, cache: Optional[Params],
                 window: int, slots=None, kv_len=None, rope=None,
                 enc_states=None) -> torch.Tensor:
-    """One layer: pre-norm self-attention, the cross-attention when the
-    layer has one and ``enc_states`` are given, the gated MLP."""
+    """One layer: pre-norm self-attention (a hybrid block also runs the
+    normed input through the Mamba head and averages the two normed
+    outputs), the cross-attention when the layer has one and
+    ``enc_states`` are given, the FFN (gated MLP or MoE). RWKV-6 layers
+    are ``_rwkv6_block``."""
+    if cfg.block == "rwkv6":
+        return _rwkv6_block(cfg, p, h, cache, slots)
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-    h = h + _self_attention(cfg, p, hn, positions, mode, cache, window,
-                            slots=slots, kv_len=kv_len, rope=rope)
+    attn_out = _self_attention(cfg, p, hn, positions, mode, cache, window,
+                               slots=slots, kv_len=kv_len, rope=rope)
+    if cfg.block == "hybrid":
+        state = (None if cache is None
+                 else tuple(_rows(cache, ("ssm", "conv"), slots)))
+        ssm_out, (ssm_s, conv_s) = ssm_lib.mamba_scan(p["mamba"], hn, state)
+        attn_out = 0.5 * (rms_norm(attn_out, p["ln_attn_out"], cfg.norm_eps)
+                          + rms_norm(ssm_out, p["ln_ssm_out"], cfg.norm_eps))
+        if cache is not None:
+            _write_rows(cache, dict(ssm=ssm_s, conv=conv_s), slots)
     if enc_states is not None and "xwq" in p:
-        h = _cross_attention(cfg, p, h, enc_states, mode, cache, slots=slots)
-    return h + swiglu(rms_norm(h, p["ln2"], cfg.norm_eps), p["wg"], p["wu"],
-                      p["wd"], cfg.act)
+        h, hx = _residual_norm(cfg, h, attn_out, p["lnx"])
+        attn_out = _cross_attention(cfg, p, hx, enc_states, mode, cache,
+                                    slots=slots)
+    h, hn = _residual_norm(cfg, h, attn_out, p["ln2"])
+    return h + _ffn(cfg, p, hn)
+
+
+def _layer(leaf, idx: int):
+    """Layer ``idx`` of a stacked leaf (a NamedTuple of stacked leaves,
+    as the hybrid's ``mamba``, gives a NamedTuple of layer leaves)."""
+    if isinstance(leaf, tuple):
+        return type(leaf)(*(a[idx] for a in leaf))
+    return leaf[idx]
 
 
 def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
@@ -245,7 +409,7 @@ def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
     for cls in cfg.layer_classes():
         idx = seen.get(cls, 0)
         seen[cls] = idx + 1
-        p = {name: a[idx] for name, a in classes_params[cls].items()}
+        p = {name: _layer(a, idx) for name, a in classes_params[cls].items()}
         cache = (None if caches is None else
                  {name: a[idx] for name, a in caches["classes"][cls].items()})
         window = cfg.window if cls == "local" else 0
@@ -260,7 +424,7 @@ def encode(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor
     """The encoder: ``n_enc_layers`` bidirectional dense layers over
     ``enc_embeds`` [B, S, d] (the embedded retrieved chunks), then the
     encoder's final norm -> ``enc_states`` [B, S, d]."""
-    _check_dense(cfg)
+    _check_block(cfg)
     enc_cfg = _enc_cfg(cfg)
     B, S, _ = enc_embeds.shape
     pos = torch.arange(S, device=enc_embeds.device)[None].expand(B, S)
@@ -299,7 +463,7 @@ def hidden_states(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     key/query — without the unembedding. ``enc_states`` [B, S, d] feed
     an encoder-decoder's cross-attention (without them its decoder runs
     alone)."""
-    _check_dense(cfg)
+    _check_block(cfg)
     h = embed_tokens(params, tokens)
     B, T = h.shape[:2]
     if positions is None:

@@ -286,8 +286,12 @@ class SequenceState:
 
 
 def _to_device(tree: Any, device) -> Any:
+    """Params (nested dicts; the hybrid's ``mamba`` NamedTuple) on
+    ``device``."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to_device(v, device) for v in tree))
     return tree.to(device)
 
 

@@ -232,7 +232,9 @@ class KVCachePool:
 
     def write_prefill(self, slots: np.ndarray, caches: Any) -> None:
         """Copy a prefilled request's cache rows (built with the pool's
-        ``max_seq``) into its slots, in place."""
+        ``max_seq``) into its slots, in place: every leaf, recurrent
+        state included, so a reused slot keeps nothing of its last
+        sequence."""
         idx = torch.as_tensor(np.asarray(slots), device=self.device).long()
         for cls, c in caches["classes"].items():
             for key, rows in c.items():
@@ -290,13 +292,15 @@ class KVCachePool:
 
     def grow_seq(self, new_max_seq: int) -> None:
         """Extend the sequence axis of full-length (non-ring) K/V leaves;
-        written prefixes keep their positions. Stays seq-block aligned."""
+        written prefixes keep their positions. Stays seq-block aligned.
+        Recurrent state (RWKV-6's classes have no K/V) has no sequence
+        axis."""
         new_max_seq = self._align(new_max_seq)
         if new_max_seq <= self.max_seq:
             return
         delta = new_max_seq - self.max_seq
         for cls, c in self.caches["classes"].items():
-            if cls == "local" and self.cfg.window > 0:
+            if (cls == "local" and self.cfg.window > 0) or "k" not in c:
                 continue
             for key in ("k", "v"):
                 a = c[key]

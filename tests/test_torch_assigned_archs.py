@@ -101,7 +101,7 @@ def test_assigned_names_and_shapes_equal_reference():
         jax_list_archs(include_paper=False)
     from repro.configs import SHAPES
     assert tconfigs.SHAPES == SHAPES
-    assert set(tconfigs.NOT_PORTED) == set(NON_DENSE)
+    assert not hasattr(tconfigs, "NOT_PORTED")
     assert set(ARCHS) | set(NON_DENSE) == set(JAX_ASSIGNED)
 
 
@@ -118,12 +118,28 @@ def test_registry_fields_equal_reference(arch):
 
 
 @pytest.mark.parametrize("arch", NON_DENSE)
-def test_non_dense_get_arch_raises(arch):
-    """The assigned backbones of the block families the port has not yet
-    (MoE, hybrid, RWKV6, the audio encoder-decoder) raise, naming the
-    ROADMAP item that ports them."""
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        get_arch(arch)
+def test_non_dense_registry_fields_equal_reference(arch):
+    """The other five assigned backbones (MoE, hybrid, RWKV-6, the audio
+    encoder-decoder) are registered with the reference's fields:
+    Hymba's global + 15 local layers at window 1024, RWKV-6 without
+    positions, Seamless's audio frontend stub and RETRO rag."""
+    j, t = jax_arch(arch), get_arch(arch)
+    assert t.name == j.name and t.source == j.source
+    assert set(t.skip_shapes) == set(j.skip_shapes)
+    assert t.applicable_shapes() == j.applicable_shapes()
+    assert dataclasses.asdict(t.model) == dataclasses.asdict(j.model)
+    assert dataclasses.asdict(t.reduced) == dataclasses.asdict(j.reduced)
+    assert dataclasses.asdict(t.rag) == dataclasses.asdict(j.rag)
+    want = {"hymba_1_5b": ("hybrid", ("global",) + ("local",) * 15, 1024),
+            "rwkv6_3b": ("rwkv6", ("global",), 0),
+            "phi3_5_moe_42b": ("moe", ("global",), 0),
+            "dbrx_132b": ("moe", ("global",), 0),
+            "seamless_m4t_medium": ("dense", ("global",), 0)}[arch]
+    assert (t.model.block, t.model.layer_pattern, t.model.window) == want
+    if arch == "rwkv6_3b":
+        assert t.model.rope_mode == "none"
+    if arch == "seamless_m4t_medium":
+        assert t.model.frontend == "audio" and t.rag.mode == "retro"
 
 
 @pytest.mark.parametrize("d_head,sections", [(16, (2, 3, 3)),

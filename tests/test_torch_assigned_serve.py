@@ -117,16 +117,19 @@ def test_greedy_tokens_match_jax_engine(backbone, mode):
     check_greedy(backbone, mode)
 
 
-def test_launcher_serves_assigned_and_refuses_non_dense(capsys):
-    """``--arch qwen2_0_5b --reduced --device cpu`` serves through the
-    launcher; a non-dense assigned backbone is refused before anything
-    is built, naming the ROADMAP item that ports its family."""
+def test_launcher_serves_assigned_backbones(capsys):
+    """``--arch qwen2_0_5b``, ``rwkv6_3b`` (recurrent state in the pool)
+    and ``phi3_5_moe_42b`` (MoE) serve through the launcher, reduced on
+    the CPU; SeamlessM4T, a RETRO encoder-decoder, is refused before
+    anything is built (the launcher's datastore has no chunk table)."""
     from repro_torch.launch import serve as launch
 
-    launch.main(["--arch", "qwen2_0_5b", "--device", "cpu", "--reduced",
-                 "--steps", "2", "--requests", "1"])
-    assert "[serve] wave: 1 batches, 4 tokens" in capsys.readouterr().out
-    for arch in ("dbrx_132b", "rwkv6_3b"):
-        with pytest.raises(SystemExit):
-            launch.parse_args(["--arch", arch, "--device", "cpu"])
-        assert "item 12b" in capsys.readouterr().err
+    for arch in ("qwen2_0_5b", "rwkv6_3b", "phi3_5_moe_42b"):
+        launch.main(["--arch", arch, "--device", "cpu", "--reduced",
+                     "--steps", "2", "--requests", "1"])
+        assert "[serve] wave: 1 batches, 4 tokens" in \
+            capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        launch.parse_args(["--arch", "seamless_m4t_medium", "--device",
+                           "cpu"])
+    assert "no chunk table" in capsys.readouterr().err

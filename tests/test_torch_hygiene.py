@@ -47,7 +47,8 @@ assert {"repro_torch.launch.serve", "repro_torch.serve.gateway.server",
         "repro_torch.serve.gateway.admission",
         "repro_torch.serve.gateway.degrade", "repro_torch.launch.mesh",
         "repro_torch.retrieval.fabric",
-        "repro_torch.retrieval.router"} <= set(names), names
+        "repro_torch.retrieval.router", "repro_torch.models.moe",
+        "repro_torch.models.ssm"} <= set(names), names
 """)
     assert p.returncode == 0, p.stdout + p.stderr
 

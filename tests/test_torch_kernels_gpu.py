@@ -956,7 +956,126 @@ def test_assigned_reduced_engine_on_the_card_matches_the_cpu(arch, heads):
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):                 # the hybrid's MambaParams
+        return type(tree)(*(_to(v, device) for v in tree))
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the non-dense assigned backbones: Hymba-1.5B (25:5, D 64, global and a
+# 1024-slot ring), Phi-3.5-MoE (32:8, D 128), DBRX (48:8, D 128),
+# SeamlessM4T-medium (16:16, D 64); RWKV-6 has no attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,KV,D,S,window,ring,kv_len", [
+    (25, 5, 64, 512, 0, False, 512),        # hymba_1_5b global, G 5
+    (25, 5, 64, 512, 0, False, 464),        # hymba, the first kv_len crop
+    (25, 5, 64, 1024, 1024, True, None),    # hymba local: the ring
+    (32, 8, 128, 512, 0, False, 512),       # phi3_5_moe_42b, G 4
+    (48, 8, 128, 512, 0, False, 512),       # dbrx_132b, G 6
+    (16, 16, 64, 512, 0, False, 512),       # seamless_m4t_medium
+])
+def test_decode_attention_at_nondense_heads(dev, H, KV, D, S, window, ring,
+                                            kv_len):
+    """Each head layout over the serve pool (W 32, P 33) against the
+    plain version (2^-5) and a float32 oracle (2^-8)."""
+    _check_decode(dev, _gen(dev, 90 + D + H), H, KV, D, S, window, ring,
+                  kv_len, W=32, P=33)
+
+
+@pytest.mark.parametrize("N,top_k", [(32, 4), (32, 2), (448, 4)])
+def test_moe_ffn_on_the_card_is_deterministic(dev, N, top_k):
+    """The MoE FFN on the card (no atomics in its combine): two runs are
+    bit-equal, and the output agrees with the CPU's within 2^-5 of its
+    range (the bf16 GEMMs accumulate in other orders)."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(N + top_k)
+    E, d, f = 16, 256, 384
+    x = torch.randn((N, d), generator=g).bfloat16()
+    router = torch.randn((d, E), generator=g) * 0.1
+    ws = [torch.randn(shape, generator=g).mul(0.05).bfloat16()
+          for shape in ((E, d, f), (E, d, f), (E, f, d))]
+    cpu = moe.moe_ffn(x, router, *ws, top_k)
+    args = [t.to(dev) for t in (x, router, *ws)]
+    a = moe.moe_ffn(*args, top_k)
+    b = moe.moe_ffn(*args, top_k)
+    assert torch.equal(a, b)
+    scale = cpu.float().abs().max().item()
+    assert (a.float().cpu() - cpu.float()).abs().max().item() <= \
+        2 ** -5 * scale
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_3b", "phi3_5_moe_42b",
+                                  "dbrx_132b", "seamless_m4t_medium"])
+def test_nondense_reduced_engine_on_the_card_matches_the_cpu(arch):
+    """The reduced non-dense backbones served on the card give the CPU's
+    greedy tokens (kNN-LMs; SeamlessM4T through RETRO with xwv/xwo x 40),
+    decode attention launched once an attention layer a wave (never for
+    RWKV-6); one prefill + decode wave's logits agree within 2^-5 of
+    their range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import (DatastoreBuilder, EngineConfig, RagConfig,
+                                   RalmEngine, RalmRequest)
+
+    spec = get_arch(arch)
+    cfg = dataclasses.replace(spec.reduced, vocab_size=64)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    corpus = _bigram_corpus(64)
+    builder = DatastoreBuilder(dim=cfg.d_model, nlist=8, m=8, list_cap=512,
+                               device="cpu")
+    if cfg.arch == "encdec":
+        for leaf in ("xwv", "xwo"):
+            params["classes"]["global"][leaf] *= 40.0
+        keys, nxt = builder.corpus_keys(params, cfg, corpus)
+        n, L = corpus.shape
+        padded = np.concatenate([corpus, np.zeros((n, 4), np.int32)], 1)
+        idx = np.arange(L - 1)[:, None] + 1 + np.arange(4)[None, :]
+        ds = builder.build(keys, payload_tokens=nxt,
+                           chunk_table=padded[:, idx].reshape(-1, 4))
+        rag = RagConfig(mode="retro", interval=4, k=2, chunk_len=4)
+    else:
+        ds = builder.from_corpus(params, cfg, corpus)
+        rag = RagConfig(mode="knnlm", interval=1, k=8, lam=0.999,
+                        temperature=1.0)
+
+    def run(device):
+        eng = RalmEngine.from_config(
+            EngineConfig(model=cfg, rag=rag, async_retrieval=True), params,
+            ds, ds.search_config(nprobe=4, k=rag.k), device=device)
+        rids = [eng.submit(RalmRequest(prompt=torch.from_numpy(p), steps=s))
+                for p, s in ((corpus[:2, :12], 10), (corpus[2:5, :9], 8))]
+        by_id = {r.request_id: r.tokens for r in eng.run()}
+        return [np.asarray(by_id[r]) for r in rids], eng
+
+    before = da.KERNEL.launches
+    gpu, geng = run("cuda")
+    assert da.KERNEL.launches - before == \
+        tf.attention_layers(cfg) * geng.decode_dispatches
+    cpu, _ = run("cpu")
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_array_equal(a, b)
+
+    def wave_logits(device):
+        p = _to(params, device)
+        toks = torch.from_numpy(corpus[:4, :13]).to(device)
+        caches = tf.init_cache(cfg, 4, 16, device=device)
+        tf.forward(p, cfg, toks[:, :12], mode="prefill", caches=caches)
+        lg, _ = tf.decode_wave(p, cfg, caches, toks[:, 12:],
+                               torch.arange(4, device=device),
+                               torch.full((4,), 12, device=device), kv_len=16)
+        return lg.float().cpu()
+
+    lg_gpu, lg_cpu = wave_logits("cuda"), wave_logits("cpu")
+    scale = lg_cpu.abs().max().item()
+    assert (lg_gpu - lg_cpu).abs().max().item() <= 2 ** -5 * scale
 
 
 # ---------------------------------------------------------------------------

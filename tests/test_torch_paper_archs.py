@@ -215,15 +215,31 @@ def test_prefill_decode_consistency(arch):
 
 
 @pytest.mark.parametrize("arch,field", [
-    ("dbrx_132b", "block"), ("hymba_1_5b", "block"), ("rwkv6_3b", "block"),
-    ("phi3_5_moe_42b", "block")])
-def test_other_families_still_raise(arch, field):
-    """Every other block (MoE, hybrid, RWKV6) raises NotImplementedError,
-    naming the ROADMAP item that ports them (12b)."""
-    cfg = convert.model_config(dataclasses.asdict(jax_arch(arch).reduced))
-    with pytest.raises(NotImplementedError, match="item 12") as err:
-        ttf.init_params(torch.Generator().manual_seed(0), cfg)
-    assert field in str(err.value)
+    ("dbrx_132b", "router"), ("hymba_1_5b", "mamba"), ("rwkv6_3b", "wkv"),
+    ("phi3_5_moe_42b", "router")])
+def test_other_families_init_layout_equals_reference(arch, field):
+    """Every other block family (MoE, hybrid, RWKV-6) now initialises:
+    the port's own params and caches have the reference's leaf paths,
+    shapes and dtypes (the router and the Mamba head's float32 leaves
+    included); ``field`` is a leaf only that family has."""
+    jcfg = jax_arch(arch).reduced
+    tcfg = convert.model_config(dataclasses.asdict(jcfg))
+    jp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = ttf.init_params(torch.Generator().manual_seed(0), tcfg)
+
+    def leaves(tree):
+        return {tuple(getattr(k, "key", getattr(k, "name", None))
+                      for k in path): (tuple(x.shape), str(x.dtype))
+                for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    jl = leaves(jp)
+    tl = {p: (s, d.replace("torch.", "")) for p, (s, d) in leaves(tp).items()}
+    assert tl == jl
+    jc, tc = jtf.init_cache(jcfg, 3, 16), ttf.init_cache(tcfg, 3, 16)
+    assert {p: (s, d.replace("torch.", "")) for p, (s, d)
+            in leaves(tc).items()} == leaves(jc)
+    names = {p[-1] for p in tl} | {p[-1] for p in leaves(tc)} | \
+        {p[-2] for p in tl if len(p) > 2}
+    assert field in names
 
 
 def test_launcher_serves_dec_l_and_refuses_retro(capsys):
