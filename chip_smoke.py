@@ -158,6 +158,33 @@ failure raises, so the run exits non-zero):
      256 206) through RETRO at interval 64, K 10, chunks of 64, fused,
      staged, without retrieval and without a retriever (the share of
      tokens retrieval moves must be > 0).
+  9. training (train.*), after the serving phases, with no kernel of
+     the port on its path (the reference's training reaches no Pallas
+     call): train.dec_s trains Dec-S at full width (101.2M parameters,
+     bf16, seeded weights) on a seeded Markov-chain corpus read through
+     MemmapTokens (400 windows of 513 tokens under build/train/): seq
+     512, global batch 16 in 2 micro-batches, remat, AdamW, 30 steps
+     through the TrainController with a checkpoint every 10; it prints
+     the median step ms over steps 5-30, tokens/s, the share of the
+     bf16 dense peak (989 TFLOP/s) that 6 x N x tokens a step reaches,
+     peak memory, a synchronous checkpoint's write ms, and the losses,
+     which must fall. train.dec_s.resume runs it again crashed after
+     step 20 (SimulatedFailure) and resumed from the checkpoint with
+     fresh weights: every loss must equal the straight run's bit for
+     bit. train.encdec_s runs examples.train_retro --full (EncDec-S,
+     seq 512, batch 64, 640 encoder rows; steps cut from 200 to 8),
+     whose loss must fall. train.dp trains Dec-S on 2 data-parallel
+     ranks sharing the card (gloo, staged through host memory) for 4
+     steps with a checkpoint at 3; each of the first 3 losses must be
+     within 1e-3 of a one-rank run of the same global batch in this
+     process, and step 4 resumed on one rank from that checkpoint
+     (elastic_restore) within 1e-3 of the ranks'; it prints the
+     all-reduce's MB and ms a step. train.flash_attn holds the FA2
+     autograd Function at Dec-S's and EncDec-S's training shapes
+     against autograd through the plain masked softmax in float32 (out,
+     dq, dk, dv within 2^-8 of each one's range) and times its forward
+     and backward beside SDPA's (a yardstick only). Each line carries
+     the card's name and power limit.
 
 The last two lines are the kernel report and the device line, each one
 JSON object. Without a GPU (or outside the repository) it exits non-zero
@@ -3315,6 +3342,291 @@ def nondense_phases(torch, dev, sizes, report):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# training: Dec-S at full width (straight, crash and resume), EncDec-S's
+# RETRO example, two data-parallel ranks on the card, the FA2 backward
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12              # H100 SXM bf16 dense, tensor cores
+TRAIN_DEC_S = dict(seq_len=512, batch=16, microbatches=2, steps=30,
+                   ckpt_every=10, fail_at=20, windows=400, lr=1e-3,
+                   warmup=5)
+TRAIN_RETRO_STEPS = 8            # examples.train_retro --full, cut from 200
+TRAIN_DP = dict(ranks=2, steps=3, seq_len=512, batch=8)
+#: the training phases that run (tools/model_phases.py narrows them)
+TRAIN_PHASES = ("dec_s", "encdec_s", "dp", "flash_attn")
+FLASH_SHAPES = (   # name, B, T, S, H, KV, causal: the training shapes
+    ("dec_s", 8, 512, 512, 8, 8, True),            # a micro-batch of 8
+    ("encdec_s.cross", 64, 512, 640, 8, 8, False),
+    ("encdec_s.encoder", 64, 640, 640, 8, 8, False))
+
+
+def train_corpus(n_tokens: int, n_ids: int = 1024, seed: int = 0):
+    """A seeded first-order Markov chain over ``n_ids`` token ids (each
+    id's successor one of 4 fixed ids), so that a model can learn it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    succ = rng.integers(0, n_ids, size=(n_ids, 4))
+    pick = rng.integers(0, 4, size=n_tokens)
+    toks = np.zeros(n_tokens, np.int32)
+    for i in range(1, n_tokens):
+        toks[i] = succ[toks[i - 1], pick[i]]
+    return toks
+
+
+def train_root():
+    import shutil
+    root = ROOT / "build" / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    return root
+
+
+def step_stats(durations, tokens, n_params):
+    """Median, min and max step ms, tokens/s at the median, and the share
+    of the bf16 dense peak that 6 x N x tokens a step reaches."""
+    ms = sorted(d * 1e3 for d in durations)
+    med = median(ms)
+    return dict(step_ms_median=f"{med:.2f}", step_ms_min=f"{ms[0]:.2f}",
+                step_ms_max=f"{ms[-1]:.2f}",
+                tokens_per_s=f"{tokens / med * 1e3:.0f}",
+                bf16_peak_share=f"{6 * n_params * tokens / (med / 1e3) / BF16_FLOPS:.4f}")
+
+
+def train_dec_s(torch, dev, root, card):
+    """Dec-S at full width from seeded weights on a seeded Markov corpus
+    (MemmapTokens): a straight run, then the same run crashed after step
+    ``fail_at`` and resumed from its checkpoint, every loss bit-equal."""
+    import math
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, MemmapTokens
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault_tolerance import (SimulatedFailure,
+                                                     TrainController)
+
+    o = TRAIN_DEC_S
+    t0 = time.perf_counter()
+    cfg = get_arch("dec_s").model
+    MemmapTokens.write_corpus(root / "corpus.bin", train_corpus(
+        o["windows"] * o["seq_len"] + 1, min(1024, cfg.vocab_size)))
+    data = MemmapTokens(root / "corpus.bin", DataConfig(
+        seq_len=o["seq_len"], global_batch=o["batch"],
+        vocab_size=cfg.vocab_size))
+    ocfg = adamw.AdamWConfig(lr=o["lr"], warmup_steps=o["warmup"],
+                             total_steps=o["steps"])
+    step = build_train_step(cfg, ocfg, remat=True,
+                            microbatches=o["microbatches"])
+
+    def fresh():
+        p = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        return p, adamw.init_opt_state(p, ocfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    straight = TrainController(step, data, root / "straight",
+                               ckpt_every=o["ckpt_every"])
+    params, opt = straight.run(*fresh(), total_steps=o["steps"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in straight.metrics_log]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train.dec_s: losses {losses}")
+    tc = time.perf_counter()
+    ckpt.save(root / "sync", o["steps"], (params, opt))
+    ck_ms = (time.perf_counter() - tc) * 1e3
+    ck_bytes = sum(t.numel() * t.element_size()
+                   for t in tree_lib.leaves((params, opt)))
+    n = cfg.param_count()
+    log("train.dec_s", t0, card=f"'{card}'", params_m=f"{n / 1e6:.2f}",
+        seq=o["seq_len"], batch=o["batch"],
+        microbatches=o["microbatches"], remat=True, steps=o["steps"],
+        timed_steps=f"5-{o['steps']}",
+        **step_stats(straight.monitor.durations[5:],
+                     o["batch"] * o["seq_len"], n),
+        peak_mem_gb=f"{peak / 1e9:.2f}", ckpt_write_ms=f"{ck_ms:.1f}",
+        ckpt_mb=f"{ck_bytes / 1e6:.1f}", loss_first=f"{losses[0]:.4f}",
+        loss_last=f"{losses[-1]:.4f}")
+    print("  losses " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    del params, opt
+
+    t0 = time.perf_counter()
+    resumed = TrainController(step, data, root / "resume",
+                              ckpt_every=o["ckpt_every"])
+    resumed.fail_at = o["fail_at"]
+    try:
+        resumed.run(*fresh(), total_steps=o["steps"])
+    except SimulatedFailure:
+        pass
+    else:
+        raise AssertionError("train.dec_s.resume: no failure was injected")
+    resumed.run(*fresh(), total_steps=o["steps"])
+    got = {m["step"]: m["loss"] for m in resumed.metrics_log}
+    differ = [s for s in range(o["steps"]) if got.get(s) != losses[s]]
+    if differ:
+        s = differ[0]
+        raise AssertionError(
+            f"train.dec_s.resume: loss of step {s} {got.get(s)!r} != "
+            f"{losses[s]!r} ({len(differ)} steps differ)")
+    log("train.dec_s.resume", t0, fail_at=o["fail_at"],
+        resumed_from=o["fail_at"], steps=o["steps"],
+        losses_bit_equal=o["steps"])
+
+
+def train_encdec_s(torch, dev, root, card):
+    """``examples.train_retro --full`` (EncDec-S, Table 2, seq 512, batch
+    64, 640 encoder rows), steps cut to ``TRAIN_RETRO_STEPS``; the
+    example raises if the loss did not fall."""
+    from repro_torch.configs import get_arch
+    from repro_torch.examples import train_retro
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ctl = train_retro.main(["--full", "--steps", str(TRAIN_RETRO_STEPS),
+                            "--ckpt-dir", str(root / "retro"),
+                            "--device", dev.type])
+    losses = [m["loss"] for m in ctl.metrics_log]
+    cfg = get_arch("encdec_s").model
+    log("train.encdec_s", t0, card=f"'{card}'",
+        params_m=f"{cfg.param_count() / 1e6:.2f}", seq=512, batch=64,
+        enc_len=640, steps=TRAIN_RETRO_STEPS, timed_steps=f"2-{TRAIN_RETRO_STEPS}",
+        **step_stats(ctl.monitor.durations[2:], 64 * 512,
+                     cfg.param_count()),
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}")
+
+
+def train_dp(torch, dev, root, card):
+    """Dec-S at full width on two ranks sharing the card (gloo, staged
+    through host memory) for ``steps`` steps and one more from the
+    checkpoint: each step's loss within 1e-3 of a one-rank run of the
+    same global batch in this process, and step ``steps + 1`` resumed on
+    one rank (``elastic_restore``) within 1e-3 of the two ranks'."""
+    from repro_torch.launch import dp, train
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.runtime.fault_tolerance import elastic_restore
+
+    o = TRAIN_DP
+    t0 = time.perf_counter()
+    args = ["--arch", "dec_s", "--seq-len", str(o["seq_len"]),
+            "--batch", str(o["batch"]), "--steps", str(o["steps"] + 1),
+            "--ckpt-every", str(o["steps"]), "--ckpt-dir", str(root / "dp"),
+            "--device", dev.type]
+    lines = dp.launch(o["ranks"], "repro_torch.launch.train:run", args,
+                      device=dev.type, timeout_s=600)
+    ranks = {m["step"]: m for m in (json.loads(ln.split(" ", 3)[3])
+                                    for ln in lines
+                                    if ln.startswith("[train] step "))}
+    t_ranks = time.perf_counter() - t0
+    ns = train.parser().parse_args(args)
+    cfg, ocfg, params, opt, data = train.build(ns, dev)
+    step = build_train_step(cfg, ocfg)
+
+    def batch(s):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.host_batch(s).items()}
+    gaps = []
+    for s in range(o["steps"]):
+        params, opt, m = step(params, opt, batch(s))
+        gaps.append(abs(float(m["loss"]) - ranks[s]["loss"]))
+    (params, opt), at = elastic_restore(root / "dp", (params, opt),
+                                        dp.Group.single(dev), step=o["steps"])
+    _, _, m = step(params, opt, batch(o["steps"]))
+    gaps.append(abs(float(m["loss"]) - ranks[o["steps"]]["loss"]))
+    if not max(gaps) < 1e-3:
+        raise AssertionError(f"train.dp: loss gaps {gaps} (bound 1e-3)")
+    ar = [ranks[s]["allreduce_ms"] for s in sorted(ranks)]
+    log("train.dp", t0, card=f"'{card}'", ranks=o["ranks"],
+        backend=dp.backend_for(dev.type, o["ranks"]), seq=o["seq_len"],
+        global_batch=o["batch"], steps=len(ranks), resumed_at=at,
+        ranks_s=f"{t_ranks:.1f}",
+        loss_gaps=",".join(f"{g:.2e}" for g in gaps),
+        allreduce_mb=f"{ranks[0]['allreduce_bytes'] / 1e6:.1f}",
+        allreduce_ms=",".join(f"{x:.1f}" for x in ar))
+
+
+def train_flash_attn(torch, dev, root, card):
+    """The FA2 autograd Function at the training shapes (bf16) against
+    autograd through the plain masked softmax in float32 (out, dq, dk, dv
+    within 2^-8 of each one's range, max - min: rounding a bf16 output
+    alone costs up to 2^-8 of its largest magnitude), its forward and
+    backward timed beside
+    SDPA's (a yardstick: nothing on the path calls SDPA)."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention as attn
+
+    timer = Timer(torch, iters=10, warmup=2)
+    g = torch.Generator(device=dev).manual_seed(11)
+    for name, B, T, S, H, KV, causal in FLASH_SHAPES:
+        t0 = time.perf_counter()
+        D = 64
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).bfloat16()
+        q, k, v, do = rnd(B, T, H, D), rnd(B, S, KV, D), rnd(B, S, KV, D), \
+            rnd(B, T, H, D)
+        qpos = torch.arange(T, device=dev)[None].expand(B, T)
+        kpos = torch.arange(S, device=dev)[None].expand(B, S)
+        ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+        def fwd():
+            return attn.flash_attention(*ins, qpos, kpos, causal=causal)
+        out = fwd()
+        grads = torch.autograd.grad(out, ins, do, retain_graph=True)
+        ref_ins = [x.float().requires_grad_(True) for x in (q, k, v)]
+        s = torch.einsum("bthd,bshd->bhts", ref_ins[0], ref_ins[1]) \
+            * D ** -0.5
+        msk = attn._mask(qpos, kpos, causal, 0)[:, None]
+        w = torch.softmax(torch.where(msk, s, attn.NEG_INF), -1)
+        ref = torch.einsum("bhts,bshd->bthd", w, ref_ins[2])
+        ref_grads = torch.autograd.grad(ref, ref_ins, do.float())
+        errs = []           # of each output's range, max - min
+        for got, want in zip((out,) + grads, (ref,) + ref_grads):
+            errs.append((got.float() - want).abs().max().item()
+                        / (want.max() - want.min()).item())
+        del s, w, ref, ref_grads, ref_ins
+        if not max(errs) <= 2 ** -8:
+            raise AssertionError(f"train.flash_attn.{name}: errors {errs}")
+        fwd_ms = timer(fwd)
+        bwd_ms = timer(lambda: torch.autograd.grad(out, ins, do,
+                                                   retain_graph=True))
+        sq, sk, sv = (x.detach().transpose(1, 2).contiguous()
+                      .requires_grad_(True) for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(sq, sk, sv,
+                                                  is_causal=causal)
+        sout = sdpa()
+        sdo = do.transpose(1, 2).contiguous()
+        sdpa_fwd = timer(sdpa)
+        sdpa_bwd = timer(lambda: torch.autograd.grad(
+            sout, (sq, sk, sv), sdo, retain_graph=True))
+        log(f"train.flash_attn.{name}", t0, card=f"'{card}'", B=B, T=T, S=S,
+            H=H, KV=KV, causal=causal,
+            err_out_dq_dk_dv=",".join(f"{e:.2e}" for e in errs),
+            fwd_ms=f"{fwd_ms:.4f}", bwd_ms=f"{bwd_ms:.4f}",
+            sdpa_fwd_ms=f"{sdpa_fwd:.4f}", sdpa_bwd_ms=f"{sdpa_bwd:.4f}")
+        del out, grads, sout, ins
+        torch.cuda.empty_cache()
+
+
+def train_phases(torch, dev):
+    """The training phases named in ``TRAIN_PHASES``, in that order."""
+    import gc
+
+    phases = {"dec_s": train_dec_s, "encdec_s": train_encdec_s,
+              "dp": train_dp, "flash_attn": train_flash_attn}
+    card = nvidia_smi()
+    root = train_root()
+    for name in TRAIN_PHASES:
+        phases[name](torch, dev, root, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import gc
 
@@ -3350,6 +3662,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     nondense_phases(torch, dev, dict(FULL), report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phases(torch, dev)
     kernels = [report[k] for k in ("decode_attn", "ivf_scan", "fused_scan",
                                    "adc_scan", "shared_scan",
                                    "hierarchical_topk")]

@@ -1,8 +1,9 @@
 """Qwen2-VL-72B — M-RoPE, dynamic resolution [arXiv:2409.12191; hf].
 
-The vision frontend is not ported (the reference's is a stub that hands
-precomputed patch embeddings and M-RoPE position streams to the
-backbone); the port serves the backbone on text, whose three M-RoPE
+The vision frontend is a stub in the reference too: it hands precomputed
+patch embeddings and M-RoPE position streams to the backbone, which
+``transformer.lm_loss`` takes as a batch's ``embeds`` and [3, B, T]
+``positions``. The port serves the backbone on text, whose three M-RoPE
 streams are equal."""
 from repro_torch.configs import (ArchSpec, FULL_ATTENTION_SKIP, reduce_cfg,
                                  register)

@@ -3,7 +3,9 @@
 Inputs are numpy arrays only, so this module imports nothing of JAX:
 callers turn each reference leaf into numpy first (``np.array(x)``
 copies; a bfloat16 leaf crosses as float32, and casting it back to
-``torch.bfloat16`` here is exact).
+``torch.bfloat16`` here is exact). A leaf whose dtype and device do
+not change shares its array's memory, which a train step then updates
+in place.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.core.ivfpq import IVFPQConfig, IVFPQParams, IVFPQShard
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import FLOAT32_LEAVES
+from repro_torch.optim import adamw
 
 #: the reference's NamedTuple subtrees, by class name -> the port's
 NAMED_TUPLES = {"MambaParams": ssm.MambaParams}
@@ -46,6 +49,32 @@ def lm_params(tree: Mapping[str, Any], cfg: ModelConfig, device="cpu"
         dtype = torch.float32 if name in FLOAT32_LEAVES else cfg.torch_dtype
         return _tensor(np.asarray(x), device, dtype)
     return conv(tree)
+
+
+def _exact(a, device) -> torch.Tensor:
+    """A numpy leaf in its own dtype; a bfloat16 array (``ml_dtypes``,
+    numpy's view of a JAX bf16 leaf) crosses by its bytes."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        raw = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return raw.view(torch.bfloat16).to(device)
+    return _tensor(a, device)
+
+
+def opt_state(tree, device="cpu") -> adamw.OptState:
+    """A reference ``OptState`` (step, m, v) with numpy leaves -> the
+    port's, each leaf in its numpy dtype (bfloat16 moments as
+    ``ml_dtypes`` arrays, or float32)."""
+    def conv(x):
+        if isinstance(x, Mapping):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return NAMED_TUPLES[type(x).__name__](
+                **{f: conv(getattr(x, f)) for f in x._fields})
+        return _exact(x, device)
+    step, m, v = tree
+    return adamw.OptState(step=_exact(step, device).to(torch.int32),
+                          m=conv(m), v=conv(v))
 
 
 def model_config(fields: Mapping[str, Any]) -> ModelConfig:

@@ -3,12 +3,20 @@ train/prefill and the cache builders. Decode attention is
 ``repro_torch.kernels.decode_attn.ops.decode_attention`` (the CUDA
 kernel's wrapper; the reference routed between backends here).
 
-``flash_attention`` in the reference is plain jnp (a blocked online
-softmax, no Pallas). Here it is a plain masked softmax over the whole
-score matrix, with the reference's numerics: float32 scores, softmax
-weights cast to the value dtype for the PV product, float32 accumulation,
-division by the float32 row sum. For sequences within one of the
-reference's 512-wide KV blocks the two compute the same thing.
+``flash_attention`` is the reference's, in plain PyTorch as the
+reference's is plain jnp (no Pallas): Q and K/V blocked by 512 with an
+online softmax (float32 scores and accumulation, the probability tile
+cast to the value dtype for the PV product). The reference pads the
+last Q and K/V block to the full block, the keys at int32-max positions
+that every mask rejects; here the last block is shorter, which drops
+only padded query rows and zero probabilities (RETRO's 640 encoder rows
+were padded to 1024). Its backward is the reference's FA2 rule
+(``_flash_bwd_rule``), an autograd ``Function`` that saves only
+``q, k, v``, the positions, ``out`` and the per-row log-sum-exp and
+recomputes each probability tile in float32; the reference runs a dq
+pass and a dk/dv pass over the same tiles, this runs one pass that adds
+each tile into dq, dk and dv in the reference's orders (dq over K
+blocks, dk/dv over Q blocks), so the sums are the same.
 
 The JAX functions are pure; here ``prefill_cache`` and ``update_cache``
 write into the cache tensors they are given, in place (the reference
@@ -40,22 +48,122 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool, window: int
     return m
 
 
+def _flash_forward(q, k, v, q_positions, k_positions, causal, window,
+                   q_block, k_block, with_lse=True):
+    """(out [B, T, H, D] in q's dtype, lse [B, T, H] float32, or None
+    without ``with_lse``). A non-causal call without a window masks
+    nothing: every key is valid, as no block is padded."""
+    T, H, D = q.shape[1:]
+    S = k.shape[1]
+    qb, kb = min(q_block, T), min(k_block, S)
+    qkv = H // k.shape[2]
+    qf = q.float()
+    kf = _repeat_kv(k, qkv).float()
+    vr = _repeat_kv(v, qkv)
+    vf = vr.float()
+    masked = causal or window > 0
+    scale = D ** -0.5
+    outs, lses = [], []
+    for i in range(0, T, qb):
+        qblk, qbp = qf[:, i:i + qb], q_positions[:, i:i + qb]
+        acc = mx = sm = msk = None
+        for j in range(0, S, kb):
+            s = torch.einsum("bthd,bshd->bhts", qblk, kf[:, j:j + kb]) * scale
+            if masked:
+                msk = _mask(qbp, k_positions[:, j:j + kb], causal,
+                            window)[:, None]
+                s = torch.where(msk, s, NEG_INF)
+            new_mx = s.amax(-1) if mx is None else torch.maximum(
+                mx, s.amax(-1))
+            p = torch.exp(s - new_mx[..., None])
+            if masked:
+                p = torch.where(msk, p, 0.0)
+            pv = torch.einsum("bhts,bshd->bhtd", p.to(vr.dtype).float(),
+                              vf[:, j:j + kb])
+            if acc is None:         # the first block: the carry is zero
+                acc, sm = pv, p.sum(-1)
+            else:
+                corr = torch.exp(mx - new_mx)
+                sm = sm * corr + p.sum(-1)
+                acc = acc * corr[..., None] + pv
+            mx = new_mx
+        smc = torch.clamp(sm, min=1e-20)
+        outs.append((acc / smc[..., None]).permute(0, 2, 1, 3).to(q.dtype))
+        if with_lse:
+            lses.append((mx + torch.log(smc)).transpose(1, 2))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+    if not with_lse:
+        return out, None
+    return out, lses[0] if len(lses) == 1 else torch.cat(lses, 1)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash_forward`` with the reference's FA2 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, k_positions, causal, window,
+                q_block, k_block):
+        out, lse = _flash_forward(q, k, v, q_positions, k_positions,
+                                  causal, window, q_block, k_block)
+        ctx.save_for_backward(q, k, v, q_positions, k_positions, out, lse)
+        ctx.args = (causal, window, q_block, k_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_positions, k_positions, out, lse = ctx.saved_tensors
+        causal, window, q_block, k_block = ctx.args
+        B, T, H, D = q.shape
+        S, KV = k.shape[1], k.shape[2]
+        qkv = H // KV
+        qb, kb = min(q_block, T), min(k_block, S)
+        f32 = torch.float32
+        qf = q.to(f32)
+        kf = _repeat_kv(k, qkv).to(f32)
+        vf = _repeat_kv(v, qkv).to(f32)
+        dof = dout.to(f32)
+        lse = lse.transpose(1, 2)                            # [B,H,T]
+        scale = D ** -0.5
+        # D_i = rowsum(dOut * Out)
+        delta = torch.einsum("bthd,bthd->bht", dof, out.to(f32))
+        dq = torch.zeros_like(qf)
+        dk = torch.zeros_like(kf)
+        dv = torch.zeros_like(vf)
+        masked = causal or window > 0
+        for i in range(0, T, qb):
+            qblk, dob = qf[:, i:i + qb], dof[:, i:i + qb]
+            lseb, dltb = lse[..., i:i + qb, None], delta[..., i:i + qb, None]
+            for j in range(0, S, kb):
+                kblk, vblk = kf[:, j:j + kb], vf[:, j:j + kb]
+                s = torch.einsum("bthd,bshd->bhts", qblk, kblk) * scale
+                p = torch.exp(s - lseb)
+                if masked:
+                    p = torch.where(_mask(q_positions[:, i:i + qb],
+                                          k_positions[:, j:j + kb], causal,
+                                          window)[:, None], p, 0.0)
+                dp = torch.einsum("bthd,bshd->bhts", dob, vblk)
+                ds = p * (dp - dltb) * scale
+                dq[:, i:i + qb] += torch.einsum("bhts,bshd->bthd", ds, kblk)
+                dv[:, j:j + kb] += torch.einsum("bhts,bthd->bshd", p, dob)
+                dk[:, j:j + kb] += torch.einsum("bhts,bthd->bshd", ds, qblk)
+        # un-repeat GQA heads: sum each group's gradients
+        dk = dk.reshape(B, S, KV, qkv, D).sum(3)
+        dv = dv.reshape(B, S, KV, qkv, D).sum(3)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)
+
+
 def flash_attention(q, k, v, q_positions, k_positions, causal=True,
-                    window=0):
+                    window=0, q_block=512, k_block=512):
     """q [B,T,H,D], k/v [B,S,KV,D], positions [B,T]/[B,S] -> [B,T,H,D].
-    Fully masked rows give zero."""
-    D = q.shape[-1]
-    qkv = q.shape[2] // k.shape[2]
-    k, v = _repeat_kv(k, qkv), _repeat_kv(v, qkv)
-    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * D ** -0.5
-    msk = _mask(q_positions, k_positions, causal, window)[:, None]
-    s = torch.where(msk, s, NEG_INF)
-    mx = s.amax(-1, keepdim=True)
-    p = torch.where(msk, torch.exp(s - mx), torch.zeros_like(s))
-    sm = p.sum(-1, keepdim=True)
-    pv = torch.einsum("bhts,bshd->bhtd", p.to(v.dtype).float(), v.float())
-    out = pv / torch.clamp(sm, min=1e-20)
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    Fully masked rows give zero. Differentiable through the FA2
+    backward, which keeps no score tile; without gradients (serving) the
+    forward runs alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, q_positions, k_positions,
+                                     causal, window, q_block, k_block)
+    return _flash_forward(q, k, v, q_positions, k_positions, causal, window,
+                          q_block, k_block, with_lse=False)[0]
 
 
 def prefill_cache(k_cache, v_cache, k_new, v_new, ring: bool = False):

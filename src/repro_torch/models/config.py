@@ -58,6 +58,34 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    def param_count(self) -> int:
+        """Total parameters (embedding + blocks), for 6ND model-flops math."""
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab_size
+        nh, nkv, dh = self.n_heads, self.n_kv_heads, self.d_head
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.block == "rwkv6":
+            # r,k,v,g,w projections + output + ffn(2 mats) + small lora decays
+            tmix = d * (nh * dh) * 4 + d * (nh * dh) + d * 64 * 2 * 5
+            cmix = d * f + f * d + d * d
+            blk = tmix + cmix
+        else:
+            attn = d * nh * dh + 2 * d * nkv * dh + nh * dh * d
+            if self.block == "moe":
+                mlp = self.n_experts * 3 * d * f + d * self.n_experts
+            else:
+                mlp = 3 * d * f
+            blk = attn + mlp
+            if self.block == "hybrid":
+                d_in = nh * dh
+                blk += 2 * d * d_in + d_in * (2 * self.ssm_state + 1) + d_in * d
+        enc = 0
+        if self.arch == "encdec":
+            # encoder layers + decoder cross-attention
+            enc_attn = d * nh * dh + 2 * d * nkv * dh + nh * dh * d
+            enc = self.n_enc_layers * (enc_attn + 3 * d * f)
+            blk += enc_attn  # cross-attn per decoder layer
+        return emb + L * blk + enc
+
     def pattern_classes(self) -> Tuple[str, ...]:
         """Distinct layer-class names in stack order of first appearance."""
         seen, out = set(), []

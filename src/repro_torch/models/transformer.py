@@ -27,17 +27,25 @@ Recurrent state (RWKV-6's ``wkv``/``st``/``sc``, the hybrid's
 wave gathers its rows by ``slots`` and writes them back in place; pad
 rows share the scratch slot, the only row written twice.
 
-The encoder's and the cross-attention's attention is the plain
-``flash_attention`` (the reference's is plain jnp too, no Pallas). The
-reference blocks its KV axis by 512 with an online softmax; here the
-whole score row is one softmax, so for encoder widths above 512 (RETRO's
-K x chunk_len = 640) the two round the softmax weights differently.
+The encoder's and the cross-attention's attention, and train and prefill
+self-attention, is ``flash_attention``: plain PyTorch as the reference's
+is plain jnp (no Pallas), blocked by 512 with an online softmax and the
+reference's FA2 backward.
+
+Training: ``lm_loss`` is the reference's next-token cross-entropy over
+``forward`` in train mode, from tokens or from ``embeds`` (Qwen2-VL's
+vision stub), with an encoder-decoder's ``enc_embeds`` through
+``encode``. ``remat=True`` recomputes each ``layer_pattern`` cycle in the
+backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint(apply_cycle)``); the layers of a last partial cycle
+keep their activations, as the reference's unrolled tail does.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attn.ops import decode_attention
 from repro_torch.models import moe as moe_lib
@@ -399,24 +407,41 @@ def _layer(leaf, idx: int):
 def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
                 positions: torch.Tensor, mode: str,
                 caches: Optional[Params] = None, slots=None,
-                kv_len=None, enc_states=None) -> torch.Tensor:
+                kv_len=None, enc_states=None, remat: bool = False
+                ) -> torch.Tensor:
     """All ``n_layers`` in stack order; layer ``i`` of class ``cls`` is
     index ``class_layers(cls).index(i)`` of that class's stacked leaves.
     The rotation tables (RoPE, or M-RoPE's from its per-frequency
-    positions) are computed once and shared by every layer."""
+    positions) are computed once and shared by every layer. ``remat``
+    checkpoints each full ``layer_pattern`` cycle."""
     rope = position_tables(positions, cfg, cfg.d_head)
     seen: Dict[str, int] = {}
+    layers = []
     for cls in cfg.layer_classes():
         idx = seen.get(cls, 0)
         seen[cls] = idx + 1
-        p = {name: _layer(a, idx) for name, a in classes_params[cls].items()}
-        cache = (None if caches is None else
-                 {name: a[idx] for name, a in caches["classes"][cls].items()})
-        window = cfg.window if cls == "local" else 0
-        h = apply_block(cfg, p, h, positions, mode, cache, window,
-                        slots=slots, kv_len=kv_len, rope=rope,
-                        enc_states=enc_states)
-    return h
+        layers.append((cls, idx))
+
+    def run(h, chunk):
+        for cls, idx in chunk:
+            p = {name: _layer(a, idx)
+                 for name, a in classes_params[cls].items()}
+            cache = (None if caches is None else
+                     {name: a[idx]
+                      for name, a in caches["classes"][cls].items()})
+            window = cfg.window if cls == "local" else 0
+            h = apply_block(cfg, p, h, positions, mode, cache, window,
+                            slots=slots, kv_len=kv_len, rope=rope,
+                            enc_states=enc_states)
+        return h
+
+    period = len(cfg.layer_pattern)
+    n_full = len(layers) // period * period
+    if remat:
+        for c in range(0, n_full, period):
+            h = checkpoint(run, h, layers[c:c + period], use_reentrant=False)
+        return run(h, layers[n_full:])
+    return run(h, layers)
 
 
 def encode(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor
@@ -455,35 +480,74 @@ def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor
     return h @ head
 
 
-def hidden_states(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+def hidden_states(params: Params, cfg: ModelConfig,
+                  tokens: Optional[torch.Tensor] = None,
                   positions: Optional[torch.Tensor] = None,
                   mode: str = "train", caches: Optional[Params] = None,
-                  slots=None, kv_len=None, enc_states=None) -> torch.Tensor:
+                  slots=None, kv_len=None, enc_states=None,
+                  embeds: Optional[torch.Tensor] = None,
+                  remat: bool = False) -> torch.Tensor:
     """The stack's output [B, T, d] before the final norm — the kNN-LM
-    key/query — without the unembedding. ``enc_states`` [B, S, d] feed
-    an encoder-decoder's cross-attention (without them its decoder runs
-    alone)."""
+    key/query — without the unembedding. ``embeds`` [B, T, d] stand in
+    for the token lookup (a modality stub). ``enc_states`` [B, S, d]
+    feed an encoder-decoder's cross-attention (without them its decoder
+    runs alone)."""
     _check_block(cfg)
-    h = embed_tokens(params, tokens)
+    h = embed_tokens(params, tokens) if embeds is None else embeds
     B, T = h.shape[:2]
     if positions is None:
         positions = torch.arange(T, device=h.device)[None].expand(B, T)
     return apply_stack(cfg, params["classes"], h, positions, mode, caches,
-                       slots=slots, kv_len=kv_len, enc_states=enc_states)
+                       slots=slots, kv_len=kv_len, enc_states=enc_states,
+                       remat=remat)
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+def forward(params: Params, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None, mode: str = "train",
             caches: Optional[Params] = None, return_hidden: bool = False,
-            slots=None, kv_len=None, enc_states=None):
-    """Full forward over ``tokens`` [B, T]. Returns (logits [B, T, V],
-    caches[, hidden [B, T, d]]); ``caches`` are filled in place."""
+            slots=None, kv_len=None, enc_states=None,
+            embeds: Optional[torch.Tensor] = None, remat: bool = False):
+    """Full forward over ``tokens`` [B, T] or ``embeds`` [B, T, d].
+    Returns (logits [B, T, V], caches[, hidden [B, T, d]]); ``caches``
+    are filled in place."""
     h = hidden_states(params, cfg, tokens, positions, mode, caches,
-                      slots=slots, kv_len=kv_len, enc_states=enc_states)
+                      slots=slots, kv_len=kv_len, enc_states=enc_states,
+                      embeds=embeds, remat=remat)
     logits = unembed(params, cfg, h)
     if return_hidden:
         return logits, caches, h
     return logits, caches
+
+
+def nll_sum(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+            remat: bool = True):
+    """(the summed next-token negative log-likelihood over the valid
+    labels, their count): ``lm_loss`` before its division, which a
+    data-parallel step sums over ranks first."""
+    enc_states = (encode(params, cfg, batch["enc_embeds"])
+                  if "enc_embeds" in batch else None)
+    logits, _ = forward(params, cfg, batch.get("tokens"),
+                        positions=batch.get("positions"), mode="train",
+                        enc_states=enc_states, embeds=batch.get("embeds"),
+                        remat=remat)
+    labels = batch["labels"].long()
+    logits = logits.float()
+    mask = labels >= 0
+    lse = torch.logsumexp(logits, -1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+            remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy, the mean over valid tokens (labels < 0
+    are ignored). ``batch``: "tokens" [B, T] or "embeds" [B, T, d],
+    "labels" [B, T], optional "positions" ([B, T], or [3, B, T] under
+    M-RoPE) and "enc_embeds" [B, S, d] (an encoder-decoder's retrieved
+    chunks, through ``encode``)."""
+    total, count = nll_sum(params, cfg, batch, remat)
+    return total / count.clamp(min=1)
 
 
 def _step_positions(cfg: ModelConfig, position: torch.Tensor

@@ -70,6 +70,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.runtime.procs import drain, reap, watch_parent
+
 SRC = pathlib.Path(__file__).resolve().parents[2]
 TAG_MSG, TAG_DATA = 0, 1
 MSG_BYTES = 1 << 15             # a message packed whole up to this size
@@ -198,26 +200,6 @@ class OpCounter:
     #                               ``seconds`` is the fabric's
 
 
-def _reap(procs: List[subprocess.Popen], grace_s: float = 0.0) -> None:
-    """Wait up to ``grace_s`` for the nodes to exit, then terminate and
-    kill what is left."""
-    deadline = time.monotonic() + grace_s
-    for p in procs:
-        try:
-            p.wait(max(0.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            pass
-    for p in procs:
-        if p.poll() is None:
-            p.terminate()
-    for p in procs:
-        try:
-            p.wait(2.0)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            p.wait()
-
-
 class Fabric:
     """One coordinator and ``len(devices)`` memory-node processes."""
 
@@ -237,7 +219,7 @@ class Fabric:
         self._inbox = [torch.empty(MSG_BYTES, dtype=torch.uint8)
                        for _ in self.devices]
         self._tails: List[collections.deque] = []
-        self._finalizer = weakref.finalize(self, _reap, self._procs)
+        self._finalizer = weakref.finalize(self, reap, self._procs)
         if any(torch.device(d).type == "cuda" for d in self.devices):
             from repro_torch.kernels import _build
             _build.library()
@@ -261,7 +243,7 @@ class Fabric:
                 self._procs.append(proc)
                 tail = collections.deque(maxlen=60)
                 self._tails.append(tail)
-                threading.Thread(target=_drain, args=(proc.stdout, tail),
+                threading.Thread(target=drain, args=(proc.stdout, tail),
                                  daemon=True).start()
             self._pg = self._connect(store, time.monotonic() +
                                      START_TIMEOUT_S)
@@ -424,14 +406,9 @@ class Fabric:
                                              {"op": "stop"}, []))
                     except Exception:       # node already gone
                         pass
-        _reap(self._procs, JOIN_TIMEOUT_S if pending else 0.0)
+        reap(self._procs, JOIN_TIMEOUT_S if pending else 0.0)
         self._pg = None
         self._finalizer.detach()
-
-
-def _drain(stream, tail: collections.deque) -> None:
-    for line in stream:
-        tail.append(line)
 
 
 # ---------------------------------------------------------------------------
@@ -527,22 +504,6 @@ class MemoryNode:
         return out
 
 
-def _watch_parent(pid: int) -> None:
-    """Exit this node when the coordinator's process is gone."""
-    def watch():
-        while True:
-            try:
-                os.kill(pid, 0)
-            except ProcessLookupError:
-                os._exit(0)
-            except PermissionError:
-                pass
-            if os.getppid() != pid:
-                os._exit(0)
-            time.sleep(0.5)
-    threading.Thread(target=watch, daemon=True).start()
-
-
 def node_main(argv: Optional[Sequence[str]] = None) -> None:
     """A memory node's loop: receive, serve, reply, until ``stop`` or
     until the coordinator goes away."""
@@ -553,7 +514,7 @@ def node_main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", required=True)
     ap.add_argument("--parent", type=int, required=True)
     args = ap.parse_args(argv)
-    _watch_parent(args.parent)
+    watch_parent(args.parent)
     torch.set_num_threads(NODE_THREADS)
     dev = torch.device(args.device)
     if dev.type == "cuda":

@@ -1,7 +1,8 @@
 """Package rules of the port, each checked in a fresh subprocess:
 
-  * importing every ``repro_torch`` module and ``chip_smoke.py`` leaves
-    ``jax`` and ``repro`` out of ``sys.modules``;
+  * importing every ``repro_torch`` module (the training modules
+    included) and ``chip_smoke.py`` leaves ``jax`` and ``repro`` out of
+    ``sys.modules``;
   * ``RalmEngine.from_config`` without a device raises when CUDA is
     absent, and ``chip_smoke.py`` exits non-zero without printing a
     result (also when it stands alone, outside the repository);
@@ -48,7 +49,12 @@ assert {"repro_torch.launch.serve", "repro_torch.serve.gateway.server",
         "repro_torch.serve.gateway.degrade", "repro_torch.launch.mesh",
         "repro_torch.retrieval.fabric",
         "repro_torch.retrieval.router", "repro_torch.models.moe",
-        "repro_torch.models.ssm"} <= set(names), names
+        "repro_torch.models.ssm", "repro_torch.launch.train",
+        "repro_torch.launch.steps", "repro_torch.launch.dp",
+        "repro_torch.optim.adamw", "repro_torch.optim.compression",
+        "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
+        "repro_torch.examples.train_retro", "repro_torch.tree",
+        "repro_torch.runtime.procs"} <= set(names), names
 """)
     assert p.returncode == 0, p.stdout + p.stderr
 

@@ -1194,3 +1194,125 @@ def test_disaggregated_node_kernel_refusal_raises_at_the_coordinator():
         assert all(n["launches"]["ivf_scan_launch"] == 0
                    for n in fabric.stats())
     assert not any(fabric.alive())
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the reduced train steps against the CPU's, a crash
+# and resume bit for bit, the FA2 backward against plain autograd
+# ---------------------------------------------------------------------------
+
+def _train_batch(cfg, seed, B=4, T=32):
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].clone()}
+    batch["labels"][0, 5] = -1
+    if cfg.arch == "encdec":
+        batch["enc_embeds"] = torch.randn(
+            (B, 16, cfg.d_model), generator=g).to(cfg.torch_dtype)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["dec_s", "encdec_s", "hymba_1_5b"])
+def test_reduced_train_steps_on_the_card_match_the_cpu(dev, arch):
+    """Three train steps (bf16, bf16 moments, remat) from the same seeded
+    weights: each loss within 2^-7 relative of the CPU's, every
+    parameter leaf after them within 2^-5 of its range plus 2 x lr a
+    step (Adam's normalised step moves an element whose near-zero
+    gradient parts in sign between the two devices by up to lr, either
+    way)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+
+    cfg = get_arch(arch).reduced
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = build_train_step(cfg, ocfg)
+    cpu = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    gpu = tree_lib.map(lambda t: t.to(dev, copy=True), cpu)
+    cpu_opt = adamw.init_opt_state(cpu, ocfg)
+    gpu_opt = adamw.init_opt_state(gpu, ocfg)
+    steps = 3
+    for s in range(steps):
+        b = _train_batch(cfg, s)
+        cpu, cpu_opt, mc = step(cpu, cpu_opt, b)
+        gpu, gpu_opt, mg = step(gpu, gpu_opt, _to(b, dev))
+        assert abs(float(mg["loss"]) - float(mc["loss"])) <= \
+            2 ** -7 * abs(float(mc["loss"])), s
+    for a, b in zip(tree_lib.leaves(gpu), tree_lib.leaves(cpu)):
+        assert a.device.type == dev.type and a.dtype == b.dtype
+        scale = b.float().abs().max().item()
+        assert (a.float().cpu() - b.float()).abs().max().item() <= \
+            2 ** -5 * scale + 2 * ocfg.lr * steps
+
+
+def test_train_crash_resume_is_bit_equal_on_the_card(dev, tmp_path):
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault_tolerance import (SimulatedFailure,
+                                                     TrainController)
+
+    cfg = get_arch("dec_s").reduced
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    data = SyntheticTokens(DataConfig(seq_len=64, global_batch=8,
+                                      vocab_size=cfg.vocab_size))
+    step = build_train_step(cfg, ocfg, microbatches=2)
+
+    def fresh():
+        p = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        return p, adamw.init_opt_state(p, ocfg)
+    a = TrainController(step, data, tmp_path / "a", ckpt_every=3)
+    a.run(*fresh(), total_steps=9)
+    b = TrainController(step, data, tmp_path / "b", ckpt_every=3)
+    b.fail_at = 6
+    with pytest.raises(SimulatedFailure):
+        b.run(*fresh(), total_steps=9)
+    b.run(*fresh(), total_steps=9)
+    assert [m["step"] for m in b.metrics_log] == list(range(9))
+    assert [m["loss"] for m in b.metrics_log] == \
+        [m["loss"] for m in a.metrics_log]
+
+
+@pytest.mark.parametrize("B,T,S,H,KV,causal,window", [
+    (2, 96, 96, 8, 8, True, 0),
+    (2, 80, 144, 8, 2, False, 0),
+    (1, 128, 128, 4, 1, True, 48),
+])
+def test_flash_attention_backward_on_the_card(dev, B, T, S, H, KV, causal,
+                                              window):
+    """The autograd Function at 32-wide blocks (several, a short last
+    one) in bf16 against autograd through the plain masked softmax in
+    float32: out, dq, dk, dv within 2^-8 of each one's range, max - min
+    (rounding a bf16 output alone costs up to 2^-8 of its largest
+    magnitude)."""
+    from repro_torch.models import attention as attn
+
+    g = _gen(dev, 3)
+    D = 64
+    q = torch.randn((B, T, H, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, S, KV, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, S, KV, D), generator=g, device=dev).bfloat16()
+    do = torch.randn((B, T, H, D), generator=g, device=dev).bfloat16()
+    qpos = torch.arange(T, device=dev)[None].expand(B, T) + (S - T)
+    kpos = torch.arange(S, device=dev)[None].expand(B, S)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = attn.flash_attention(*ins, qpos, kpos, causal=causal,
+                               window=window, q_block=32, k_block=32)
+    grads = torch.autograd.grad(out, ins, do)
+    ref_ins = [t.float().requires_grad_(True) for t in (q, k, v)]
+    qq, kk, vv = ref_ins
+    kk2 = attn._repeat_kv(kk, H // KV)
+    vv2 = attn._repeat_kv(vv, H // KV)
+    s = torch.einsum("bthd,bshd->bhts", qq, kk2) * D ** -0.5
+    msk = attn._mask(qpos, kpos, causal, window)[:, None]
+    w = torch.softmax(torch.where(msk, s, attn.NEG_INF), -1)
+    w = torch.where(msk.any(-1, keepdim=True), w, 0.0)
+    ref = torch.einsum("bhts,bshd->bthd", w, vv2)
+    ref_grads = torch.autograd.grad(ref, ref_ins, do.float())
+    for got, want in zip((out,) + grads, (ref,) + ref_grads):
+        span = (want.max() - want.min()).item()
+        assert (got.float() - want).abs().max().item() <= 2 ** -8 * span

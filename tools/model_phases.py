@@ -4,6 +4,8 @@
                                   [qwen2_0_5b] [phi3_mini_3_8b] [gemma3_4b]
                                   [dbrx_132b] [hymba_1_5b] [rwkv6_3b]
                                   [phi3_5_moe_42b] [seamless_m4t_medium]
+                                  [train.dec_s] [train.encdec_s] [train.dp]
+                                  [train.flash_attn]
 
 Builds the CUDA kernels and runs ``chip_smoke.paper_phases`` (Dec-L,
 EncDec-S and EncDec-L at full width and depth, each with its own index
@@ -16,11 +18,16 @@ corpus and index, served fused and staged) and
 ``chip_smoke.nondense_phases`` (``dbrx_132b``: DBRX's head layout and one
 full-width MoE layer; Hymba-1.5B, RWKV-6-3B and Phi-3.5-MoE at 16
 layers served fused and staged; SeamlessM4T-medium through RETRO),
-without Dec-S's phases before them: a quicker loop for work on these
-models. Names on the command line restrict it to those models (none:
-all of them). Prints each phase's line and, last, the report keys the
-phases add to the smoke's kernel rows, as JSON. It needs a CUDA GPU and
-exits non-zero without one.
+and ``chip_smoke.train_phases`` (``train.dec_s``: Dec-S trained at full
+width, straight and crashed and resumed; ``train.encdec_s``: the RETRO
+training example at full width; ``train.dp``: two data-parallel ranks on
+the card against one; ``train.flash_attn``: the FA2 backward at the
+training shapes), without Dec-S's serving phases before them: a quicker
+loop for work on these models. Names on the command line restrict it to
+those models and training phases (none: all of them). Prints each
+phase's line and, last, the report keys the phases add to the smoke's
+kernel rows, as JSON. It needs a CUDA GPU and exits non-zero without
+one.
 """
 from __future__ import annotations
 
@@ -43,10 +50,13 @@ def main(argv) -> int:
     paper = {name for name, _ in cs.PAPER}
     served = {name for name, _ in cs.ASSIGNED_SERVED + cs.NONDENSE_SERVED
               + cs.SEAMLESS}
-    unknown = set(argv) - paper - served - {"heads", cs.DBRX}
+    train = {f"train.{name}" for name in cs.TRAIN_PHASES}
+    unknown = set(argv) - paper - served - train - {"heads", cs.DBRX}
     if unknown:
         sys.exit(f"model_phases: unknown models {sorted(unknown)}")
     if argv:
+        cs.TRAIN_PHASES = tuple(name for name in cs.TRAIN_PHASES
+                                if f"train.{name}" in argv)
         cs.PAPER = tuple(p for p in cs.PAPER if p[0] in argv)
         cs.ASSIGNED_SERVED = tuple(p for p in cs.ASSIGNED_SERVED
                                    if p[0] in argv)
@@ -68,6 +78,8 @@ def main(argv) -> int:
         cs.paper_phases(torch, dev, dict(cs.FULL), report)
     cs.assigned_phases(torch, dev, dict(cs.FULL), report)
     cs.nondense_phases(torch, dev, dict(cs.FULL), report)
+    if cs.TRAIN_PHASES:
+        cs.train_phases(torch, dev)
     cs.log("total", t0,
            peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     print(json.dumps(report), flush=True)
