@@ -185,6 +185,35 @@ failure raises, so the run exits non-zero):
      dq, dk, dv within 2^-8 of each one's range) and times its forward
      and backward beside SDPA's (a yardstick only). Each line carries
      the card's name and power limit.
+ 10. the dry run's step builders and the quickstart twin, after
+     training. steps.serve reuses phase 2's weights and index, which
+     stay on the card through phases 6-9 (~0.6 GB): it runs
+     launch.steps' build_prefill_step and build_serve_step for Dec-S at
+     decode_32k on a one-position mesh at full width, over the
+     4 194 304-key index and its payload: 32 rows (the 8 x 4 prompts,
+     447 tokens prefilled), a cache of 512, then 16 greedy steps (median
+     ms a step by CUDA events; decode attention launched 24 x 16 times,
+     the IVF probe and the fused scan 16). Step 8's state and the
+     weights and index are copied to the CPU (the copy timed) and the
+     step is run there through the plain versions: log-probs within
+     2^-5 of their range, greedy tokens equal or near ties
+     (near_tie_check); the CPU step searches with the card's query (the
+     bf16 hidden states of the two devices part in their last bits,
+     which can move a neighbour across the K-th boundary), and its
+     distances must be within 1e-5 relative of the card's and its ids
+     identical but where two distances tie within 1e-5
+     (ivfpq.id_swaps counts such swaps). quickstart: the quickstart
+     twin's main() on the card, R10@32, and the same search on the CPU
+     by the same rule.
+     search.tools runs earlier, at the end of phase 5, while the 8.6 GB
+     of keys are still on the card: exact_search over every key on the
+     card and on the CPU (the same rule, the tolerance taken on the
+     |q|^2 + |k|^2 terms the distances cancel from; the keys' copy to
+     the host timed), recall_at_k of the fused search against it, and
+     search_single fused and staged on the 32 kernel queries, ids equal
+     to each other and to a RetrievalService built as the engine builds
+     one (1 probe + 1 fused scan launch a fused call, 1 probe + 1
+     adc_scan a shard a staged one).
 
 The last two lines are the kernel report and the device line, each one
 JSON object. Without a GPU (or outside the repository) it exits non-zero
@@ -2572,8 +2601,10 @@ def profile_waves(torch, eng, prompts, steps, label="serve.profile"):
 
 
 def run_phases(torch, dev, sizes):
-    """Set-up, the kernel phases and the serve phases of Dec-S on ``dev``
-    at ``sizes``; returns the kernel report rows by kernel name."""
+    """Set-up, the kernel phases, the serve phases and the search tools
+    of Dec-S on ``dev`` at ``sizes``; returns the kernel report rows by
+    kernel name, and the weights and index (left on the card) that the
+    step-builder phase reuses."""
     from repro_torch.serve import DegradePolicy
 
     arch, cfg, params, corpus, keys, ds = setup(dev, sizes)
@@ -2672,7 +2703,12 @@ def run_phases(torch, dev, sizes):
         report[name].update(
             launches_gateway=gateway["load"]["launches"][sym],
             launches_gateway_in="gateway.load")
-    return report
+    # the search tools while the keys are on the card; the step-builder
+    # phase, after training, reuses the weights and the index, which stay
+    # on the card (~0.6 GB), not the 8.6 GB of keys
+    search_tools(torch, dev, arch, sizes, keys, queries, ds, nvidia_smi())
+    kept = dict(arch=arch, sizes=sizes, corpus=corpus, params=params, ds=ds)
+    return report, kept
 
 
 # ---------------------------------------------------------------------------
@@ -3627,6 +3663,230 @@ def train_phases(torch, dev):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the dry run's step builders, the search tools and the quickstart on the
+# card, over what the Dec-S phases built
+# ---------------------------------------------------------------------------
+
+STEPS_SERVE = dict(steps=16, check_step=8)
+
+
+def to_device(torch, tree, dev):
+    """A tree of tensors (dicts, NamedTuples) on ``dev``."""
+    from repro_torch import tree as tree_lib
+    return tree_lib.map(lambda t: t.to(dev), tree)
+
+
+def steps_serve(torch, dev, kept, card):
+    """``build_prefill_step`` + ``build_serve_step`` for Dec-S at
+    decode_32k on a one-position mesh, at full width with the smoke's
+    weights, its 4 194 304-key index and payload: 32 rows (the 8 x 4
+    prompts, 448 tokens: 447 prefilled, the last fed to the first step)
+    with a cache of 512, then 16 greedy steps. One step's state is
+    copied to the CPU and run there through the plain versions."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.chamvs import stack_shards
+    from repro_torch.core.ivfpq import id_swaps
+    from repro_torch.kernels import _build
+    from repro_torch.launch import specs, steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    sizes, ds = kept["sizes"], kept["ds"]
+    spec = get_arch("dec_s")
+    cfg = spec.model
+    mesh = Mesh(("data", "model"), (1, 1), (str(dev),))
+    db = specs.ServeDBSpec(n_vectors=ds.num_vectors, nlist=sizes["nlist"],
+                           nprobe=sizes["nprobe"],
+                           residual=ds.index_cfg.residual)
+    prefill, _ = steps.build_prefill_step(spec, "prefill_32k", mesh)
+    serve, _, (ccfg, _) = steps.build_serve_step(
+        spec, "decode_32k", mesh, db=db)
+    if ccfg.ivfpq.m != ds.index_cfg.m:
+        raise AssertionError(f"for_model m {ccfg.ivfpq.m} != index m "
+                             f"{ds.index_cfg.m}")
+    params, dbp, payload = kept["params"], ds.params, ds.payload_tokens
+    stacked = stack_shards(ds.shards)
+    R, B, T0 = sizes["requests"], sizes["rows"], sizes["prompt_len"]
+    W, n_steps = R * B, STEPS_SERVE["steps"]
+    prompt = torch.from_numpy(kept["corpus"][:W, :T0]).to(dev)
+    caches = tf.init_cache(cfg, W, sizes["max_seq"], device=dev)
+    recorded = []
+    search = serve.search
+
+    def recording_search(*a):
+        out = search(*a)
+        recorded.append((a[2], out))
+        return out
+
+    serve.search = recording_search
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    pos = torch.arange(T0 - 1, device=dev)[None].expand(W, T0 - 1)
+    _, caches = prefill(params, caches, {"tokens": prompt[:, :T0 - 1],
+                                         "positions": pos})
+    tok, ms, gen = prompt[:, T0 - 1:], [], []
+    for s in range(n_steps):
+        batch = {"token": tok, "position": torch.full(
+            (W,), T0 - 1 + s, dtype=torch.int32, device=dev)}
+        if s == STEPS_SERVE["check_step"]:
+            state = (to_device(torch, caches, "cpu"),
+                     {k: v.cpu() for k, v in batch.items()})
+            recorded.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logp, caches = serve(params, caches, batch, dbp, stacked, payload)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        if s == STEPS_SERVE["check_step"]:
+            card_logp = logp.float().cpu()
+            card_query, (d_card, i_card) = recorded[0]
+        tok = logp.argmax(-1, keepdim=True).int()
+        gen.append(tok)
+    launches = {n: k.launches for n, k in _build.kernels().items()}
+    serve.search = search
+    gen = torch.cat(gen, 1).cpu().numpy()
+    want = {"decode_attn_launch": cfg.n_layers * n_steps,
+            "ivf_scan_launch": n_steps, "chamvs_scan_launch": n_steps}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"steps.serve launches {launches} != {want}")
+    if not np.isfinite(card_logp.numpy()).all():
+        raise AssertionError("steps.serve: non-finite log-probs")
+    truth = kept["corpus"][:W, T0:T0 + n_steps]
+    # the same step on the CPU, from the copied state, through the plain
+    # versions. Its search takes the card's query: the two devices' bf16
+    # hidden states part in their last bits, which can move a PQ
+    # neighbour across the K-th boundary and with it the mix
+    t1 = time.perf_counter()
+    cpu_params = to_device(torch, params, "cpu")
+    ds_cpu = ds.to("cpu")
+    to_host_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cpu_caches, cpu_batch = state
+    cpu_search = {}
+
+    def card_query_search(db_params, db_shard, query):
+        cpu_search["query"] = query
+        cpu_search["out"] = search(db_params, db_shard, card_query.cpu())
+        return cpu_search["out"]
+
+    serve.search = card_query_search
+    cpu_logp, _ = serve(cpu_params, cpu_caches, cpu_batch,
+                        ds_cpu.params, stack_shards(ds_cpu.shards),
+                        ds_cpu.payload_tokens)
+    serve.search = search
+    cpu_s = time.perf_counter() - t1
+    d_cpu, i_cpu = cpu_search["out"]
+    q_err = float((cpu_search["query"] - card_query.cpu()).abs().max()
+                  / card_query.abs().max().cpu())
+    swaps = id_swaps(d_card, i_card, d_cpu, i_cpu)
+    scale = float(cpu_logp.max() - cpu_logp.min())
+    err = float((card_logp - cpu_logp).abs().max())
+    if err > 2 ** -5 * scale:
+        raise AssertionError(f"steps.serve: log-probs differ by {err} > "
+                             f"2^-5 x {scale}")
+    tie = near_tie_check(torch, "steps.serve tokens",
+                         card_logp.argmax(-1)[:, None].numpy(),
+                         card_logp[:, None], cpu_logp.argmax(-1)[:, None]
+                         .numpy(), cpu_logp[:, None], B)
+    log("steps.serve", t0, card=card, rows=W, prompt_len=T0,
+        cache=sizes["max_seq"], steps=n_steps, nprobe=ccfg.nprobe,
+        k=ccfg.k, kprime=ccfg.k_prime(stacked.codes.shape[0]),
+        step_ms_median=f"{median(ms):.2f}",
+        step_ms_range=f"{min(ms):.2f}-{max(ms):.2f}",
+        launches={k: launches[k] for k in want},
+        continuation_accuracy=f"{(gen == truth).mean():.4f}",
+        weights_index_to_host_s=f"{to_host_s:.2f}",
+        cpu_step_s=f"{cpu_s:.1f}", query_rel_err=f"{q_err:.3g}",
+        logp_max_err=f"{err:.3g}",
+        logp_range=f"{scale:.3g}", tokens_differ=tie["rows_differ"],
+        search_ids_identical=swaps == 0, near_tie_id_swaps=swaps)
+
+
+def search_tools(torch, dev, arch, sizes, keys, queries, ds, card):
+    """``exact_search`` over every key of the index on the card (ids
+    equal to the CPU's), ``recall_at_k`` of the fused search against it,
+    and ``search_single`` fused and staged on the 32 kernel queries (ids
+    identical to each other and to a service built as the engine builds
+    it); one fused scan a fused call, one ``adc_scan`` a shard a staged
+    one. ``keys``, ``queries`` and ``ds`` lie on the card; the keys'
+    copy to the host for the CPU's exact search is timed and freed."""
+    from repro_torch.core import chamvs
+    from repro_torch.core.ivfpq import exact_search, id_swaps, recall_at_k
+    from repro_torch.kernels import _build
+    from repro_torch.retrieval import RetrievalService
+
+    t0 = time.perf_counter()
+    k = arch.rag.k
+    q = queries
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    d_e, i_e = exact_search(keys, q, k)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    keys_cpu, q_cpu = keys.cpu(), q.cpu()
+    to_host_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    d_ec, i_ec = exact_search(keys_cpu, q_cpu, k)
+    cpu_s = time.perf_counter() - t1
+    del keys_cpu
+    swaps = id_swaps(d_e, i_e, d_ec, i_ec,
+                     terms=2.0 * (q_cpu * q_cpu).sum(1))
+    out, launches = {}, {}
+    for fused in (True, False):
+        cfg = ds.search_config(nprobe=sizes["nprobe"], k=k, fused=fused)
+        chamvs.search_single(ds.params, ds.shards, q, cfg)   # the memo
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out[fused] = chamvs.search_single(ds.params, ds.shards, q, cfg)
+        torch.cuda.synchronize()
+        launches[fused] = {n: kern.launches
+                           for n, kern in _build.kernels().items()
+                           if kern.launches}
+    svc = RetrievalService.local(ds.params, ds.shards,
+                                 ds.search_config(nprobe=sizes["nprobe"],
+                                                  k=k))
+    d_s, i_s = svc.search(q)
+    S = ds.num_shards
+    if launches[True] != {"ivf_scan_launch": 1, "chamvs_scan_launch": 1} \
+            or launches[False] != {"ivf_scan_launch": 1,
+                                   "adc_scan_launch": S}:
+        raise AssertionError(f"search_single launches {launches}")
+    for name, (d, i) in (("staged", out[False]), ("service", (d_s, i_s))):
+        if not bool(torch.equal(i, out[True][1])):
+            raise AssertionError(f"search_single fused ids != {name}")
+    chamvs._SERVICE_MEMO.clear()
+    log("search.tools", t0, card=card, queries=tuple(q.shape),
+        keys=tuple(keys.shape), k=k,
+        exact_card_s=f"{card_s:.2f}", keys_to_host_s=f"{to_host_s:.2f}",
+        exact_cpu_s=f"{cpu_s:.1f}",
+        exact_ids_identical=swaps == 0, exact_near_tie_swaps=swaps,
+        recall_at_k=f"{recall_at_k(out[True][1], i_e):.4f}",
+        r10_at_k=f"{recall_at_k(out[True][1], i_e[:, :10]):.4f}",
+        fused_launches=launches[True], staged_launches=launches[False],
+        fused_eq_staged_eq_service=True)
+
+
+def quickstart_phase(torch, card):
+    """The quickstart twin's ``main()`` on the card: its index (16 384 x
+    64, 4 shards), R10@32, and the same search on the CPU: distances
+    within 1e-5, ids identical but at near ties."""
+    from repro_torch.examples import quickstart
+
+    t0 = time.perf_counter()
+    out = quickstart.main([])            # raises if card != plain
+    if out["device"] != "cuda":
+        raise AssertionError(f"quickstart ran on {out['device']}")
+    log("quickstart", t0, card=card, r10_at_32=f"{out['recall']:.3f}",
+        ids_identical=out["swaps"] == 0, near_tie_id_swaps=out["swaps"],
+        dists_within_1e5=True)
+
+
 def main() -> int:
     import gc
 
@@ -3652,7 +3912,7 @@ def main() -> int:
     for ln in ptx:
         print(f"  ptxas {ln}", flush=True)
 
-    report = run_phases(torch, dev, dict(FULL))
+    report, kept = run_phases(torch, dev, dict(FULL))
     gc.collect()
     torch.cuda.empty_cache()
     paper_phases(torch, dev, dict(FULL), report)
@@ -3665,6 +3925,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_phases(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = nvidia_smi()
+    steps_serve(torch, dev, kept, card)
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    quickstart_phase(torch, card)
     kernels = [report[k] for k in ("decode_attn", "ivf_scan", "fused_scan",
                                    "adc_scan", "shared_scan",
                                    "hierarchical_topk")]

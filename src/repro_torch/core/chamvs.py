@@ -9,12 +9,16 @@ with ``kernels/pq_adc`` — the kernel on the card, which reads the lists
 in place, the plain version on the CPU. Both give the fused scan's ids
 and distances.
 
+``search_single`` is the reference's one-shot search over a list of
+shards: a ``RetrievalService`` memoised per (index, config).
+
 ``make_distributed_search`` / ``make_distributed_gather`` are the
 reference's deprecated wrappers: they warn and delegate to
 ``repro_torch.retrieval.router``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import warnings
 from typing import List, Optional, Tuple
@@ -81,6 +85,42 @@ def stack_shards(shards: List[IVFPQShard]) -> IVFPQShard:
         ids=torch.stack([s.ids for s in shards]),
         list_len=torch.stack([s.list_len for s in shards]),
     )
+
+
+# LRU memo of the last few (params, shards, cfg) -> RetrievalService, so
+# that repeated one-shot searches neither re-stack the shards (the fused
+# scan's layout) nor rebuild the service. Keyed, as the reference keys
+# it, on the identities of the index's tensors and on the config: the
+# service holds those tensors, so a live key cannot alias another index.
+# Up to ``_SERVICE_MEMO_CAP`` indexes (and their stacks) stay pinned;
+# ``_SERVICE_MEMO.clear()`` releases them.
+_SERVICE_MEMO: "collections.OrderedDict" = collections.OrderedDict()
+_SERVICE_MEMO_CAP = 4
+
+
+def search_single(params: IVFPQParams, shards: List[IVFPQShard],
+                  queries: torch.Tensor, cfg: ChamVSConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-process search over a list of shards: (dists [nq, k], ids
+    [nq, k]). A one-shot ``RetrievalService`` call with
+    ``ServiceConfig(measure=False, bucket_pow2=False)``: no stage
+    timings, no padding of the batch. On CUDA tensors it launches the
+    IVF probe and the fused scan (``cfg.fused``) or one ``adc_scan`` per
+    shard; on the CPU it runs their plain versions."""
+    from repro_torch.retrieval.service import RetrievalService, ServiceConfig
+    key = (tuple(id(leaf) for s in shards for leaf in s),
+           id(params.coarse_centroids), id(params.codebooks), cfg)
+    svc = _SERVICE_MEMO.get(key)
+    if svc is None:
+        svc = RetrievalService.local(params, shards, cfg,
+                                     ServiceConfig(measure=False,
+                                                   bucket_pow2=False))
+        while len(_SERVICE_MEMO) >= _SERVICE_MEMO_CAP:
+            _SERVICE_MEMO.popitem(last=False)    # the least recent
+        _SERVICE_MEMO[key] = svc
+    else:
+        _SERVICE_MEMO.move_to_end(key)
+    return svc.search(queries)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ frontend.
 
 ``fused_scan`` takes the stacked shard tables and the probe ids. A CPU
 tensor runs the plain version on the reference's gathered
-``[S, nq, nprobe, cap, m]`` copy of the probed lists; a CUDA tensor
+``[S, nq, nprobe, cap, m]`` copy of the probed lists (a meta tensor
+too, propagating shapes only); a CUDA tensor
 launches ``csrc/chamvs_scan.cu``, which indexes the probed lists itself
 and splits each (shard, query)'s rows between ``scan_groups`` blocks
 whose top-kk lists it merges inside the one launch, or raises.
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.chamvs_scan.ref import ref_chamvs_scan
+from repro_torch.kernels.common import PLAIN_DEVICES
 
 _P, _I, _L = _build.P, _build.I, _build.L
 
@@ -48,7 +50,7 @@ def fused_scan(luts: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor,
     The index values (probe ids < nlist, lens <= cap) are trusted, not
     checked on the device: the IVF probe and ``build_shards`` make them."""
     if not luts.is_cuda:
-        if luts.device.type != "cpu":
+        if luts.device.type not in PLAIN_DEVICES:
             raise RuntimeError(f"fused_scan: no kernel for {luts.device}")
         p = probe_ids.long()
         return ref_chamvs_scan(luts, codes[:, p], ids[:, p], lens[:, p], kk)

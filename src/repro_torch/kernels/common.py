@@ -13,6 +13,12 @@ from typing import Tuple
 
 import torch
 
+#: devices whose tensors run a wrapper's plain version: the CPU computes
+#: it; "meta" tensors carry no data, so the plain version only
+#: propagates shapes and dtypes (the dry run's programs). A CUDA tensor
+#: launches the kernel; any other device raises.
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 def topk_smallest(d: torch.Tensor, i: torch.Tensor, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -2,7 +2,8 @@
 
 ``decode_attention`` is the single entry point. The device of ``q``
 decides: a CPU tensor runs the plain version (crop to ``kv_len``, gather
-the wave's pool rows, grouped attention); a CUDA tensor launches the
+the wave's pool rows, grouped attention), and so does a meta tensor,
+which only propagates shapes; a CUDA tensor launches the
 split-KV kernel of ``csrc/decode_attn.cu``, which reads the pool rows
 through ``slots`` itself and merges its splits inside the one launch, or
 raises.
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, registry
+from repro_torch.kernels.common import PLAIN_DEVICES
 from repro_torch.kernels.decode_attn.ref import ref_decode_attention
 
 _P, _I, _F = _build.P, _build.I, _build.F
@@ -63,7 +65,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.is_cuda:
         return _launch(q, k_cache, v_cache, position, window, ring, slots,
                        kv_len, spec)
-    if q.device.type != "cpu":
+    if q.device.type not in PLAIN_DEVICES:
         raise RuntimeError(f"decode_attention: no kernel for {q.device}")
     k, v = _gather_rows(q, k_cache, v_cache, slots, kv_len, ring)
     return ref_decode_attention(q, k, v, position, window=window, ring=ring)

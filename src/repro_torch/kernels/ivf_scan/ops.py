@@ -1,6 +1,7 @@
 """IVF probe (ChamVS.idx): the CUDA kernel's wrapper.
 
-A CPU tensor runs the plain version; a CUDA tensor launches the fused
+A CPU tensor runs the plain version (a meta tensor too, propagating
+shapes only); a CUDA tensor launches the fused
 centroid-scan + top-nprobe kernel of ``csrc/ivf_scan.cu`` or raises. The
 reference's small-index fallback (``PALLAS_MIN_NLIST``) is gone: the
 kernel runs at any ``nlist``. The kernel splits the centroids between
@@ -14,6 +15,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build, registry
+from repro_torch.kernels.common import PLAIN_DEVICES
 from repro_torch.kernels.ivf_scan.ref import ref_ivf_scan
 
 _P, _I = _build.P, _build.I
@@ -74,7 +76,7 @@ def ivf_index_scan(queries: torch.Tensor, centroids: torch.Tensor,
 
     ``spec.tile_c`` overrides the centroids per block (``probe_grid``)."""
     if not queries.is_cuda:
-        if queries.device.type != "cpu":
+        if queries.device.type not in PLAIN_DEVICES:
             raise RuntimeError(f"ivf_index_scan: no kernel for "
                                f"{queries.device}")
         return ref_ivf_scan(queries, centroids, nprobe)

@@ -7,8 +7,9 @@ probed lists, read in place, plus a local top-k per (query, probe)
 entry. ``pq_adc_topk`` is the reference's signature of the same scan
 over a gathered batch of list slices; both launch the one ``adc_scan``
 kernel. ``pq_shared_scan`` scans one shared code slab against a batch of
-non-residual LUTs. A CPU tensor runs the plain version; a CUDA tensor
-launches ``csrc/pq_adc.cu`` or raises.
+non-residual LUTs. A CPU tensor runs the plain version (a meta tensor
+too, propagating shapes only); a CUDA tensor launches
+``csrc/pq_adc.cu`` or raises.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, registry
+from repro_torch.kernels.common import PLAIN_DEVICES
 from repro_torch.kernels.pq_adc.ref import ref_pq_adc_topk, ref_shared_scan
 
 _P, _I, _L = _build.P, _build.I, _build.L
@@ -37,9 +39,11 @@ SMEM_LIMIT = 227 << 10          # shared memory a block may use on the H100
 
 
 def _on_cpu(name: str, t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the plain version (CPU, or meta: shapes
+    only); False for CUDA; raises for any other device."""
     if t.is_cuda:
         return False
-    if t.device.type != "cpu":
+    if t.device.type not in PLAIN_DEVICES:
         raise RuntimeError(f"{name}: no kernel for {t.device}")
     return True
 
@@ -115,7 +119,7 @@ def probed_adc_topk(luts: torch.Tensor, codes: torch.Tensor,
                          f"{tuple(probe_ids.shape)}")
     if _on_cpu("probed_adc_topk", luts):
         lists = probe_ids.reshape(-1).long()
-        rows = lists[:, None] * cap + torch.arange(cap)        # row bases
+        rows = lists[:, None] * cap + torch.arange(cap, device=lists.device)
         d, i = ref_pq_adc_topk(luts.reshape(nq * nprobe, m, ksub),
                                codes.reshape(nlist * cap, m)[rows],
                                list_len[lists], k)

@@ -1,7 +1,8 @@
 """Approximate hierarchical top-k: the CUDA kernel's wrapper (twin of
 ``repro.kernels.topk.ops``).
 
-A CPU tensor runs the plain versions; a CUDA tensor makes one launch of
+A CPU tensor runs the plain versions (a meta tensor too, propagating
+shapes only); a CUDA tensor makes one launch of
 ``csrc/topk.cu`` — level 1 (each column block keeps its k' smallest) and
 level 2 (the exact merge of the survivors) in the same kernel — or
 raises.
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.core.approx_topk_math import truncated_queue_len
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import PLAIN_DEVICES
 from repro_torch.kernels.topk.ref import ref_exact_topk, ref_hierarchical_topk
 
 _P, _I, _L = _build.P, _build.I, _build.L
@@ -62,7 +64,7 @@ def approx_topk(d: torch.Tensor, k: int, num_blocks: int = 16,
     k_prime = min(max(k_prime, 1), k)
     degenerate = n % num_blocks != 0 or n // num_blocks < k_prime
     if not d.is_cuda:
-        if d.device.type != "cpu":
+        if d.device.type not in PLAIN_DEVICES:
             raise RuntimeError(f"approx_topk: no kernel for {d.device}")
         if degenerate:
             return ref_exact_topk(d, k)

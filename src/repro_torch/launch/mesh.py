@@ -13,8 +13,9 @@ torch.cuda.device_count())``. On one card every process shares
 ``cuda:0``; on a host with more cards the same rule gives the
 reference's layout (the LM on the first card, the nodes on the others).
 
-``make_production_mesh`` (the reference's 256-chip TPU pod) belongs to
-the dry run, which is not ported.
+``make_production_mesh`` lays out the reference's production pods
+(16 x 16, or 2 x 16 x 16) for the dry run: its positions are abstract
+(device ``"meta"``), and nothing is started for them.
 """
 from __future__ import annotations
 
@@ -64,6 +65,16 @@ class Mesh:
         for name, dim in zip(self.axis_names, self.dims):
             pos = pos * dim + coords.get(name, 0)
         return pos
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: ``data x model`` = 16 x 16 (256 positions). Multi-pod:
+    ``pod x data x model`` = 2 x 16 x 16 (512); the leading "pod" axis
+    is the slow inter-pod hop. Every position's device is ``"meta"``:
+    the dry run reads the axes and sizes only."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(axes, shape, ("meta",) * math.prod(shape))
 
 
 def pool_device(rank: int, kind: str) -> str:

@@ -1,4 +1,5 @@
-"""Step builders (twin of ``repro.launch.steps``): the training step.
+"""Step builders (twin of ``repro.launch.steps``): the training step,
+and the dry run's prefill and serve steps.
 
 ``build_train_step`` returns ``train_step(params, opt_state, batch)``:
 forward, backward through ``transformer.lm_loss`` (the FA2 attention
@@ -10,21 +11,42 @@ it runs eagerly, and data parallelism is explicit: with a ``group``
 summed loss, the valid-token count and every gradient, so the mean is
 the global batch's mean even where labels are masked.
 
-``build_prefill_step`` and ``build_serve_step`` belong to the dry run,
-which is not ported.
+``build_prefill_step`` (the full-sequence forward that fills the KV
+cache) and ``build_serve_step`` (one retrieval-augmented decode step,
+the paper's Fig. 3) take the reference's ``(spec, shape_name, mesh)``
+and return the step with the reference's partition specs (sanitised as
+the reference sanitises them) and abstract inputs (``launch.specs``).
+Where the reference jits a GSPMD program over the mesh, these steps are
+plain eager functions that run on whatever device their tensors are on:
+CUDA tensors launch the port's kernels, CPU tensors run the plain
+versions, and meta tensors (the dry run) only propagate shapes. On a
+mesh of more than one position the specs are descriptive: the step
+still runs in one process, and laying the shards out over devices is
+parameter sharding (ROADMAP Queue 1 item 20).
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs import SHAPES, ArchSpec
+from repro_torch.core import rag as rag_lib
+from repro_torch.launch import specs as specs_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import (P, cache_specs, dp_axes,
+                                         param_specs, sanitize)
 from repro_torch.optim import adamw
+from repro_torch.retrieval.service import search_stacked
+
+
+def abstract_params(cfg: ModelConfig):
+    """``init_params``'s tree on the meta device: shapes and dtypes,
+    nothing drawn or allocated (the reference's ``jax.eval_shape``)."""
+    return tf.init_params(None, cfg)
 
 
 def default_microbatches(spec: ArchSpec, shape_name: str,
@@ -132,3 +154,148 @@ def build_train_step(cfg: ModelConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill
+# ---------------------------------------------------------------------------
+
+def build_prefill_step(spec: ArchSpec, shape_name: str, mesh):
+    """Returns ``(prefill_step, (param_specs, cache_specs, batch_specs))``.
+
+    ``prefill_step(params, caches, batch) -> (last-position logits
+    [B, V], caches)``: an encoder-decoder's ``enc_embeds`` go through
+    ``encode`` first; the caches are filled in place."""
+    cfg = spec.model
+    sh = SHAPES[shape_name]
+    dp = dp_axes(mesh)
+
+    @torch.no_grad()
+    def prefill_step(params, caches, batch):
+        enc_states = None
+        if "enc_embeds" in batch:
+            enc_states = tf.encode(params, cfg, batch["enc_embeds"])
+        logits, caches = tf.forward(
+            params, cfg, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"), positions=batch.get("positions"),
+            mode="prefill", caches=caches, enc_states=enc_states)
+        return logits[:, -1], caches
+
+    p_struct = abstract_params(cfg)
+    p_specs = sanitize(param_specs(cfg, mesh, p_struct), p_struct, mesh)
+    c_struct = specs_lib.cache_struct(spec, shape_name)
+    c_specs = sanitize(
+        cache_specs(cfg, mesh, c_struct, shard_seq=(sh["global_batch"] < 8)),
+        c_struct, mesh)
+    b_struct = specs_lib.prefill_struct(spec, shape_name)
+    b_specs = {k: P(dp, *([None] * (v.dim() - 1)))
+               if k != "positions" or v.shape[0] != 3
+               else P(None, dp, None)
+               for k, v in b_struct.items()}
+    b_specs = sanitize(b_specs, b_struct, mesh)
+    return prefill_step, (p_specs, c_specs, b_specs)
+
+
+# ---------------------------------------------------------------------------
+# serving: retrieval-augmented decode
+# ---------------------------------------------------------------------------
+
+def build_serve_step(spec: ArchSpec, shape_name: str, mesh,
+                     db: Optional[specs_lib.ServeDBSpec] = None,
+                     with_retrieval: bool = True):
+    """The paper's token-generation step (Fig. 3). Returns
+    ``(serve_step, shardings, (db_cfg, structs))``.
+
+    ``serve_step(params, caches, batch, db_params, db_shard, payload[,
+    proj]) -> (logprobs or logits [B, V], caches)``: ``decode_step`` with
+    the hidden state, the query (projected by ``proj`` when the model is
+    wider than the index), the search, then the kNN-LM mix of the
+    neighbours' next tokens; a RETRO encoder-decoder instead gathers the
+    neighbours' chunks, embeds and encodes them, and decodes the step
+    again over the new encoder states.
+
+    The search is the local pipeline over the stacked shards ``db_shard``
+    (leading axis: the shards): the IVF probe, the LUTs, one fused scan
+    keeping k' per shard, and ``flat_merge`` to the K nearest
+    (``retrieval.service.search_stacked``). It goes around
+    ``RetrievalService``, whose result cache reads the queries on the
+    host. The step calls it as ``serve_step.search(db_params,
+    db_shard, queries) -> (dists [nq, K], ids [nq, K])``, where a caller
+    can run it alone or observe it. ``payload`` is the next-token table
+    [N] (kNN-LM) or the chunk table [N, chunk_len] (RETRO)."""
+    cfg = spec.model
+    rag = spec.rag
+    B = SHAPES[shape_name]["global_batch"]
+    dp = dp_axes(mesh)
+    db = db or specs_lib.ServeDBSpec()
+    n_shards = specs_lib.num_db_shards(mesh)
+    ccfg = db.for_model(cfg, n_shards, rag.k)
+    dq = ccfg.ivfpq.dim
+    needs_proj = cfg.d_model != dq
+    retro = rag.mode == "retro" and cfg.arch == "encdec"
+
+    def search(db_params, db_shard, query):
+        return search_stacked(db_params, db_shard, query, ccfg)
+
+    @torch.no_grad()
+    def serve_step(params, caches, batch, db_params=None, db_shard=None,
+                   payload=None, proj=None):
+        token, position = batch["token"], batch["position"]
+        logits, caches, hidden = tf.decode_step(
+            params, cfg, caches, token, position,
+            enc_states=batch.get("enc_states"), return_hidden=True)
+        if not with_retrieval:
+            return logits, caches
+        query = hidden.float()
+        if needs_proj:
+            query = query @ proj
+        dists, ids = serve_step.search(db_params, db_shard, query)
+        if retro:
+            chunks = rag_lib.retro_neighbor_tokens(payload, ids)
+            emb = tf.embed_tokens(params, chunks.reshape(B, -1))
+            new_enc = tf.encode(params, cfg, emb)
+            logits2, caches, _ = tf.decode_step(
+                params, cfg, caches, token, position, enc_states=new_enc,
+                return_hidden=True)
+            return logits2, caches
+        knn_tok = rag_lib.gather_payload(payload, ids)
+        knn_tok = torch.where(ids >= 0, knn_tok, torch.full_like(knn_tok, -1))
+        logp = rag_lib.knnlm_interpolate(logits, dists, knn_tok, rag.lam,
+                                         rag.temperature)
+        return logp, caches
+
+    serve_step.search = search
+    p_struct = abstract_params(cfg)
+    p_specs = sanitize(param_specs(cfg, mesh, p_struct), p_struct, mesh)
+    c_struct = specs_lib.cache_struct(spec, shape_name)
+    c_specs = sanitize(cache_specs(cfg, mesh, c_struct, shard_seq=(B < 8)),
+                       c_struct, mesh)
+    b_specs: Dict[str, Any] = {"token": P(dp, None), "position": P(dp)}
+    if cfg.arch == "encdec":
+        b_specs["enc_states"] = P(dp, None, None)
+    if B < 8:  # long_500k: the batch is too small to shard
+        b_specs = {"token": P(), "position": P()}
+        if cfg.arch == "encdec":
+            b_specs["enc_states"] = P(None, None, "model")
+    shardings: Dict[str, Any] = dict(params=p_specs, caches=c_specs,
+                                     batch=b_specs)
+    structs: Dict[str, Any] = dict(
+        cache=c_struct, batch=specs_lib.decode_struct(spec, shape_name))
+    if with_retrieval:
+        dbp_struct, dbs_struct = specs_lib.db_struct(ccfg, n_shards)
+        dbp_specs, dbs_specs = specs_lib.db_specs(mesh)
+        if retro:
+            payload_struct = specs_lib.S((db.n_vectors, rag.chunk_len),
+                                         torch.int32)
+            payload_spec = P(dp + ("model",), None)
+        else:
+            payload_struct = specs_lib.S((db.n_vectors,), torch.int32)
+            payload_spec = P(dp + ("model",))
+        shardings.update(db_params=dbp_specs, db_shard=dbs_specs,
+                         payload=payload_spec)
+        structs.update(db_params=dbp_struct, db_shard=dbs_struct,
+                       payload=payload_struct)
+        if needs_proj:
+            shardings["proj"] = P(None, "model")
+            structs["proj"] = specs_lib.S((cfg.d_model, dq), torch.float32)
+    return serve_step, shardings, (ccfg, structs)

@@ -86,6 +86,14 @@ class ModelConfig:
             blk += enc_attn  # cross-attn per decoder layer
         return emb + L * blk + enc
 
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only ``top_k`` experts)."""
+        if self.block != "moe":
+            return self.param_count()
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        dense_like = self.param_count() - L * self.n_experts * 3 * d * f
+        return dense_like + L * self.top_k * 3 * d * f
+
     def pattern_classes(self) -> Tuple[str, ...]:
         """Distinct layer-class names in stack order of first appearance."""
         seen, out = set(), []

@@ -92,9 +92,9 @@ def mrope_tables(positions: torch.Tensor, d_head: int, theta: float,
         raise ValueError(f"mrope sections {tuple(sections)} must sum to "
                          f"d_head/2 = {half}")
     inv = rope_freqs(d_head, theta, device=positions.device)
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=positions.device),
-        torch.tensor(sections, device=positions.device))      # [half]
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)],
+                          device=positions.device)            # [half]
     pos = positions.float()[sec_id]                           # [half, B, T]
     ang = pos.movedim(0, -1) * inv                            # [B, T, half]
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]

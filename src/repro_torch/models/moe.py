@@ -66,7 +66,8 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     # the expert is the rank less the segment's start
     order = torch.sort(flat_e, stable=True).indices
     se = flat_e[order]
-    counts = torch.bincount(se, minlength=E)
+    counts = torch.zeros(E, dtype=se.dtype, device=dev).scatter_add_(
+        0, se, torch.ones_like(se))              # bincount, meta-friendly
     seg_start = torch.cumsum(counts, 0) - counts
     slot = torch.arange(N * top_k, device=dev) - seg_start[se]
     keep = slot < C

@@ -94,7 +94,15 @@ def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
         dtype=cfg.dtype)
 
 
-def _dense_init(gen: torch.Generator, shape, dtype, scale=0.02):
+def _init_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where ``init_params`` puts the leaves: the generator's device, or
+    the meta device (shapes and dtypes, no values) when ``gen`` is None."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def _dense_init(gen: Optional[torch.Generator], shape, dtype, scale=0.02):
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=gen, device=gen.device,
                         dtype=torch.float32) * scale).to(dtype)
 
@@ -105,7 +113,7 @@ def _init_block_class(gen: torch.Generator, cfg: ModelConfig, n: int,
     cross-attention's leaves (encoder-decoder layers)."""
     d, f = cfg.d_model, cfg.d_ff
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    dt, dev = cfg.torch_dtype, gen.device
+    dt, dev = cfg.torch_dtype, _init_device(gen)
     f32 = torch.float32
 
     def ones(*shape, dtype=dt):
@@ -167,11 +175,13 @@ def _init_block_class(gen: torch.Generator, cfg: ModelConfig, n: int,
     return p
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> Params:
     """Random weights (N(0, 0.02), norms at 1; the reference's scales and
-    float32 leaves) on ``gen.device``."""
+    float32 leaves) on ``gen.device``. ``gen=None`` gives the abstract
+    params: every leaf on the meta device, nothing drawn or allocated
+    (the reference's ``jax.eval_shape`` of ``init_params``)."""
     _check_block(cfg)
-    dt, dev = cfg.torch_dtype, gen.device
+    dt, dev = cfg.torch_dtype, _init_device(gen)
     params: Params = {
         "embed": _dense_init(gen, (cfg.vocab_size, cfg.d_model), dt),
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),

@@ -151,6 +151,18 @@ def _scan_stage_fused(params: IVFPQParams, stacked: IVFPQShard,
     return fused_shard_scan(params, stacked, queries, probe_ids, cfg, kk)
 
 
+def search_stacked(params: IVFPQParams, stacked: IVFPQShard,
+                   queries: torch.Tensor, cfg: ChamVSConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused local search without a service: the IVF probe, one
+    fused scan over the stack keeping k' per shard, and the flat merge
+    to (dists [nq, K], ids [nq, K]). Reads nothing on the host, so it
+    also runs on meta tensors (the dry run's serve step)."""
+    kk = cfg.k_prime(stacked.codes.shape[0])
+    d, i = _scan_stage_fused(params, stacked, queries, cfg=cfg, kk=kk)
+    return merge_lib.flat_merge(d, i, cfg.k)
+
+
 class LocalPipeline:
     """Single-process scan/merge over a list of shards; ``cfg.fused``
     picks the fused scan over a ``stack_shards`` stack (default) or the

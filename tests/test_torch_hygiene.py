@@ -1,8 +1,8 @@
 """Package rules of the port, each checked in a fresh subprocess:
 
-  * importing every ``repro_torch`` module (the training modules
-    included) and ``chip_smoke.py`` leaves ``jax`` and ``repro`` out of
-    ``sys.modules``;
+  * importing every ``repro_torch`` module (the training modules, the
+    dry run and the shims included) and ``chip_smoke.py`` leaves ``jax``
+    and ``repro`` out of ``sys.modules``;
   * ``RalmEngine.from_config`` without a device raises when CUDA is
     absent, and ``chip_smoke.py`` exits non-zero without printing a
     result (also when it stands alone, outside the repository);
@@ -54,7 +54,11 @@ assert {"repro_torch.launch.serve", "repro_torch.serve.gateway.server",
         "repro_torch.optim.adamw", "repro_torch.optim.compression",
         "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpoint",
         "repro_torch.examples.train_retro", "repro_torch.tree",
-        "repro_torch.runtime.procs"} <= set(names), names
+        "repro_torch.runtime.procs", "repro_torch.launch.dryrun",
+        "repro_torch.launch.analysis", "repro_torch.launch.specs",
+        "repro_torch.models.sharding", "repro_torch.core.generate",
+        "repro_torch.core.coordinator",
+        "repro_torch.examples.quickstart"} <= set(names), names
 """)
     assert p.returncode == 0, p.stdout + p.stderr
 

@@ -1316,3 +1316,141 @@ def test_flash_attention_backward_on_the_card(dev, B, T, S, H, KV, causal,
     for got, want in zip((out,) + grads, (ref,) + ref_grads):
         span = (want.max() - want.min()).item()
         assert (got.float() - want).abs().max().item() <= 2 ** -8 * span
+
+
+# ---------------------------------------------------------------------------
+# the dry run's steps, the search tools and the quickstart on the card
+# ---------------------------------------------------------------------------
+
+def _one_position():
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(("data", "model"), (1, 1), ("cuda:0",))
+
+
+def test_serve_steps_on_the_card_match_the_cpu(dev):
+    """Reduced Dec-S (bf16, as registered) through ``build_prefill_step``
+    and 8 greedy ``build_serve_step`` steps over a one-shard residual
+    index on the card: decode attention launches once a layer a step,
+    the IVF probe and the fused scan once a step. The fifth step's state
+    is copied to the CPU and run there, its search taking the card's
+    query (the devices' bf16 hidden states part in their last bits):
+    log-probs within 2^-5 of their range, the search's ids identical,
+    and every greedy token equal whose CPU margin exceeds twice the
+    log-probs' difference."""
+    import dataclasses
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.core.chamvs import stack_shards
+    from repro_torch.launch import specs, steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import DatastoreBuilder
+
+    spec = get_arch("dec_s")
+    spec = dataclasses.replace(spec, model=spec.reduced)
+    cfg = spec.model
+    db = specs.ServeDBSpec(n_vectors=4096, nlist=16, nprobe=4)
+    mesh = _one_position()
+    prefill, _ = steps.build_prefill_step(spec, "prefill_32k", mesh)
+    serve, _, (ccfg, _) = steps.build_serve_step(spec, "decode_32k", mesh,
+                                                 db=db)
+    g = torch.Generator().manual_seed(0)
+    vecs = torch.randn(2048, ccfg.ivfpq.dim, generator=g)
+    ds = DatastoreBuilder(dim=ccfg.ivfpq.dim, nlist=16, m=ccfg.ivfpq.m,
+                          list_cap=None, residual=True, num_shards=1,
+                          device="cpu").build(vecs)
+    assert ds.index_cfg.m == ccfg.ivfpq.m and ds.index_cfg.residual
+    payload = torch.randint(0, cfg.vocab_size, (4096,), generator=g,
+                            dtype=torch.int32)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), generator=g,
+                           dtype=torch.int32)
+    stacked = stack_shards(ds.shards)
+    p = _to(params, dev)
+    gstacked = tree_lib.map(lambda t: t.to(dev), stacked)
+    gdbp = tree_lib.map(lambda t: t.to(dev), ds.params)
+    search, seen = serve.search, []
+
+    def recording(*a):
+        seen.append((a[2], search(*a)))
+        return seen[-1][1]
+
+    serve.search = recording
+    caches = tf.init_cache(cfg, 4, 32, device=dev)
+    pos = torch.arange(16, device=dev)[None].expand(4, 16)
+    before = (da.KERNEL.launches, iv.KERNEL.launches, cs.KERNEL.launches)
+    _, caches = prefill(p, caches, {"tokens": tokens.to(dev),
+                                    "positions": pos})
+    tok = tokens[:, -1:].to(dev)
+    for s in range(8):
+        batch = {"token": tok, "position": torch.full(
+            (4,), 16 + s, dtype=torch.int32, device=dev)}
+        if s == 4:
+            state = (tree_lib.map(lambda t: t.cpu(), caches),
+                     {k: v.cpu() for k, v in batch.items()})
+        logp, caches = serve(p, caches, batch, gdbp, gstacked,
+                             payload.to(dev))
+        if s == 4:
+            card_logp, (query, (_, card_ids)) = logp.float().cpu(), seen[-1]
+        tok = logp.argmax(-1, keepdim=True).int()
+    torch.cuda.synchronize()
+    assert (da.KERNEL.launches - before[0], iv.KERNEL.launches - before[1],
+            cs.KERNEL.launches - before[2]) == (cfg.n_layers * 8, 8, 8)
+    serve.search = lambda dbp, st, q: recording(dbp, st, query.cpu())
+    cpu_logp, _ = serve(params, state[0], state[1], ds.params, stacked,
+                        payload)
+    serve.search = search
+    assert torch.equal(seen[-1][1][1], card_ids.cpu())
+    err = (card_logp - cpu_logp).abs().max().item()
+    assert err <= 2 ** -5 * (cpu_logp.max() - cpu_logp.min()).item()
+    top2 = cpu_logp.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+    assert torch.equal(card_logp.argmax(-1)[sure], cpu_logp.argmax(-1)[sure])
+
+
+def test_search_tools_on_the_card_match_the_cpu(dev):
+    """``exact_search`` (planted equal distances) and ``search_single``
+    fused and staged on the card: ids identical to the CPU's but at near
+    ties (``id_swaps``: the two devices' distance GEMMs round
+    differently), the planted tie group in index order; one probe and
+    one fused scan launch a fused call, one ``adc_scan`` a shard a
+    staged call."""
+    from repro_torch.core import chamvs
+    from repro_torch.core.ivfpq import exact_search, id_swaps
+    from repro_torch.serve import DatastoreBuilder
+
+    g = torch.Generator().manual_seed(0)
+    vecs = torch.randn(6000, 64, generator=g)
+    vecs[100:110] = vecs[7]
+    queries = torch.randn(32, 64, generator=g)
+    queries[:4] = vecs[7] + 0.5
+    d_c, i_c = exact_search(vecs, queries, 20)
+    d_g, i_g = exact_search(vecs.to(dev), queries.to(dev), 20)
+    id_swaps(d_g, i_g, d_c, i_c, terms=2 * (queries * queries).sum(1))
+    assert i_g[0, :11].tolist() == [7] + list(range(100, 110))
+    ds = DatastoreBuilder(dim=64, nlist=32, m=16, num_shards=4,
+                          list_cap=None, device="cpu").build(vecs)
+    gds = ds.to(dev)
+    for fused in (True, False):
+        cfg = ds.search_config(nprobe=8, k=20, fused=fused)
+        d0, i0 = chamvs.search_single(ds.params, ds.shards, queries, cfg)
+        before = (iv.KERNEL.launches, cs.KERNEL.launches,
+                  pq.ADC_KERNEL.launches)
+        d1, i1 = chamvs.search_single(gds.params, gds.shards,
+                                      queries.to(dev), cfg)
+        torch.cuda.synchronize()
+        assert (iv.KERNEL.launches - before[0],
+                cs.KERNEL.launches - before[1],
+                pq.ADC_KERNEL.launches - before[2]) == \
+            ((1, 1, 0) if fused else (1, 0, 4))
+        id_swaps(d1, i1, d0, i0)
+    chamvs._SERVICE_MEMO.clear()
+
+
+def test_quickstart_on_the_card_agrees_with_the_plain_versions(dev, capsys):
+    from repro_torch.examples import quickstart
+
+    out = quickstart.main([])                  # raises if card != plain
+    assert out["device"] == "cuda" and 0.0 < out["recall"] <= 1.0
+    assert "the card's kernels agree with the plain versions: dists " \
+           "within 1e-5" in capsys.readouterr().out
