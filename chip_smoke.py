@@ -30,17 +30,17 @@ failure raises, so the run exits non-zero):
      launch a call, beside a read of the same bytes).
   4. serve: 8 requests x 4 rows through RalmEngine.from_config (wave
      decode, fused scan, async retrieval), 64 greedy tokens each, driven
-     three times (tokens/s as median and range); before each run the
+     ``repeats`` (2) times (tokens/s as median and range); before each run the
      kernels' launch counters are zeroed, and just after they must match
      the engine's wave and scan dispatch counts. Then serve.staged: the
      same traffic through a staged deployment (search_config(fused=False):
-     one adc_scan launch per shard per flush), three runs alternating
-     with three more fused runs, whose tokens must all equal the fused
+     one adc_scan launch per shard per flush), two runs alternating
+     with two more fused runs, whose tokens must all equal the fused
      runs'. Then serve.disaggregated: the same traffic through
      EngineConfig(disaggregate=True, ret_devices=2), the LM pool in this
      process and two memory-node processes on the card (one DB shard
      each; each probes with the IVF kernel and scans with adc_scan),
-     three runs alternating with three of the monolithic engine of the
+     two runs alternating with two of the monolithic engine of the
      same config with synchronous retrieval and the staged scan: tokens
      equal in every run, one wave's search bit-equal, each node's probe
      and adc_scan launches equal to the searches it served (and none
@@ -48,7 +48,8 @@ failure raises, so the run exits non-zero):
      the Fig. 13 optimal ratio, the fabric's round trips, bytes and ms
      per search and gather, each node's card and memory, and no node
      process alive after close(). Then serve.spec: the same traffic with speculative retrieval
-     (speculate_k 1 and 2, each run once beside a fused run), whose
+     (speculate_k 1 and 2, each run once beside a fused run, 32 tokens
+     a row: ``short_steps``), whose
      tokens must equal the fused runs' and whose speculation counters
      are printed; and retrieval.cache: the service's result cache on the
      same datastore with one wave's real queries (full hit without a
@@ -73,7 +74,8 @@ failure raises, so the run exits non-zero):
      slots=None over 4 x 512 per-request caches at positions 448-511);
      serve.degrade.<rung>: DegradePolicy.apply(i) on the long-lived fused
      engine for every rung (baseline, nprobe/2 ... nprobe/32, interval
-     x4, knn-off) and the serve traffic, whose tokens must equal an
+     x4, knn-off) and the serve traffic at 32 tokens a row, whose
+     tokens must equal an
      engine pinned at that rung, with no probe or scan launch at knn-off;
      serve.per_sequence: 2 requests through EngineConfig(wave_decode=
      False) beside a wave run of them, decode attention launched 24 x 63
@@ -101,9 +103,9 @@ failure raises, so the run exits non-zero):
      faults, and each degrade rung) prints the device time per decode
      wave and the host's time in CUDA synchronize calls.
   6. the paper's other three RALMs (paper.*), after Dec-S's engines and
-     index are freed, each at full published width and depth with
-     seeded weights, one after the other: Dec-L (96 layers, d_model
-     1024, kNN-LM), EncDec-S and EncDec-L (2 encoder layers + 24 or 96
+     index are freed, each at full published width with seeded weights,
+     one after the other: Dec-L (48 of its 96 layers, d_model 1024,
+     kNN-LM), EncDec-S and EncDec-L (2 encoder layers + 24 or 96
      decoder layers, RETRO at K 10, chunks of 64 tokens; xwv and xwo
      scaled by RETRO_XSCALE so that retrieval moves tokens). Each builds
      its own index from its own hidden states over Dec-S's corpus
@@ -114,7 +116,7 @@ failure raises, so the run exits non-zero):
      waves, probe and scan = flushes). Dec-L: the kernels at its shapes
      (decode attention at 16 KV heads, the IVF probe at D 1024, the
      fused scan and adc_scan at m 64) against their plain versions and
-     timed, three fused runs (tokens/s median, accuracy). RETRO at each
+     timed, two fused runs (tokens/s median, accuracy). RETRO at each
      interval (EncDec-S 8 and 64, EncDec-L 8): flushes fewer than waves,
      the share of tokens that differ from a mode="none" run and from a
      run without a retriever (> 0), the pooled encoder buffer's shape,
@@ -122,7 +124,8 @@ failure raises, so the run exits non-zero):
      Each model's decode waves are profiled, and its peak memory
      printed. Their launch counts and kernel times join the kernel
      report's rows under keys suffixed with the model's name. Dec-L's
-     corpus is cut to 512 docs, the RETRO models' to 2048.
+     corpus is cut to 512 docs, the RETRO models' to 2048, and every
+     model generates 32 tokens a row (``short_steps``).
   7. the dense assigned backbones (assigned.*), after the paper's:
      decode attention at Llama-3-405B's (128:8) and Qwen2-VL-72B's
      (64:8) head layouts at D 128 on a seeded pool (neither model fits
@@ -145,8 +148,8 @@ failure raises, so the run exits non-zero):
      d_ff 10 752, top-4, 6.3 GB of expert weights) on a 32-row wave, two
      runs bit-equal, timed against the bytes of its experts (DBRX does
      not fit the card); then Hymba-1.5B (attention and a Mamba head in
-     every block, 2 global + 30 local layers with 1024-slot rings, 25:5
-     heads of 64), RWKV-6-3B (no attention: decode-attention launches
+     every block, depth cut to 16 of 32 layers: 1 global + 15 local with
+     1024-slot rings, 25:5 heads of 64), RWKV-6-3B (no attention: decode-attention launches
      must be 0; its recurrent state rides in the pool's rows) and
      Phi-3.5-MoE (16 experts top-2, 32:8 heads of 128; depth cut to 16 of
      32 layers, m cut to 128) at full width with seeded weights, each
@@ -163,13 +166,13 @@ failure raises, so the run exits non-zero):
      call): train.dec_s trains Dec-S at full width (101.2M parameters,
      bf16, seeded weights) on a seeded Markov-chain corpus read through
      MemmapTokens (400 windows of 513 tokens under build/train/): seq
-     512, global batch 16 in 2 micro-batches, remat, AdamW, 30 steps
-     through the TrainController with a checkpoint every 10; it prints
-     the median step ms over steps 5-30, tokens/s, the share of the
+     512, global batch 16 in 2 micro-batches, remat, AdamW, 20 steps
+     through the TrainController with a checkpoint every 5; it prints
+     the median step ms over steps 5-20, tokens/s, the share of the
      bf16 dense peak (989 TFLOP/s) that 6 x N x tokens a step reaches,
      peak memory, a synchronous checkpoint's write ms, and the losses,
      which must fall. train.dec_s.resume runs it again crashed after
-     step 20 (SimulatedFailure) and resumed from the checkpoint with
+     step 10 (SimulatedFailure) and resumed from the checkpoint with
      fresh weights: every loss must equal the straight run's bit for
      bit. train.encdec_s runs examples.train_retro --full (EncDec-S,
      seq 512, batch 64, 640 encoder rows; steps cut from 200 to 8),
@@ -179,7 +182,14 @@ failure raises, so the run exits non-zero):
      within 1e-3 of a one-rank run of the same global batch in this
      process, and step 4 resumed on one rank from that checkpoint
      (elastic_restore) within 1e-3 of the ranks'; it prints the
-     all-reduce's MB and ms a step. train.flash_attn holds the FA2
+     all-reduce's MB and ms a step. train.tp does the same on a 2 x 2
+     (data x model) mesh of 4 ranks sharing the card, each holding only
+     its shards of the parameters and moments (launch.steps' sharded
+     step: FSDP over "data", tensor parallelism over "model"): every
+     rank's resident parameter and moment bytes must equal the dry
+     run's count for one device of the mesh; it prints them beside one
+     rank's, the step ms and each axis's collective MB and ms a step.
+     train.flash_attn holds the FA2
      autograd Function at Dec-S's and EncDec-S's training shapes
      against autograd through the plain masked softmax in float32 (out,
      dq, dk, dv within 2^-8 of each one's range) and times its forward
@@ -235,9 +245,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM float32, outside tensor cores
+# ``short_steps``: the tokens a row of the phases after Dec-S's main
+# serve runs (speculation, the degrade rungs, the other models), cut
+# from 64 for the script's time
 FULL = dict(n_docs=8192, doc_len=513, prompt_len=448, steps=64,
+            short_steps=32,
             requests=8, rows=4, nlist=256, nprobe=32, m=32, max_seq=512,
-            train_stride=16, repeats=3, kv_slots=32, per_seq_requests=2,
+            train_stride=16, repeats=2, kv_slots=32, per_seq_requests=2,
             cancel_steps=16)
 
 
@@ -269,9 +283,12 @@ class Timer:
     each run a spin kernel holds the stream for ``HOLD_CYCLES`` (~10 ms)
     while the host enqueues the start event, the run and the end event,
     so the time is the device's, without the host's launch gaps (a
-    short kernel's wrapper takes tens of microseconds of Python)."""
+    short kernel's wrapper takes tens of microseconds of Python). A
+    function whose runs add up to ``BUDGET_MS`` stops there, after at
+    least ``MIN_ITERS`` runs (the plain versions: 10-300 ms a run)."""
 
     HOLD_CYCLES = 20_000_000
+    MIN_ITERS, BUDGET_MS = 5, 1000.0
 
     def __init__(self, torch, iters: int = 25, warmup: int = 3):
         self.torch = torch
@@ -283,7 +300,8 @@ class Timer:
         for _ in range(self.warmup):
             fn()
         times = []
-        for _ in range(self.iters):
+        while len(times) < self.iters and (
+                len(times) < self.MIN_ITERS or sum(times) < self.BUDGET_MS):
             self.flush.zero_()
             torch.cuda._sleep(self.HOLD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
@@ -1347,12 +1365,14 @@ def serve_spec(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
     (launches held to dispatches as in every run), alternating with a
     speculation-off fused run so that the rates share the call's host.
     Greedy tokens must equal the fused runs'. Returns the speculating
-    runs' numbers."""
+    runs' numbers, and the k = 1 run's as ``serve_chaos`` reports its
+    run without the fault-tolerant layer."""
     import numpy as np
 
     t0 = time.perf_counter()
-    steps, B = sizes["steps"], sizes["rows"]
-    out = []
+    steps, B = sizes["short_steps"], sizes["rows"]
+    truth, fused_gen = truth[:, :steps], fused_gen[:, :steps]
+    out, k1 = [], None
     for k in (1, 2):
         eng, _, check = checked_engine(torch, dev, arch, cfg, params, ds,
                                        sizes, fused=True, speculate_k=k)
@@ -1390,9 +1410,20 @@ def serve_spec(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
             search_flushes=st.num_batches)
         log("serve.spec", t0, **row)
         out.append(row)
+        if k == 1:
+            k1 = spec_row(run, st)
         del eng
         torch.cuda.empty_cache()
-    return out
+    return out, k1
+
+
+def spec_row(run, st):
+    """A speculating run's rate and counters, as ``serve.chaos.spec_k1``
+    logs them."""
+    return dict(tps=f"{run['tps']:.1f}", landed=st.spec_landed,
+                verified=st.spec_verified,
+                wait_ms=f"{st.spec_wait.mean_s * 1e3:.3f}",
+                replay_ms=f"{st.spec_replay.mean_s * 1e3:.3f}")
 
 
 class ScanFailure(RuntimeError):
@@ -1534,13 +1565,16 @@ def same_tokens(label, run, want, rows):
 
 
 def serve_chaos(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
-                fused_eng, fused_gen, staged_eng):
+                fused_eng, fused_gen, staged_eng, spec_off):
     """The serve traffic with the fault-tolerant layer armed through
     EngineConfig(shard_replicas=2, chaos_plan=...) under five plans
     (none, a crashed replica, a hanging replica, a shard down, both
     shards down for a window), each engine's launches held to the
     one-scan rule by ``drive``; plus service-level checks of the partial
-    and total-loss results on one wave's real queries. Returns the crash
+    and total-loss results on one wave's real queries. ``spec_off``: the
+    speculating run without the layer (``serve_spec``'s k = 1 run, the
+    same engine configuration), which 1b sets beside its armed run.
+    Returns the crash
     engine (the untraced twin of ``obs.trace``), the armed engine without
     faults (profiled after every timed run) and the phases' rows."""
     import numpy as np
@@ -1610,30 +1644,18 @@ def serve_chaos(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
     none_eng = eng
 
     # 1b. speculation (k=1) with the layer armed, beside speculation
-    #     without it: the armed flush waits for its scan, so what
-    #     speculation hides is already waited for
+    #     without it (``serve_spec``'s run): the armed flush waits for its
+    #     scan, so what speculation hides is already waited for
     t0 = time.perf_counter()
-    spec = {}
-    for armed_ft in (True, False):
-        if armed_ft:
-            e, _, chk = chaos_engine(torch, dev, arch, cfg, params, ds,
-                                     sizes, "none_spec", FaultPlan(),
-                                     speculate_k=1)
-        else:
-            e, _, chk = checked_engine(torch, dev, arch, cfg, params, ds,
-                                       sizes, fused=True, speculate_k=1)
-        run = drive(torch, e, cfg, prompts, truth, steps,
-                    f"serve.chaos.spec_k1_{'armed' if armed_ft else 'off'}")
-        chk()
-        same_tokens("serve.chaos.spec_k1", run, fused_gen, B)
-        est = e.spec_stats
-        spec[armed_ft] = dict(
-            tps=f"{run['tps']:.1f}", landed=est.spec_landed,
-            verified=est.spec_verified,
-            wait_ms=f"{est.spec_wait.mean_s * 1e3:.3f}",
-            replay_ms=f"{est.spec_replay.mean_s * 1e3:.3f}")
-        del e
-    rows["spec_k1"] = dict(armed=spec[True], off=spec[False])
+    short = sizes["short_steps"]
+    e, _, chk = chaos_engine(torch, dev, arch, cfg, params, ds, sizes,
+                             "none_spec", FaultPlan(), speculate_k=1)
+    run = drive(torch, e, cfg, prompts, truth[:, :short], short,
+                "serve.chaos.spec_k1_armed")
+    chk()
+    same_tokens("serve.chaos.spec_k1", run, fused_gen[:, :short], B)
+    rows["spec_k1"] = dict(armed=spec_row(run, e.spec_stats), off=spec_off)
+    del e
     log("serve.chaos.spec_k1", t0, tokens_equal_to_ft_off=True,
         **rows["spec_k1"])
 
@@ -2056,7 +2078,8 @@ def serve_degrade(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
     import numpy as np
     from repro_torch.serve import DegradePolicy
 
-    steps, B = sizes["steps"], sizes["rows"]
+    steps, B = sizes["short_steps"], sizes["rows"]
+    truth, fused_gen = truth[:, :steps], fused_gen[:, :steps]
     policy = DegradePolicy(eng)
     rows = []
     for i, rung in enumerate(policy.ladder):
@@ -2579,13 +2602,14 @@ def profile_waves(torch, eng, prompts, steps, label="serve.profile"):
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    dev = [e for e in averages
            if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = sorted(((getattr(e, "self_device_time_total", None)
                     or getattr(e, "self_cuda_time_total", 0.0)), e.count,
                    e.key) for e in dev)[::-1]
     busy_us = sum(r[0] for r in rows)
-    syncs = [e for e in prof.key_averages()
+    syncs = [e for e in averages
              if e.device_type == torch.autograd.DeviceType.CPU and
              "Synchronize" in e.key]
     log(label, t0, decode_waves=steps - 1,
@@ -2632,12 +2656,12 @@ def run_phases(torch, dev, sizes):
                                       sizes, prompts, truth, eng)
     disagg = serve_disaggregated(torch, dev, arch, cfg, params, ds, sizes,
                                  prompts, truth)
-    serve_spec(torch, dev, arch, cfg, params, ds, sizes, prompts, truth, eng,
-               runs[0]["gen"])
+    _, spec_k1 = serve_spec(torch, dev, arch, cfg, params, ds, sizes,
+                            prompts, truth, eng, runs[0]["gen"])
     retrieval_cache(torch, dev, eng, prompts, sizes)
     crash_eng, none_eng, _ = serve_chaos(torch, dev, arch, cfg, params, ds,
                                          sizes, prompts, truth, eng,
-                                         runs[0]["gen"], staged_eng)
+                                         runs[0]["gen"], staged_eng, spec_k1)
     obs_trace(torch, dev, arch, cfg, params, ds, sizes, prompts, truth,
               crash_eng, runs[0]["gen"])
     del crash_eng
@@ -2658,10 +2682,12 @@ def run_phases(torch, dev, sizes):
     # after every timed serve run: a profiled window leaves the profiler's
     # hooks behind, which slows the host side of later waves
     sampled_request(torch, eng, prompts[0], cfg.vocab_size, steps=16)
-    profile_waves(torch, eng, prompts, steps=16)
-    profile_waves(torch, staged_eng, prompts, steps=16,
+    # 7 decode waves each (the profiler's processing takes ~1 s a wave;
+    # 15 waves took 17-19 s a profile)
+    profile_waves(torch, eng, prompts, steps=8)
+    profile_waves(torch, staged_eng, prompts, steps=8,
                   label="serve.staged_profile")
-    profile_waves(torch, none_eng, prompts, steps=16,
+    profile_waves(torch, none_eng, prompts, steps=8,
                   label="serve.chaos_none_profile")
     del staged_eng, none_eng
     for i, rung in enumerate(policy.ladder):      # device ms a wave per rung
@@ -2735,8 +2761,11 @@ REFERENCE_PARAMS = {"dec_l": 1260732416, "encdec_s": 132661248,
 # (no retrieval in a RETRO window: steps 1-2), and the per-sequence twin
 # (``twin`` overrides the sizes) runs 4 requests, so that the near-tie
 # rule's quarter admits one, EncDec-L's for 16 steps (two retrievals).
+# Every model generates ``short_steps`` tokens a row (EncDec-L's four
+# runs of 64 took 66.8 s), and Dec-L runs ``n_layers`` 48 of its 96
+# layers (its phase took 66.7 s), for the script's time.
 PAPER = (("dec_l", dict(m=64, n_docs=512, intervals=(1,), kernels=True,
-                        profile_steps=4)),
+                        profile_steps=4, n_layers=48)),
          ("encdec_s", dict(m=32, n_docs=2048, intervals=(8, 64),
                            profile_steps=3,
                            twin=dict(per_seq_requests=4))),
@@ -2784,6 +2813,8 @@ def paper_setup(torch, dev, name, opts, sizes, corpus):
     states), the chunk table (RETRO) and the IVF-PQ datastore; returns
     (arch, cfg, params, ds, queries): 32 keys plus noise for the kernel
     phases."""
+    import dataclasses
+
     import numpy as np
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tf
@@ -2791,6 +2822,8 @@ def paper_setup(torch, dev, name, opts, sizes, corpus):
     t0 = time.perf_counter()
     arch = get_arch(name)
     cfg = arch.model
+    if "n_layers" in opts:                  # a depth cut (listed in PERF.md)
+        cfg = dataclasses.replace(cfg, n_layers=opts["n_layers"])
     params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     retro = arch.rag.mode == "retro"
     if retro:
@@ -2970,6 +3003,7 @@ def paper_phases(torch, dev, sizes, report):
     """Dec-L, EncDec-S and EncDec-L at full width and depth, one after
     the other (each model's engines and index freed before the next);
     their launch counts join the report rows of the kernels they run."""
+    sizes = dict(sizes, steps=sizes["short_steps"])
     import gc
 
     import numpy as np
@@ -3015,8 +3049,9 @@ ASSIGNED_PARAMS = {"qwen2_0_5b": 493961216, "phi3_mini_3_8b": 3820879872,
                    "rwkv6_3b": 3114270720,
                    # at the 16 layers served (41 872 261 120 at 32)
                    "phi3_5_moe_42b": 21067464704}
-# Each model serves Dec-S's traffic shape (8 requests x 4 rows, 64
-# greedy tokens) from its own keys over its own seeded corpus (tokens
+# Each model serves Dec-S's traffic shape (8 requests x 4 rows, 32
+# greedy tokens: ``short_steps``) from its own keys over its own seeded
+# corpus (tokens
 # below its vocab and below Dec-S's 50 000), indexed at the reference's
 # default m = d_model // 16 (56, 192, 160: the scans' generic path).
 # Cuts for the script's time: the corpora (qwen2 1024 docs, phi3 512,
@@ -3214,6 +3249,7 @@ def assigned_phases(torch, dev, sizes, report):
     """The head layouts of the two backbones that do not fit the card,
     then Qwen2-0.5B, Phi-3-mini and Gemma-3-4B at full width and depth,
     one after the other (each model freed before the next)."""
+    sizes = dict(sizes, steps=sizes["short_steps"])
     import gc
 
     timer = Timer(torch)
@@ -3255,10 +3291,12 @@ def assigned_phases(torch, dev, sizes, report):
 # docs, 262 144 keys; RWKV-6 256 docs of 544 tokens, 139 008 keys: 544
 # is 17 chunks of 32, so the keys' forward takes the chunked time mix,
 # 512 docs took 22.4 s of keys; Phi-3.5-MoE 512 docs, 262 144 keys;
-# SeamlessM4T 1024 docs, 524 288 keys). The kNN-LM keys of Hymba run its
-# Mamba loop, 128 documents a batch.
+# SeamlessM4T 1024 docs, 524 288 keys), and Hymba's depth, 16 of 32
+# layers (one whole cycle of its layer pattern: its Python Mamba loop made
+# the phase 69-70 s at 32). The kNN-LM keys of Hymba run its Mamba loop,
+# 128 documents a batch.
 NONDENSE_SERVED = (
-    ("hymba_1_5b", dict(m=100, n_docs=512, key_batch=128)),
+    ("hymba_1_5b", dict(m=100, n_docs=512, key_batch=128, n_layers=16)),
     ("rwkv6_3b", dict(m=160, n_docs=256, doc_len=544)),
     ("phi3_5_moe_42b", dict(m=128, n_docs=512, n_layers=16)),
 )
@@ -3325,6 +3363,7 @@ def nondense_phases(torch, dev, sizes, report):
     traffic fused and staged; then SeamlessM4T-medium through RETRO
     (``paper_setup`` / ``paper_serve``: fused, staged, without retrieval,
     the share of tokens retrieval moves)."""
+    sizes = dict(sizes, steps=sizes["short_steps"])
     import gc
 
     import numpy as np
@@ -3384,13 +3423,16 @@ def nondense_phases(torch, dev, sizes, report):
 # ---------------------------------------------------------------------------
 
 BF16_FLOPS = 989e12              # H100 SXM bf16 dense, tensor cores
-TRAIN_DEC_S = dict(seq_len=512, batch=16, microbatches=2, steps=30,
-                   ckpt_every=10, fail_at=20, windows=400, lr=1e-3,
+# 20 steps, crashed after step 10 and resumed from its checkpoint (cut
+# for the script's time from 30 steps crashed after 20)
+TRAIN_DEC_S = dict(seq_len=512, batch=16, microbatches=2, steps=20,
+                   ckpt_every=5, fail_at=10, windows=400, lr=1e-3,
                    warmup=5)
 TRAIN_RETRO_STEPS = 8            # examples.train_retro --full, cut from 200
 TRAIN_DP = dict(ranks=2, steps=3, seq_len=512, batch=8)
+TRAIN_TP = dict(data=2, model=2, steps=3, seq_len=512, batch=8)
 #: the training phases that run (tools/model_phases.py narrows them)
-TRAIN_PHASES = ("dec_s", "encdec_s", "dp", "flash_attn")
+TRAIN_PHASES = ("dec_s", "encdec_s", "dp", "tp", "flash_attn")
 FLASH_SHAPES = (   # name, B, T, S, H, KV, causal: the training shapes
     ("dec_s", 8, 512, 512, 8, 8, True),            # a micro-batch of 8
     ("encdec_s.cross", 64, 512, 640, 8, 8, False),
@@ -3584,6 +3626,80 @@ def train_dp(torch, dev, root, card):
         allreduce_ms=",".join(f"{x:.1f}" for x in ar))
 
 
+def train_tp(torch, dev, root, card):
+    """Dec-S at full width on a ``data x model`` mesh of ranks sharing the
+    card (gloo, staged through host memory), each holding its shards of
+    the parameters and moments (``launch.steps``' sharded step), for
+    ``steps`` steps and one more from the checkpoint (whole leaves): each
+    step's loss within 1e-3 of a one-rank run of the same global batch in
+    this process, step ``steps + 1`` resumed on one rank
+    (``elastic_restore``) within 1e-3 of the mesh's, and every rank's
+    resident parameter and moment bytes equal to the dry run's count for
+    one device of the mesh. Logs step ms and each axis's collective MB
+    and ms a step."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import dp, dryrun, train
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.runtime.fault_tolerance import elastic_restore
+
+    o = TRAIN_TP
+    D, M = o["data"], o["model"]
+    t0 = time.perf_counter()
+    args = ["--arch", "dec_s", "--seq-len", str(o["seq_len"]),
+            "--batch", str(o["batch"]), "--steps", str(o["steps"] + 1),
+            "--ckpt-every", str(o["steps"]), "--ckpt-dir", str(root / "tp"),
+            "--device", dev.type, "--data", str(D), "--model", str(M)]
+    lines = dp.launch(D * M, "repro_torch.launch.train:run", args,
+                      device=dev.type, timeout_s=600, model=M)
+    ranks = {m["step"]: m for m in (json.loads(ln.split(" ", 3)[3])
+                                    for ln in lines
+                                    if ln.startswith("[train] step "))}
+    held = json.loads(next(ln for ln in lines if ln.startswith(
+        "[train] resident ")).split(" ", 2)[2])
+    t_ranks = time.perf_counter() - t0
+    ns = train.parser().parse_args(args)
+    cfg, ocfg, params, opt, data = train.build(ns, dev)
+    mesh = make_mesh_for([str(dev)] * (D * M), data=D, model=M)
+    want = dryrun.state_bytes_per_dev(cfg, mesh, ocfg)
+    got = list(zip(held["param_bytes"], held["moment_bytes"]))
+    if got != [want] * (D * M):
+        raise AssertionError(f"train.tp: resident bytes {got} != the dry "
+                             f"run's {want} on every rank")
+    step = build_train_step(cfg, ocfg)
+
+    def batch(s):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.host_batch(s).items()}
+    gaps = []
+    for s in range(o["steps"]):
+        params, opt, m = step(params, opt, batch(s))
+        gaps.append(abs(float(m["loss"]) - ranks[s]["loss"]))
+    (params, opt), at = elastic_restore(root / "tp", (params, opt),
+                                        dp.Group.single(dev), step=o["steps"])
+    _, _, m = step(params, opt, batch(o["steps"]))
+    gaps.append(abs(float(m["loss"]) - ranks[o["steps"]]["loss"]))
+    if not max(gaps) < 1e-3:
+        raise AssertionError(f"train.tp: loss gaps {gaps} (bound 1e-3)")
+    whole = sum(t.numel() * t.element_size()
+                for t in tree_lib.leaves((params, opt)))
+
+    def per_step(key):
+        return ",".join(f"{ranks[s][key]:.1f}" for s in sorted(ranks))
+    log("train.tp", t0, card=f"'{card}'", data=D, model=M,
+        backend=dp.backend_for(dev.type, D * M), seq=o["seq_len"],
+        global_batch=o["batch"], steps=len(ranks), resumed_at=at,
+        ranks_s=f"{t_ranks:.1f}",
+        loss_gaps=",".join(f"{g:.2e}" for g in gaps),
+        resident_param_mb=f"{want[0] / 1e6:.2f}",
+        resident_moment_mb=f"{want[1] / 1e6:.2f}",
+        dryrun_per_dev_mb=f"{sum(want) / 1e6:.2f}",
+        one_rank_mb=f"{whole / 1e6:.2f}", step_ms=per_step("step_ms"),
+        data_mb=f"{ranks[0]['data_mb']:.1f}", data_ms=per_step("data_ms"),
+        model_mb=f"{ranks[0]['model_mb']:.1f}",
+        model_ms=per_step("model_ms"))
+
+
 def train_flash_attn(torch, dev, root, card):
     """The FA2 autograd Function at the training shapes (bf16) against
     autograd through the plain masked softmax in float32 (out, dq, dk, dv
@@ -3654,7 +3770,7 @@ def train_phases(torch, dev):
     import gc
 
     phases = {"dec_s": train_dec_s, "encdec_s": train_encdec_s,
-              "dp": train_dp, "flash_attn": train_flash_attn}
+              "dp": train_dp, "tp": train_tp, "flash_attn": train_flash_attn}
     card = nvidia_smi()
     root = train_root()
     for name in TRAIN_PHASES:

@@ -49,3 +49,10 @@ def truncated_queue_len(K: int, num_queues: int, eps: float = 0.01) -> int:
         if queue_overflow_prob(K, num_queues, k_prime) <= eps:
             return k_prime
     return K
+
+
+def resource_saving(K: int, num_queues: int, eps: float = 0.01) -> float:
+    """Fig. 8 metric: (exact L1 state) / (truncated L1 state). The exact
+    hierarchical design needs num_queues * K entries, the approximate one
+    num_queues * k'."""
+    return K / truncated_queue_len(K, num_queues, eps)

@@ -81,7 +81,7 @@ from repro_torch.launch.analysis import (HBM_BW, PEAK_FLOPS, Cost,
                                          count_cost, roofline_terms)
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models.sharding import (P, dp_axes, param_specs, sanitize,
-                                         shard_shape)
+                                         shard_shape, spec_leaves)
 from repro_torch.optim import adamw
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
@@ -164,7 +164,7 @@ def step_cost(spec: ArchSpec, shape: str, micro: int = 1, n_shards: int = 1,
 def _bytes_per_dev(structs, spec_tree, mesh) -> int:
     """Sum of each leaf's per-device shard bytes under its spec."""
     specs = sanitize(spec_tree, structs, mesh)
-    flat_specs = _spec_leaves(specs)
+    flat_specs = spec_leaves(specs)
     leaves = tree_lib.leaves(structs)
     if len(flat_specs) != len(leaves):
         raise ValueError(f"{len(flat_specs)} specs for {len(leaves)} leaves")
@@ -172,13 +172,16 @@ def _bytes_per_dev(structs, spec_tree, mesh) -> int:
                for t, s in zip(leaves, flat_specs))
 
 
-def _spec_leaves(specs) -> list:
-    """The specs of a spec tree, in ``tree.leaves`` order."""
-    if isinstance(specs, P):
-        return [specs]
-    if isinstance(specs, dict):
-        return [s for k in sorted(specs) for s in _spec_leaves(specs[k])]
-    return [s for v in specs for s in _spec_leaves(v)]
+def state_bytes_per_dev(cfg, mesh, opt_cfg=None) -> Tuple[int, int]:
+    """(parameter bytes, optimiser-state bytes) that one device holds in
+    a training step over ``mesh``: a train cell's ``arg_bytes_per_dev``
+    without the batch."""
+    p_struct = steps_lib.abstract_params(cfg)
+    p_specs = param_specs(cfg, mesh, p_struct)
+    opt = adamw.init_opt_state(p_struct, opt_cfg or adamw.AdamWConfig())
+    opt_specs = adamw.OptState(step=P(), m=p_specs, v=p_specs)
+    return (_bytes_per_dev(p_struct, p_specs, mesh),
+            _bytes_per_dev(opt, opt_specs, mesh))
 
 
 def _arg_out_bytes(spec: ArchSpec, shape: str, kind: str, mesh,

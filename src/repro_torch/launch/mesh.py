@@ -1,11 +1,15 @@
-"""Rank layouts of the retrieval pool (twin of ``repro.launch.mesh``).
+"""Rank layouts of the retrieval pool and of training (twin of
+``repro.launch.mesh``).
 
 The reference's ``make_mesh_for`` lays devices out along named axes
 (``data``, ``model``, optionally ``pod``). Here a pool member is a
-process, so a ``Mesh`` lays out memory-node processes: each position
-has its coordinates along the axes and the device its process runs on.
-Building a mesh starts nothing; a ``ShardRouter`` over it starts one
-node per position (``retrieval/fabric.py``), the caller being rank 0.
+process, so a ``Mesh`` lays out processes: each position has its
+coordinates along the axes and the device its process runs on. Building
+a mesh starts nothing. A ``ShardRouter`` over it starts one memory node
+per position (``retrieval/fabric.py``), the caller being rank 0; the
+training ranks of ``launch.dp`` are a ``data x model`` mesh of their
+own (``Group.mesh``: rank r at position r, on ``pool_device(r)``),
+whose axis sizes ``models.sharding`` reads to place each rank's shards.
 
 Devices are dealt round-robin over ranks, LM first: the LM pool is
 rank 0 on ``cuda:0`` and node rank r runs on ``cuda:(r %

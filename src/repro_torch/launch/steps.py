@@ -6,10 +6,17 @@ forward, backward through ``transformer.lm_loss`` (the FA2 attention
 backward, ``remat`` per layer cycle), gradient accumulation over
 micro-batches, and AdamW, updating the parameter and moment tensors in
 place. The reference's step is one jitted, GSPMD-sharded program; here
-it runs eagerly, and data parallelism is explicit: with a ``group``
-(``launch.dp.Group``) of more than one rank the step all-reduces the
+it runs eagerly on each rank, and the parallelism is explicit. With a
+``group`` (``launch.dp.Group``) of more than one rank and a model axis
+of 1, every rank holds every parameter and the step all-reduces the
 summed loss, the valid-token count and every gradient, so the mean is
-the global batch's mean even where labels are masked.
+the global batch's mean even where labels are masked. With a model axis
+of more than 1 the step is sharded (``_sharded_train_step``): each rank
+holds the shard of every parameter and moment that the reference's
+``sanitize(param_specs(...))`` gives its mesh position (``TrainLayout``),
+the layers gather each leaf over "data" as they run and split their
+matmuls over "model" (``models.transformer``), gradients come back
+reduce-scattered into the shards, and AdamW updates the shards.
 
 ``build_prefill_step`` (the full-sequence forward that fills the KV
 cache) and ``build_serve_step`` (one retrieval-augmented decode step,
@@ -19,10 +26,10 @@ the reference sanitises them) and abstract inputs (``launch.specs``).
 Where the reference jits a GSPMD program over the mesh, these steps are
 plain eager functions that run on whatever device their tensors are on:
 CUDA tensors launch the port's kernels, CPU tensors run the plain
-versions, and meta tensors (the dry run) only propagate shapes. On a
-mesh of more than one position the specs are descriptive: the step
-still runs in one process, and laying the shards out over devices is
-parameter sharding (ROADMAP Queue 1 item 20).
+versions, and meta tensors (the dry run) only propagate shapes. Both
+run under ``activation_sharding`` without a rank group, where every
+axis has size 1: on a mesh of more than one position their specs are
+descriptive, and the step runs in one process.
 """
 from __future__ import annotations
 
@@ -37,8 +44,11 @@ from repro_torch.core import rag as rag_lib
 from repro_torch.launch import specs as specs_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ctx import activation_sharding
 from repro_torch.models.sharding import (P, cache_specs, dp_axes,
-                                         param_specs, sanitize)
+                                         gather_named, keyed_specs,
+                                         param_specs, put_named, sanitize,
+                                         shard_shape)
 from repro_torch.optim import adamw
 from repro_torch.retrieval.service import search_stacked
 
@@ -85,22 +95,78 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+class TrainLayout:
+    """Where a sharded step's state lives: ``specs``, the sanitised
+    parameter specs over the rank group's mesh, and ``state_specs`` for
+    (params, opt_state). ``put`` keeps this rank's shards of whole
+    trees, ``gather`` gives whole trees back (every rank must call it),
+    ``check`` raises unless every leaf has its shard's shape."""
+
+    def __init__(self, cfg: ModelConfig, group):
+        self.group, self.mesh = group, group.mesh
+        struct = abstract_params(cfg)
+        self.specs = sanitize(param_specs(cfg, self.mesh, struct), struct,
+                              self.mesh)
+        self.keyed = keyed_specs(self.specs)
+        self.state_specs = (self.specs, adamw.OptState(
+            step=P(), m=self.specs, v=self.specs))
+        self.shapes = {k: shard_shape(t.shape, self.keyed[k], self.mesh)
+                       for k, t in tree_lib.keyed(struct).items()}
+        live = [a for a, n in group.shape.items() if n > 1]
+        coords = group.coords
+        #: per leaf: counted in the global norm on this rank (coordinate 0
+        #: of every axis it is replicated over); replicated over "data"
+        self.counted, self.over_data = [], []
+        for spec in self.keyed.values():
+            axes = {a for e in spec if e is not None
+                    for a in (e if isinstance(e, tuple) else (e,))}
+            self.counted.append(all(coords[a] == 0 for a in live
+                                    if a not in axes))
+            self.over_data.append("data" not in axes)
+
+    def put(self, tree):
+        return put_named(tree, self.state_specs, self.mesh, self.group)
+
+    def gather(self, tree):
+        return gather_named(tree, self.state_specs, self.mesh, self.group)
+
+    def check(self, params, opt_state) -> None:
+        for tree in (params, opt_state.m, opt_state.v):
+            for key, leaf in tree_lib.keyed(tree).items():
+                if tuple(leaf.shape) != self.shapes[key]:
+                    raise ValueError(
+                        f"{key}: local shape {tuple(leaf.shape)} is not the "
+                        f"shard {self.shapes[key]} of {self.keyed[key]} "
+                        f"over {self.mesh.shape}")
+
+
 def build_train_step(cfg: ModelConfig,
                      opt_cfg: Optional[adamw.AdamWConfig] = None,
                      remat: bool = True, microbatches: int = 1,
                      group=None):
     """Returns ``train_step(params, opt_state, batch) -> (params,
-    opt_state, metrics)``. Metrics: ``loss``, ``grad_norm``, ``lr``, and
-    with a group of more than one rank ``allreduce_ms`` /
-    ``allreduce_bytes`` (the staged all-reduce, host wall time).
+    opt_state, metrics)``. Metrics: ``loss``, ``grad_norm``, ``lr``;
+    with a data-parallel group of more than one rank ``allreduce_ms`` /
+    ``allreduce_bytes`` (the staged all-reduce, host wall time); sharded
+    (a group with a model axis of more than 1), ``data_mb`` /
+    ``data_ms`` / ``model_mb`` / ``model_ms``, each axis's collectives in
+    the step (bytes and host wall time). ``train_step.layout`` is the
+    sharded step's ``TrainLayout`` (None otherwise): its state must be
+    put in place before the first step.
 
     One rank follows the reference: the loss is the mean of the
     micro-batches' means, the gradients their mean, accumulated in
     float32 (micro-batches of 1: the parameters' dtype)."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
+    if group is not None and group.shape["model"] > 1:
+        return _sharded_train_step(cfg, opt_cfg, remat, microbatches, group)
     dp = group is not None and group.size > 1
 
     def train_step(params, opt_state, batch):
+        with activation_sharding(("data",), "model"):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         leaves = tree_lib.leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -153,6 +219,65 @@ def build_train_step(cfg: ModelConfig,
         metrics.update(m, loss=loss)
         return params, opt_state, metrics
 
+    train_step.layout = None
+    return train_step
+
+
+def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                        remat: bool, microbatches: int, group):
+    """The step on this rank's shards (see the module docstring). The
+    loss is the global batch's summed NLL over its global valid-token
+    count: the count is all-reduced over "data" first, each
+    micro-batch's local sum over it is differentiated (the data axis's
+    reduce-scatters add the rows' shares), and the gradients of leaves
+    replicated over "data" are all-reduced over it in one float32
+    buffer beside the loss."""
+    layout = TrainLayout(cfg, group)
+    dp = dp_axes(layout.mesh)
+    data, model = group.axis("data"), group.axis("model")
+    D = group.shape["data"]
+
+    def train_step(params, opt_state, batch):
+        layout.check(params, opt_state)
+        for g in (group, data, model):
+            g.stats.update(bytes=0, ms=0.0)
+        leaves = tree_lib.leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        dev = leaves[0].device
+        parts = _split(batch, microbatches)
+        count = sum((mb["labels"] >= 0).sum() for mb in parts).float()
+        count = data.all_reduce(count.reshape(1).to(dev)).clamp(min=1)[0]
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+               for p in leaves]
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for mb in parts:
+            rows = mb["labels"].shape[0]
+            with activation_sharding(dp, "model", group=group,
+                                     specs=layout.keyed, batch=rows * D):
+                s, _ = tf.nll_sum(params, cfg, mb, remat=remat)
+                for a, g in zip(acc, _grad(s / count, leaves)):
+                    a += g.float()
+            total += s.detach()
+        if D > 1:
+            rep = [a for a, r in zip(acc, layout.over_data) if r]
+            flat = data.all_reduce(torch.cat(
+                [total.reshape(1)] + [a.reshape(-1) for a in rep]))
+            total, off = flat[0], 1
+            for a in rep:
+                a.copy_(flat[off:off + a.numel()].view(a.shape))
+                off += a.numel()
+        grads = tree_lib.unflatten_like(params, iter(acc))
+        params, opt_state, m = adamw.apply_updates(
+            params, grads, opt_state, opt_cfg, group=group,
+            counted=layout.counted)
+        metrics = dict(m, loss=total / count)
+        for name, g in (("data", data), ("model", model)):
+            metrics[f"{name}_mb"] = g.stats["bytes"] / 1e6
+            metrics[f"{name}_ms"] = g.stats["ms"]
+        return params, opt_state, metrics
+
+    train_step.layout = layout
     return train_step
 
 
@@ -170,15 +295,20 @@ def build_prefill_step(spec: ArchSpec, shape_name: str, mesh):
     sh = SHAPES[shape_name]
     dp = dp_axes(mesh)
 
+    kv_batch = "dp" if sh["global_batch"] >= 8 else None
+    kv_seq = "model" if sh["global_batch"] >= 8 else ("dp", "model")
+
     @torch.no_grad()
     def prefill_step(params, caches, batch):
-        enc_states = None
-        if "enc_embeds" in batch:
-            enc_states = tf.encode(params, cfg, batch["enc_embeds"])
-        logits, caches = tf.forward(
-            params, cfg, tokens=batch.get("tokens"),
-            embeds=batch.get("embeds"), positions=batch.get("positions"),
-            mode="prefill", caches=caches, enc_states=enc_states)
+        with activation_sharding(dp, "model", kv_batch=kv_batch,
+                                 kv_seq=kv_seq):
+            enc_states = None
+            if "enc_embeds" in batch:
+                enc_states = tf.encode(params, cfg, batch["enc_embeds"])
+            logits, caches = tf.forward(
+                params, cfg, tokens=batch.get("tokens"),
+                embeds=batch.get("embeds"), positions=batch.get("positions"),
+                mode="prefill", caches=caches, enc_states=enc_states)
         return logits[:, -1], caches
 
     p_struct = abstract_params(cfg)
@@ -234,6 +364,9 @@ def build_serve_step(spec: ArchSpec, shape_name: str, mesh,
     needs_proj = cfg.d_model != dq
     retro = rag.mode == "retro" and cfg.arch == "encdec"
 
+    kv_batch = "dp" if B >= 8 else None
+    kv_seq = "model" if B >= 8 else ("dp", "model")
+
     def search(db_params, db_shard, query):
         return search_stacked(db_params, db_shard, query, ccfg)
 
@@ -241,9 +374,11 @@ def build_serve_step(spec: ArchSpec, shape_name: str, mesh,
     def serve_step(params, caches, batch, db_params=None, db_shard=None,
                    payload=None, proj=None):
         token, position = batch["token"], batch["position"]
-        logits, caches, hidden = tf.decode_step(
-            params, cfg, caches, token, position,
-            enc_states=batch.get("enc_states"), return_hidden=True)
+        with activation_sharding(dp, "model", kv_batch=kv_batch,
+                                 kv_seq=kv_seq):
+            logits, caches, hidden = tf.decode_step(
+                params, cfg, caches, token, position,
+                enc_states=batch.get("enc_states"), return_hidden=True)
         if not with_retrieval:
             return logits, caches
         query = hidden.float()

@@ -38,6 +38,24 @@ def route_topk(x: torch.Tensor, router_w: torch.Tensor, top_k: int
     return torch.softmax(top_logits, dim=-1), top_ids
 
 
+def load_balance_loss(x: torch.Tensor, router_w: torch.Tensor, top_k: int
+                      ) -> torch.Tensor:
+    """Switch-style auxiliary loss, E * sum_e f_e * p_e: ``f_e`` the share
+    of the top-k assignments that go to expert e, ``p_e`` its mean router
+    probability (float32). Like the reference's, no loss calls it."""
+    logits = x.float() @ router_w.float()
+    E = logits.shape[-1]
+    p = torch.softmax(logits, dim=-1)
+    top_ids = torch.sort(logits, dim=-1, descending=True,
+                         stable=True).indices[:, :top_k]   # as route_topk
+    f = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, top_ids.reshape(-1), torch.ones(top_ids.numel(),
+                                            dtype=torch.float32,
+                                            device=x.device))
+    f = f / torch.clamp(f.sum(), min=1.0)
+    return E * torch.sum(f * p.mean(dim=0))
+
+
 def capacity(N: int, E: int, top_k: int, capacity_factor: float = 1.25
              ) -> int:
     """Slots an expert has for N tokens: ceil(int(N k cf) / E), at

@@ -2,15 +2,21 @@
 ("pod", "data"), tensor parallelism over "model", expert parallelism
 over "data" for MoE experts.
 
-The spec calculus only. ``param_specs``, ``cache_specs`` and
-``sanitize`` compute, for the port's parameter and cache trees, the
-reference's GSPMD partition specs over a ``launch.mesh.Mesh`` (only its
-axis names and sizes are read), and ``shard_shape`` the per-device
-local shape a spec gives (``NamedSharding.shard_shape``). The dry run
-(``launch/dryrun.py``) sums those local shapes into its per-device
-argument bytes. Placing shards on devices (the reference's
-``put_named``) is parameter sharding, ROADMAP Queue 1 item 20: the
-port's steps run in one process.
+``param_specs``, ``cache_specs`` and ``sanitize`` compute, for the
+port's parameter and cache trees, the reference's GSPMD partition specs
+over a ``launch.mesh.Mesh`` (only its axis names and sizes are read),
+and ``shard_shape`` the per-device local shape a spec gives
+(``NamedSharding.shard_shape``). The dry run (``launch/dryrun.py``) sums
+those local shapes into its per-device argument bytes.
+
+Placing: the reference's ``put_named`` lays a tree out over the devices
+of one program. Here each mesh position is a training rank of its own
+(``launch.dp``), and ``put_named(tree, specs, mesh, group)`` runs on
+every rank: the rank keeps the slice of every leaf that its coordinates
+select, so it holds exactly the bytes the dry run counts for one device.
+``gather_named`` is its inverse (whole leaves on every rank, for a
+checkpoint in the reference's layout). The sharded train step
+(``launch.steps.build_train_step``) computes on such shards.
 """
 from __future__ import annotations
 
@@ -210,6 +216,77 @@ def sanitize(spec_tree, struct_tree, mesh):
         return P(*out)
 
     return _map_specs(fix_leaf, spec_tree, struct_tree)
+
+
+def keyed_specs(specs) -> Dict[str, PartitionSpec]:
+    """Tree key (``repro_torch.tree``'s) -> spec of a spec tree."""
+    from repro_torch import tree as tree_lib
+    keys = list(tree_lib.keyed(_map_specs(lambda s: 0, specs)))
+    return dict(zip(keys, spec_leaves(specs)))
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree, in ``tree.leaves`` order."""
+    if isinstance(specs, PartitionSpec):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    return [s for v in specs for s in spec_leaves(v)]
+
+
+def _shard_index(entry, sizes: Dict[str, int], coords: Dict[str, int]
+                 ) -> Tuple[int, int]:
+    """(index of this position's shard along a dim, number of shards):
+    a compound entry is row-major over its axes, as jax lays it out."""
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * sizes[a] + coords.get(a, 0)
+        n *= sizes[a]
+    return idx, n
+
+
+def put_named(tree, specs, mesh, group):
+    """This rank's shard of every leaf of ``tree`` (whole leaves, on any
+    device) under ``specs`` over ``mesh``: each dim split over axes keeps
+    the slice that ``group``'s coordinates select, copied onto the
+    rank's device. Raises where a dim does not divide (as
+    ``shard_shape``)."""
+    sizes, coords = _axis_sizes(mesh), group.coords
+    if dict(sizes) != dict(group.shape):
+        raise ValueError(f"mesh {sizes} is not the rank group's "
+                         f"{group.shape}")
+
+    def place(spec, leaf):
+        local = shard_shape(leaf.shape, spec, mesh)
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                idx, _ = _shard_index(entry, sizes, coords)
+                leaf = leaf.narrow(dim, idx * local[dim], local[dim])
+        return leaf.to(group.device, copy=True).contiguous()
+
+    return _map_specs(place, specs, tree)
+
+
+def gather_named(tree, specs, mesh, group):
+    """Whole leaves on every rank from each rank's shards (``put_named``'s
+    inverse): each split dim all-gathered over its axis. Every rank of
+    ``group`` must call it."""
+    def whole(spec, leaf):
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            live = [a for a in axes if mesh.shape[a] > 1]
+            if len(live) > 1:
+                raise NotImplementedError(
+                    f"dim {dim} split over {axes}: the training mesh "
+                    "splits a dim over one axis")
+            if live:
+                leaf = group.axis(live[0]).all_gather(leaf, dim)
+        return leaf.contiguous()
+
+    return _map_specs(whole, specs, tree)
 
 
 def shard_shape(shape: Sequence[int], spec: PartitionSpec, mesh

@@ -39,6 +39,20 @@ vision stub), with an encoder-decoder's ``enc_embeds`` through
 backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint(apply_cycle)``); the layers of a last partial cycle
 keep their activations, as the reference's unrolled tail does.
+
+Sharded training (a ``models.ctx`` context with a mesh group and the
+parameters' specs; ``launch.steps.build_train_step`` sets it): every
+leaf is read through ``parallel.leaf``, so a layer gathers its leaves
+over the data axis when it runs (and, under remat, again in the
+backward) and frees them after. Over the model axis a layer computes
+split where its leaves are split on head or column boundaries
+(``TP_GROUPS``): the attention by heads, the gated MLP by ``d_ff``
+columns, each between ``copy_to_model`` and ``reduce_from_model``; the
+embedding and the head by vocabulary rows, with the cross-entropy from
+all-reduced maxima and sums. Any other leaf split over "model" (a head
+cut in two, Mamba's, RWKV-6's and the MoE's leaves) is gathered whole
+and computed replicated. The layers read the layout they got from their
+leaves' shapes.
 """
 from __future__ import annotations
 
@@ -48,7 +62,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attn.ops import decode_attention
+from repro_torch.models import ctx as ctx_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import parallel
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import (flash_attention, prefill_cache,
                                           update_cache)
@@ -62,6 +78,15 @@ Params = Dict[str, Any]
 BLOCKS = ("dense", "moe", "hybrid", "rwkv6")
 #: leaves the reference keeps in float32 whatever ``cfg.dtype`` is
 FLOAT32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip"})
+#: leaves a layer computes split over the model axis, by group: (split
+#: by column, the output dim; split by row, the input dim). A group runs
+#: split only when every leaf of it is split so (attention: also on head
+#: boundaries); else its leaves are gathered.
+TP_GROUPS = {
+    "attn": (("wq", "wk", "wv", "bq", "bk", "bv"), ("wo",)),
+    "xattn": (("xwq", "xwk", "xwv"), ("xwo",)),
+    "mlp": (("wg", "wu"), ("wd",)),
+}
 
 
 def _check_block(cfg: ModelConfig) -> None:
@@ -243,14 +268,72 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int,
     return caches
 
 
+def _tp_leaves(cfg: ModelConfig, prefix: str, stacked: Params) -> set:
+    """The leaves of ``stacked`` (at tree key ``prefix``) that the layer
+    computes split over the model axis (``TP_GROUPS``)."""
+    M = parallel.model_size()
+    if M == 1:
+        return set()
+    heads = cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0
+    keep = set()
+    for group, (cols, rows) in TP_GROUPS.items():
+        names = [n for n in cols + rows if n in stacked]
+        if not names or (group == "mlp" and cfg.block == "moe") or \
+                (group != "mlp" and not heads):
+            continue
+        if all(parallel.split_on(f"{prefix}/{n}", -1 if n in cols else -2,
+                                 stacked[n].dim()) for n in names):
+            keep.update(names)
+    return keep
+
+
+def _layer_params(cfg: ModelConfig, prefix: str, stacked: Params,
+                  idx: int) -> Params:
+    """Layer ``idx`` of the stacked leaves at tree key ``prefix`` (a
+    NamedTuple of stacked leaves, as the hybrid's ``mamba``, gives a
+    NamedTuple of layer leaves); in a sharded step each through
+    ``parallel.leaf``."""
+    if not parallel.sharded():
+        return {name: type(a)(*(x[idx] for x in a))
+                if isinstance(a, tuple) else a[idx]
+                for name, a in stacked.items()}
+    keep = _tp_leaves(cfg, prefix, stacked)
+    out = {}
+    for name, a in stacked.items():
+        if isinstance(a, tuple):        # a NamedTuple of stacked leaves
+            out[name] = type(a)(*(
+                parallel.leaf(f"{prefix}/{name}/{f}", x[idx], stacked=True)
+                for f, x in zip(a._fields, a)))
+        else:
+            out[name] = parallel.leaf(f"{prefix}/{name}", a[idx],
+                                      keep_model=name in keep, stacked=True)
+    return out
+
+
+def _tp_in(x: torch.Tensor, tp: bool) -> torch.Tensor:
+    return parallel.copy_to_model(x) if tp else x
+
+
+def _tp_out(y: torch.Tensor, tp: bool) -> torch.Tensor:
+    return parallel.reduce_from_model(y) if tp else y
+
+
 def _proj_qkv(cfg, p, x):
+    """(q [B, T, H, dh], k, v [B, T, KV, dh]); a model-split layer gets
+    its own heads only."""
     B, T, _ = x.shape
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, T, cfg.n_heads, cfg.d_head),
-            k.reshape(B, T, cfg.n_kv_heads, cfg.d_head),
-            v.reshape(B, T, cfg.n_kv_heads, cfg.d_head))
+    q = q.reshape(B, T, -1, cfg.d_head)
+    k = k.reshape(B, T, -1, cfg.d_head)
+    v = v.reshape(B, T, -1, cfg.d_head)
+    tag = "model" if q.shape[2] != cfg.n_heads else None
+    ctx_lib.constrain(q, "dp", None, tag, None,
+                      full=(None, None, cfg.n_heads, cfg.d_head))
+    ctx_lib.constrain(k, "dp", None, tag, None,
+                      full=(None, None, cfg.n_kv_heads, cfg.d_head))
+    return q, k, v
 
 
 def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
@@ -263,7 +346,8 @@ def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
     Under M-RoPE ``positions`` are [3, B, T]; cache slots, validity and
     masks follow the first (temporal) stream, as in the reference."""
     B, T, _ = h.shape
-    q, k, v = _proj_qkv(cfg, p, h)
+    tp = p["wq"].shape[-1] != cfg.n_heads * cfg.d_head
+    q, k, v = _proj_qkv(cfg, p, _tp_in(h, tp))
     pos1d = positions[0] if positions.ndim == 3 else positions
     q = positional_rotate(q, positions, cfg, rope)
     k = positional_rotate(k, positions, cfg, rope)
@@ -279,7 +363,7 @@ def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
                               window=window)
         if mode == "prefill":
             prefill_cache(cache["k"], cache["v"], k, v, ring=ring)
-    return out.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["wo"]
+    return _tp_out(out.reshape(B, T, -1) @ p["wo"], tp)
 
 
 def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None):
@@ -289,7 +373,8 @@ def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None):
     under ``slots``), else recomputes them from ``enc_states`` [B, S, d]
     (already the wave's rows). Prefill fills a cross cache in place."""
     B, T, _ = hn.shape
-    q = (hn @ p["xwq"]).reshape(B, T, cfg.n_heads, cfg.d_head)
+    tp = p["xwq"].shape[-1] != cfg.n_heads * cfg.d_head
+    q = (_tp_in(hn, tp) @ p["xwq"]).reshape(B, T, -1, cfg.d_head)
     if mode == "decode" and cache is not None and "xk" in cache:
         xk, xv = cache["xk"], cache["xv"]
         if slots is not None:
@@ -297,10 +382,9 @@ def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None):
             xk, xv = xk[idx], xv[idx]
     else:
         S = enc_states.shape[1]
-        xk = (enc_states @ p["xwk"]).reshape(B, S, cfg.n_kv_heads,
-                                             cfg.d_head)
-        xv = (enc_states @ p["xwv"]).reshape(B, S, cfg.n_kv_heads,
-                                             cfg.d_head)
+        enc = _tp_in(enc_states, tp)
+        xk = (enc @ p["xwk"]).reshape(B, S, -1, cfg.d_head)
+        xv = (enc @ p["xwv"]).reshape(B, S, -1, cfg.d_head)
     S = xk.shape[1]
     qpos = torch.zeros((B, T), dtype=torch.int32, device=hn.device)
     kpos = torch.arange(S, device=hn.device)[None].expand(B, S)
@@ -308,7 +392,7 @@ def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None):
     if mode == "prefill" and cache is not None and "xk" in cache:
         cache["xk"].copy_(xk.to(cache["xk"].dtype))
         cache["xv"].copy_(xv.to(cache["xv"].dtype))
-    return out.reshape(B, T, cfg.n_heads * cfg.d_head) @ p["xwo"]
+    return _tp_out(out.reshape(B, T, -1) @ p["xwo"], tp)
 
 
 def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -319,7 +403,15 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         out = moe_lib.moe_ffn(x.reshape(B * T, d), p["router"], p["wg"],
                               p["wu"], p["wd"], cfg.top_k, act=cfg.act)
         return out.reshape(B, T, d).to(x.dtype)
-    return swiglu(x, p["wg"], p["wu"], p["wd"], cfg.act)
+    return _mlp(cfg, p, x)
+
+
+def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The gated MLP; a model-split layer computes its ``d_ff`` columns
+    and all-reduces."""
+    tp = p["wg"].shape[-1] != cfg.d_ff
+    return _tp_out(swiglu(_tp_in(x, tp), p["wg"], p["wu"], p["wd"],
+                          cfg.act), tp)
 
 
 def _rows(cache: Params, keys, slots) -> list:
@@ -406,14 +498,6 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
     return h + _ffn(cfg, p, hn)
 
 
-def _layer(leaf, idx: int):
-    """Layer ``idx`` of a stacked leaf (a NamedTuple of stacked leaves,
-    as the hybrid's ``mamba``, gives a NamedTuple of layer leaves)."""
-    if isinstance(leaf, tuple):
-        return type(leaf)(*(a[idx] for a in leaf))
-    return leaf[idx]
-
-
 def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
                 positions: torch.Tensor, mode: str,
                 caches: Optional[Params] = None, slots=None,
@@ -434,8 +518,8 @@ def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
 
     def run(h, chunk):
         for cls, idx in chunk:
-            p = {name: _layer(a, idx)
-                 for name, a in classes_params[cls].items()}
+            p = _layer_params(cfg, f"classes/{cls}", classes_params[cls],
+                              idx)
             cache = (None if caches is None else
                      {name: a[idx]
                       for name, a in caches["classes"][cls].items()})
@@ -443,13 +527,16 @@ def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
             h = apply_block(cfg, p, h, positions, mode, cache, window,
                             slots=slots, kv_len=kv_len, rope=rope,
                             enc_states=enc_states)
+            ctx_lib.constrain(h, "dp", None, None,
+                              full=(None, None, cfg.d_model))
         return h
 
     period = len(cfg.layer_pattern)
     n_full = len(layers) // period * period
     if remat:
         for c in range(0, n_full, period):
-            h = checkpoint(run, h, layers[c:c + period], use_reentrant=False)
+            h = checkpoint(run, h, layers[c:c + period], use_reentrant=False,
+                           context_fn=ctx_lib.recompute_context())
         return run(h, layers[n_full:])
     return run(h, layers)
 
@@ -467,27 +554,49 @@ def encode(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor
     h = enc_embeds
     stacked = params["encoder"]["classes"]["global"]
     for idx in range(cfg.n_enc_layers):
-        p = {name: a[idx] for name, a in stacked.items()}
+        p = _layer_params(enc_cfg, "encoder/classes/global", stacked, idx)
         hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-        q, k, v = _proj_qkv(enc_cfg, p, hn)
+        tp = p["wq"].shape[-1] != cfg.n_heads * cfg.d_head
+        q, k, v = _proj_qkv(enc_cfg, p, _tp_in(hn, tp))
         q = positional_rotate(q, pos, enc_cfg, rope)
         k = positional_rotate(k, pos, enc_cfg, rope)
         out = flash_attention(q, k, v, pos, pos, causal=False)
-        h = h + out.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
-        h = h + swiglu(rms_norm(h, p["ln2"], cfg.norm_eps), p["wg"],
-                       p["wu"], p["wd"], cfg.act)
-    return rms_norm(h, params["encoder"]["final_norm"], cfg.norm_eps)
+        h = h + _tp_out(out.reshape(B, S, -1) @ p["wo"], tp)
+        h = h + _mlp(enc_cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
+    return rms_norm(h, parallel.leaf("encoder/final_norm",
+                                     params["encoder"]["final_norm"]),
+                    cfg.norm_eps)
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    """The token rows of ``embed``. Split by vocabulary over the model
+    axis, each rank looks up the tokens in its rows (zeros elsewhere) and
+    the rows are all-reduced."""
+    split = parallel.split_on("embed", 0, 2)
+    table = parallel.leaf("embed", params["embed"], keep_model=split)
+    tokens = tokens.long()
+    if not split:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - parallel.model_rank() * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return parallel.reduce_from_model(torch.where(mine[..., None], rows, 0))
 
 
 def unembed(params: Params, cfg: ModelConfig, h: torch.Tensor
             ) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head
+    """Logits [..., V]; split by vocabulary over the model axis, this
+    rank's columns [..., V / M]."""
+    h = rms_norm(h, parallel.leaf("final_norm", params["final_norm"]),
+                 cfg.norm_eps)
+    if cfg.tie_embeddings:
+        split = parallel.split_on("embed", 0, 2)
+        head = parallel.leaf("embed", params["embed"], keep_model=split).T
+    else:
+        split = parallel.split_on("lm_head", 1, 2)
+        head = parallel.leaf("lm_head", params["lm_head"], keep_model=split)
+    return _tp_in(h, split) @ head
 
 
 def hidden_states(params: Params, cfg: ModelConfig,
@@ -544,8 +653,18 @@ def nll_sum(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     labels = batch["labels"].long()
     logits = logits.float()
     mask = labels >= 0
-    lse = torch.logsumexp(logits, -1)
-    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    if logits.shape[-1] == cfg.vocab_size:
+        lse = torch.logsumexp(logits, -1)
+        ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    else:                           # this rank's vocabulary columns
+        n = logits.shape[-1]
+        mx = parallel.max_over_model(logits.amax(-1))
+        lse = torch.log(parallel.reduce_from_model(
+            torch.exp(logits - mx[..., None]).sum(-1))) + mx
+        local = labels - parallel.model_rank() * n
+        mine = (local >= 0) & (local < n)
+        ll = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        ll = parallel.reduce_from_model(torch.where(mine, ll, 0.0))
     return ((lse - ll) * mask).sum(), mask.sum()
 
 

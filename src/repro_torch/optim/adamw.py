@@ -9,6 +9,13 @@ donates the old ones; here ``apply_updates`` writes the new values into
 the parameter and moment tensors in place (under ``no_grad``) and
 returns the same trees. Parameters and states are trees of tensors:
 dicts and the models' NamedTuples (``repro_torch.tree``).
+
+Sharded over a mesh of ranks (``launch.steps``' sharded step), each rank
+updates its shards: the update is elementwise, and only the clipping
+norm needs the whole tree. ``global_norm`` then sums each rank's
+``counted`` leaves' squares and all-reduces the sum over the mesh: a
+leaf replicated over an axis is counted on that axis's coordinate 0
+only, so every element counts once.
 """
 from __future__ import annotations
 
@@ -64,25 +71,37 @@ def lr_schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_lib.leaves(tree)))
+def global_norm(tree, group=None, counted=None) -> torch.Tensor:
+    """The L2 norm of every leaf. Over a mesh ``group``: of the leaves
+    flagged in ``counted`` (a bool per leaf, in leaf order) on each rank,
+    summed over the group."""
+    if group is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_lib.leaves(tree)))
+    leaves = tree_lib.leaves(tree)
+    sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x, c in zip(leaves, counted):
+        if c:
+            sq = sq + torch.sum(torch.square(x.float()))
+    return torch.sqrt(group.all_reduce(sq, "sum"))
 
 
-def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
+def clip_by_global_norm(grads, max_norm: float, group=None, counted=None
+                        ) -> Tuple[Any, torch.Tensor]:
     """(grads scaled to at most ``max_norm`` in global norm, each in its
     own dtype; the norm before)."""
-    g = global_norm(grads)
+    g = global_norm(grads, group, counted)
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-12), max=1.0)
     return tree_lib.map(lambda x: (x.float() * scale).to(x.dtype),
                         grads), g
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: OptState, cfg: AdamWConfig
-                  ) -> Tuple[Any, OptState, dict]:
-    """One AdamW step, in place. Returns (params, state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+def apply_updates(params, grads, state: OptState, cfg: AdamWConfig,
+                  group=None, counted=None) -> Tuple[Any, OptState, dict]:
+    """One AdamW step, in place. Returns (params, state, metrics). With a
+    mesh ``group`` the trees are this rank's shards (``global_norm``)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, group, counted)
     state.step.add_(1)
     lr = lr_schedule(state.step, cfg)
     b1, b2 = cfg.b1, cfg.b2

@@ -58,7 +58,8 @@ assert {"repro_torch.launch.serve", "repro_torch.serve.gateway.server",
         "repro_torch.launch.analysis", "repro_torch.launch.specs",
         "repro_torch.models.sharding", "repro_torch.core.generate",
         "repro_torch.core.coordinator",
-        "repro_torch.examples.quickstart"} <= set(names), names
+        "repro_torch.examples.quickstart", "repro_torch.models.ctx",
+        "repro_torch.models.parallel"} <= set(names), names
 """)
     assert p.returncode == 0, p.stdout + p.stderr
 

@@ -11,6 +11,8 @@ hierarchical top-k array for array, the IVF probe up to near-ties of its
 FMA order, decode attention against a float32 oracle (only the final
 bf16 rounding differs) and against the bf16-rounding plain version.
 """
+import pathlib
+
 import pytest
 import torch
 
@@ -1275,6 +1277,56 @@ def test_train_crash_resume_is_bit_equal_on_the_card(dev, tmp_path):
     assert [m["step"] for m in b.metrics_log] == list(range(9))
     assert [m["loss"] for m in b.metrics_log] == \
         [m["loss"] for m in a.metrics_log]
+
+
+def test_sharded_train_step_on_the_card_matches_the_cpu(dev, tmp_path):
+    """``launch.train --model 2`` (two ranks sharing the card over gloo,
+    the sharded step) against one rank on the CPU, reduced Dec-S in bf16
+    with bf16 moments, 3 steps from the same weights (the CPU's seeded
+    init, which the card's run resumes as its step-0 checkpoint: a
+    generator on the card draws other numbers): each loss within 2^-7
+    relative, every parameter after them within 2^-5 of its range plus
+    2 x lr a step (the bounds above)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.launch import dp, train
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    args = ["--arch", "dec_s", "--reduced", "--steps", "3", "--seq-len",
+            "32", "--batch", "4", "--ckpt-every", "3"]
+    cpu_args = args + ["--device", "cpu", "--ckpt-dir", str(tmp_path / "cpu")]
+    cfg, ocfg, _ = train.setup(train.parser().parse_args(cpu_args))
+    ckpt_lib.save(tmp_path / "card", 0, train.init_state(cfg, ocfg, "cpu"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *args, "--model", "2", "--ckpt-dir",
+                        str(tmp_path / "card")], capture_output=True,
+                       text=True, timeout=600, env=env, cwd=str(root))
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "mesh data 1 x model 2" in p.stdout
+    card = [json.loads(ln.split(" ", 3)[3]) for ln in p.stdout.splitlines()
+            if ln.startswith("[train] step ")]
+    cpu = train.run(dp.Group.single("cpu"), cpu_args).metrics_log
+    assert len(card) == len(cpu) == 3
+    for mg, mc in zip(card, cpu):
+        assert abs(mg["loss"] - mc["loss"]) <= 2 ** -7 * abs(mc["loss"])
+        assert mg["model_mb"] > 0
+    like = tf.init_params(None, cfg)
+    like = (like, adamw.init_opt_state(like, ocfg))
+    got, want = (ckpt_lib.restore(tmp_path / d, like, step=3,
+                                  device="cpu")[0][0]
+                 for d in ("card", "cpu"))
+    for a, b in zip(tree_lib.leaves(got), tree_lib.leaves(want)):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= \
+            2 ** -5 * scale + 2 * ocfg.lr * 3
 
 
 @pytest.mark.parametrize("B,T,S,H,KV,causal,window", [

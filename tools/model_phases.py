@@ -5,7 +5,7 @@
                                   [dbrx_132b] [hymba_1_5b] [rwkv6_3b]
                                   [phi3_5_moe_42b] [seamless_m4t_medium]
                                   [train.dec_s] [train.encdec_s] [train.dp]
-                                  [train.flash_attn]
+                                  [train.tp] [train.flash_attn]
 
 Builds the CUDA kernels and runs ``chip_smoke.paper_phases`` (Dec-L,
 EncDec-S and EncDec-L at full width and depth, each with its own index
@@ -21,7 +21,8 @@ layers served fused and staged; SeamlessM4T-medium through RETRO),
 and ``chip_smoke.train_phases`` (``train.dec_s``: Dec-S trained at full
 width, straight and crashed and resumed; ``train.encdec_s``: the RETRO
 training example at full width; ``train.dp``: two data-parallel ranks on
-the card against one; ``train.flash_attn``: the FA2 backward at the
+the card against one; ``train.tp``: a 2 x 2 mesh of sharded ranks on the
+card against one; ``train.flash_attn``: the FA2 backward at the
 training shapes), without Dec-S's serving phases before them: a quicker
 loop for work on these models. Names on the command line restrict it to
 those models and training phases (none: all of them). Prints each
