@@ -104,8 +104,8 @@ failure raises, so the run exits non-zero):
      wave and the host's time in CUDA synchronize calls.
   6. the paper's other three RALMs (paper.*), after Dec-S's engines and
      index are freed, each at full published width with seeded weights,
-     one after the other: Dec-L (48 of its 96 layers, d_model 1024,
-     kNN-LM), EncDec-S and EncDec-L (2 encoder layers + 24 or 96
+     one after the other: Dec-L (24 of its 96 layers, d_model 1024,
+     kNN-LM), EncDec-S and EncDec-L (2 encoder layers + 24 or 72 of 96
      decoder layers, RETRO at K 10, chunks of 64 tokens; xwv and xwo
      scaled by RETRO_XSCALE so that retrieval moves tokens). Each builds
      its own index from its own hidden states over Dec-S's corpus
@@ -212,9 +212,23 @@ failure raises, so the run exits non-zero):
      which can move a neighbour across the K-th boundary), and its
      distances must be within 1e-5 relative of the card's and its ids
      identical but where two distances tie within 1e-5
-     (ivfpq.id_swaps counts such swaps). quickstart: the quickstart
-     twin's main() on the card, R10@32, and the same search on the CPU
-     by the same rule.
+     (ivfpq.id_swaps counts such swaps). steps.mesh runs the same
+     prefill and 6 greedy steps with the step builders' rank group, on
+     a 2 x 2 mesh of 4 ranks sharing the card over gloo (each the entry
+     mesh_rank on its shards of the weights, the index, one shard a
+     data rank, and the payload, saved under build/mesh/; the caches
+     split over sequence on "model" and over rows on "data", decode
+     attention in its partial mode merged across the model ranks): its
+     tokens held to steps.serve's first 6 by near_tie_check, every
+     rank's resident bytes equal to the dry run's per-device count of
+     the same arguments, every rank's launches (the partial mode 24 x
+     6, the IVF probe and the fused scan 6, the whole-wave decode
+     attention 0), step ms and each axis's collective MB and ms a step;
+     kernel.decode_attn_partial before it holds the partial mode, two
+     slot ranges merged, against its plain version (2^-5) and a float32
+     oracle (2^-8) at a rank's shapes and times it. quickstart: the
+     quickstart twin's main() on the card, R10@32, and the same search
+     on the CPU by the same rule.
      search.tools runs earlier, at the end of phase 5, while the 8.6 GB
      of keys are still on the card: exact_search over every key on the
      card and on the CPU (the same rule, the tolerance taken on the
@@ -2762,15 +2776,17 @@ REFERENCE_PARAMS = {"dec_l": 1260732416, "encdec_s": 132661248,
 # (``twin`` overrides the sizes) runs 4 requests, so that the near-tie
 # rule's quarter admits one, EncDec-L's for 16 steps (two retrievals).
 # Every model generates ``short_steps`` tokens a row (EncDec-L's four
-# runs of 64 took 66.8 s), and Dec-L runs ``n_layers`` 48 of its 96
-# layers (its phase took 66.7 s), for the script's time.
+# runs of 64 took 66.8 s), Dec-L runs ``n_layers`` 24 of its 96 layers
+# (its phase took 66.7 s at 96, 25.4-27.2 s at 48) and EncDec-L 72 of
+# its 96 decoder layers (125.9-135.4 s at 96, 62.3-65.9 s at 48), for
+# the script's time.
 PAPER = (("dec_l", dict(m=64, n_docs=512, intervals=(1,), kernels=True,
-                        profile_steps=4, n_layers=48)),
+                        profile_steps=4, n_layers=24)),
          ("encdec_s", dict(m=32, n_docs=2048, intervals=(8, 64),
                            profile_steps=3,
                            twin=dict(per_seq_requests=4))),
          ("encdec_l", dict(m=64, n_docs=2048, intervals=(8,),
-                           profile_steps=3,
+                           profile_steps=3, n_layers=72,
                            twin=dict(per_seq_requests=4, steps=16))))
 # The seeded cross-attention is too weak for retrieval to move a greedy
 # token; xwv and xwo are scaled by this factor so that it does (the
@@ -3284,10 +3300,10 @@ def assigned_phases(torch, dev, sizes, report):
 # ---------------------------------------------------------------------------
 
 # Dec-S's traffic shape again, each model on its own seeded corpus,
-# m = d_model // 16 where the LUT fits shared memory. Cuts: Phi-3.5-MoE's
-# depth 16 of 32 layers (32 are ~84 GB of bf16 weights, over the 80 GB
-# card) and its m 128 (the default 256 needs a 256 KB LUT, over the
-# 227 KB of shared memory a block may hold); the corpora (Hymba 512
+# m = d_model // 16 (Phi-3.5-MoE's 256: a 256 KB LUT, over the 227 KB of
+# shared memory a block may hold, which the scans then read from global
+# memory). Cuts: Phi-3.5-MoE's depth 16 of 32 layers (32 are ~84 GB of
+# bf16 weights, over the 80 GB card); the corpora (Hymba 512
 # docs, 262 144 keys; RWKV-6 256 docs of 544 tokens, 139 008 keys: 544
 # is 17 chunks of 32, so the keys' forward takes the chunked time mix,
 # 512 docs took 22.4 s of keys; Phi-3.5-MoE 512 docs, 262 144 keys;
@@ -3298,7 +3314,7 @@ def assigned_phases(torch, dev, sizes, report):
 NONDENSE_SERVED = (
     ("hymba_1_5b", dict(m=100, n_docs=512, key_batch=128, n_layers=16)),
     ("rwkv6_3b", dict(m=160, n_docs=256, doc_len=544)),
-    ("phi3_5_moe_42b", dict(m=128, n_docs=512, n_layers=16)),
+    ("phi3_5_moe_42b", dict(m=256, n_docs=512, n_layers=16)),
 )
 # SeamlessM4T-medium: a dense RETRO encoder-decoder (12 + 12 layers, 16:16
 # heads of 64, vocab 256 206) at its registered interval 64, K 10, chunks
@@ -3843,7 +3859,7 @@ def steps_serve(torch, dev, kept, card):
     pos = torch.arange(T0 - 1, device=dev)[None].expand(W, T0 - 1)
     _, caches = prefill(params, caches, {"tokens": prompt[:, :T0 - 1],
                                          "positions": pos})
-    tok, ms, gen = prompt[:, T0 - 1:], [], []
+    tok, ms, gen, kept_logp = prompt[:, T0 - 1:], [], [], []
     for s in range(n_steps):
         batch = {"token": tok, "position": torch.full(
             (W,), T0 - 1 + s, dtype=torch.int32, device=dev)}
@@ -3861,6 +3877,8 @@ def steps_serve(torch, dev, kept, card):
         if s == STEPS_SERVE["check_step"]:
             card_logp = logp.float().cpu()
             card_query, (d_card, i_card) = recorded[0]
+        if s < STEPS_MESH["steps"]:
+            kept_logp.append(logp.float().cpu())
         tok = logp.argmax(-1, keepdim=True).int()
         gen.append(tok)
     launches = {n: k.launches for n, k in _build.kernels().items()}
@@ -3921,6 +3939,319 @@ def steps_serve(torch, dev, kept, card):
         logp_max_err=f"{err:.3g}",
         logp_range=f"{scale:.3g}", tokens_differ=tie["rows_differ"],
         search_ids_identical=swaps == 0, near_tie_id_swaps=swaps)
+    n = STEPS_MESH["steps"]
+    return dict(gen=gen[:, :n], logp=torch.stack(kept_logp, 1))
+
+
+# ---------------------------------------------------------------------------
+# the sharded prefill and serve steps: Dec-S on a data x model mesh of
+# ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: 2 x 2 ranks; greedy serve steps after the prefill (steps.serve's first
+#: ``steps`` are the reference)
+STEPS_MESH = dict(data=2, model=2, steps=6)
+
+
+def mesh_rank(group, argv):
+    """One rank of ``steps.mesh`` (``launch.dp``'s entry
+    ``chip_smoke:mesh_rank``, argv ``[dir]``): Dec-S's sharded prefill and
+    serve steps (``launch.steps`` with the rank's group) on the shards
+    ``put_named`` gives it of the smoke's weights, index and payload
+    (``dir/case.pt``), then ``steps`` greedy steps, each rank taking its
+    rows' tokens by ``argmax_over_model``. Writes ``rank<r>.json``: the
+    launches, the resident bytes beside the dry run's per-device count of
+    the same arguments, step ms and each axis's collective MB and ms a
+    step; rank 0 also ``out.pt``, every step's whole log-probs and
+    tokens."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import parallel
+    from repro_torch.models.sharding import (P, _map_specs, gather_named,
+                                             put_named, sanitize,
+                                             shard_shape)
+
+    root = pathlib.Path(argv[0])
+    case = torch.load(root / "case.pt", mmap=True, weights_only=False)
+    B, S, T0, n = case["rows"], case["max_seq"], case["prompt_len"], \
+        case["steps"]
+    SHAPES["mesh_prefill"] = dict(kind="prefill", seq_len=S, global_batch=B)
+    SHAPES["mesh_decode"] = dict(kind="decode", seq_len=S, global_batch=B)
+    spec = get_arch(case["arch"])
+    if case.get("reduced"):             # a rehearsal at the reduced widths
+        spec = dataclasses.replace(spec, model=spec.reduced)
+    cfg, mesh, dev = spec.model, group.mesh, group.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    prefill, (p_specs, c_specs, b_specs) = steps_lib.build_prefill_step(
+        spec, "mesh_prefill", mesh, group=group)
+    serve, shardings, (_, structs) = steps_lib.build_serve_step(
+        spec, "mesh_decode", mesh, db=specs.ServeDBSpec(**case["db"]),
+        group=group)
+    held = {k: sanitize(shardings[k], structs[k], mesh)
+            for k in ("batch", "db_params", "db_shard", "payload")}
+
+    def put(tree, spec_tree):
+        return put_named(tree, spec_tree, mesh, group)
+
+    def meta(tree):
+        return tree_lib.map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device="meta"), tree)
+
+    c_struct = specs.cache_struct(spec, "mesh_decode")
+    caches = _map_specs(lambda sp, t: torch.zeros(
+        shard_shape(t.shape, sp, mesh), dtype=t.dtype, device=dev),
+        c_specs, c_struct)
+    params = put(case["params"], p_specs)
+    args = dict(db_params=put(case["db_params"], held["db_params"]),
+                db_shard=put(case["db_shard"], held["db_shard"]),
+                payload=put(case["payload"], held["payload"]))
+    pos0 = torch.full((B,), T0 - 1, dtype=torch.int32)
+    batch = put({"token": case["prompt"][:, T0 - 1:].contiguous(),
+                 "position": pos0}, held["batch"])
+    resident = sum(t.numel() * t.element_size() for t in tree_lib.leaves(
+        (params, caches, batch, args)))
+    count = (dryrun._bytes_per_dev(steps_lib.abstract_params(cfg), p_specs,
+                                   mesh)
+             + dryrun._bytes_per_dev(c_struct, c_specs, mesh)
+             + dryrun._bytes_per_dev(structs["batch"], shardings["batch"],
+                                     mesh)
+             + sum(dryrun._bytes_per_dev(meta(case[k]), shardings[k], mesh)
+                   for k in args))
+    out_spec = sanitize(P(("data",), "model"),
+                        specs.S((B, cfg.vocab_size), torch.float32), mesh)
+    sync()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    prompt = case["prompt"][:, :T0 - 1].contiguous()
+    positions = torch.arange(T0 - 1, dtype=torch.int32)[None].expand(
+        B, T0 - 1).contiguous()
+    _, caches = prefill(params, caches, put(
+        {"tokens": prompt, "positions": positions}, b_specs))
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre_stats = prefill.stats()
+    step_ms, stats, logps = [], [], []
+    tok = batch["token"]
+    for s in range(n):
+        b = {"token": tok, "position": batch["position"] + s}
+        sync()
+        t0 = time.perf_counter()
+        logp, caches = serve(params, caches, b, **args)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        stats.append(serve.stats())
+        tok = parallel.argmax_over_model(logp, group.axis("model"))
+        whole = gather_named(logp, out_spec, mesh, group)
+        if group.rank == 0:
+            logps.append(whole.float().cpu())
+    launches = {k: kern.launches for k, kern in _build.kernels().items()}
+    (root / f"rank{group.rank}.json").write_text(json.dumps(dict(
+        launches=launches, resident=resident, dryrun_count=count,
+        prefill_ms=prefill_ms, prefill_stats=pre_stats, step_ms=step_ms,
+        stats=stats, coords=group.coords)))
+    if group.rank == 0:
+        logp = torch.stack(logps, 1)
+        torch.save(dict(logp=logp, gen=logp.argmax(-1).int()),
+                   root / "out.pt")
+
+
+def kernel_decode_attn_partial(torch, dev, timer, report, W, H, KV, D, S,
+                               R, positions):
+    """The partial mode at the mesh step's shapes: a rank's ``W`` rows
+    over its ``S`` slots of a cache split in ``R`` ranges, one launch
+    per range with its slot offset, merged (``merge_partials``) and held
+    against the plain version (2^-5 of the output range) and a float32
+    oracle over the whole cache (2^-8); timed on range 0 (every slot
+    valid) beside its plain version and the library's one call for the
+    same function (memory-efficient SDPA with its log-sum-exp, the
+    validity as a -inf bias: the normalised form of the partial), the
+    last range logged."""
+    from repro_torch.kernels.decode_attn import ops as da
+    from repro_torch.kernels.decode_attn.ref import (
+        merge_partials, ref_decode_attention_partial)
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(5)
+    k = torch.randn((W, S * R, KV, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((W, S * R, KV, D), generator=g, device=dev).bfloat16()
+    q = torch.randn((W, 1, H, D), generator=g, device=dev).bfloat16()
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    ranges = [(k[:, r * S:(r + 1) * S].contiguous(),
+               v[:, r * S:(r + 1) * S].contiguous()) for r in range(R)]
+    parts = [da.decode_attention_partial(q, kr, vr, pos, slot_offset=r * S)
+             for r, (kr, vr) in enumerate(ranges)]
+    plain = [ref_decode_attention_partial(q, kr, vr, pos, r * S)
+             for r, (kr, vr) in enumerate(ranges)]
+    out = merge_partials(*(torch.stack(t) for t in zip(*parts)))
+    want = merge_partials(*(torch.stack(t) for t in zip(*plain)))
+    exact = da.ref_decode_attention(q.float(), k.float(), v.float(), pos
+                                    )[:, 0]
+    torch.cuda.synchronize()
+    scale = exact.abs().max().item()
+    err = (out - want).abs().max().item()
+    err32 = (out - exact).abs().max().item()
+    if not (err <= 2 ** -5 * scale + 1e-3 and err32 <= 2 ** -8 * scale +
+            1e-5):
+        raise AssertionError(f"decode_attn_partial: err {err}, vs f32 "
+                             f"{err32} (range {scale})")
+    times = []
+    for r in (0, R - 1):
+        kr, vr = ranges[r]
+        n_valid = int((pos[:, None] - r * S >= torch.arange(
+            S, device=dev)[None]).sum())
+        nbytes = 2 * n_valid * KV * D * 2 + q.numel() * 2 + W * 4 + \
+            W * H * (D + 2) * 4
+        times.append(dict(
+            ms=timer(lambda: da.decode_attention_partial(
+                q, kr, vr, pos, slot_offset=r * S)),
+            plain_ms=timer(lambda: ref_decode_attention_partial(
+                q, kr, vr, pos, r * S)),
+            bound=bound(nbytes, 4 * n_valid * H * D), nbytes=nbytes,
+            valid=n_valid))
+    # the library's call on range 0: [W, H, 1, D] against [W, KV, S, D]
+    # (KV = H here, no head repeat), slots past a row's position masked
+    kr, vr = (x.transpose(1, 2) for x in ranges[0])
+    if kr.shape[1] != H:
+        raise AssertionError("decode_attn_partial: the library call "
+                             "needs H = KV")
+    qt = q.transpose(1, 2)
+    bias = torch.zeros((W, H, 1, S), dtype=q.dtype, device=dev)
+    bias.masked_fill_((torch.arange(S, device=dev)[None] > pos[:, None])
+                      [:, None, None], float("-inf"))
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kr, vr, bias, True, scale=D ** -0.5)
+    lib_out = library()[0][:, :, 0].float()
+    acc0, _, l0 = parts[0]
+    lib_err = (lib_out - acc0 / l0[..., None]).abs().max().item()
+    library_ms = timer(library)
+    t = times[0]
+    report["decode_attn_partial"] = dict(
+        name="decode_attn_partial", route="cuda",
+        source="src/repro_torch/csrc/decode_attn.cu",
+        replaces="src/repro/kernels/decode_attn/kernel.py:109",
+        max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound"][0], bound_by=t["bound"][1],
+        library_ms=library_ms)
+    log("kernel.decode_attn_partial", t0,
+        shape=f"W={W},H={H},KV={KV},D={D},S_local={S},ranges={R}",
+        max_abs_err=f"{err:.3e}", err_vs_f32=f"{err32:.3e}",
+        ms=f"{t['ms']:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
+        library_ms=f"{library_ms:.4f}",
+        library_err_vs_range0=f"{lib_err:.3e}",
+        bound_ms=f"{t['bound'][0]:.4f}",
+        bytes=t["nbytes"], valid_slots=t["valid"],
+        last_range_ms=f"{times[1]['ms']:.4f}",
+        last_range_plain_ms=f"{times[1]['plain_ms']:.4f}",
+        last_range_bound_ms=f"{times[1]['bound'][0]:.4f}",
+        last_range_valid_slots=times[1]["valid"])
+
+
+def steps_mesh(torch, dev, kept, card, ref, report):
+    """``build_prefill_step`` + ``build_serve_step`` with a rank group:
+    Dec-S at full width on a 2 x 2 mesh of 4 ranks sharing the card (gloo
+    through host memory), the smoke's weights, its 4 194 304-key index
+    (one shard per data coordinate) and the payload split over data x
+    model, ``steps.serve``'s 32 rows (447 prefilled, a cache of 512),
+    then ``steps`` greedy steps. Tokens held to ``steps.serve``'s first
+    steps by the near-tie rule (the ranks' GEMM shapes differ from one
+    process's); every rank's resident bytes equal to the dry run's count
+    of the same arguments; each rank launches decode attention's partial
+    mode once a layer a step, the IVF probe and the fused scan once a
+    step, the whole-wave decode attention never. The partial mode is
+    first held against its plain version and timed at the ranks'
+    shapes."""
+    import shutil
+
+    from repro_torch.core.chamvs import stack_shards
+    from repro_torch.launch import dp
+
+    o = STEPS_MESH
+    D, M, n = o["data"], o["model"], o["steps"]
+    sizes, ds, cfg = kept["sizes"], kept["ds"], kept["arch"].model
+    W, S, T0 = sizes["requests"] * sizes["rows"], sizes["max_seq"], \
+        sizes["prompt_len"]
+    timer = Timer(torch)
+    kernel_decode_attn_partial(
+        torch, dev, timer, report, W // D, cfg.n_heads, cfg.n_kv_heads,
+        cfg.d_head, S // M, M, [T0 - 1 + s for s in range(W // D)])
+    del timer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.save(dict(
+        params=to_device(torch, kept["params"], "cpu"),
+        db=dict(n_vectors=ds.num_vectors, nlist=sizes["nlist"],
+                nprobe=sizes["nprobe"], residual=ds.index_cfg.residual),
+        db_params=to_device(torch, ds.params, "cpu"),
+        db_shard=to_device(torch, stack_shards(ds.shards), "cpu"),
+        payload=ds.payload_tokens.cpu(),
+        prompt=torch.from_numpy(kept["corpus"][:W, :T0].copy()),
+        arch="dec_s", rows=W, max_seq=S, prompt_len=T0, steps=n),
+        root / "case.pt")
+    t_save = time.perf_counter() - t0
+    dp.launch(D * M, "chip_smoke:mesh_rank", [str(root)], device=dev.type,
+              timeout_s=300, model=M)
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(D * M)]
+    out = torch.load(root / "out.pt", weights_only=False)
+    want = dict.fromkeys(ranks[0]["launches"], 0)
+    want.update({"decode_attn_partial_launch": cfg.n_layers * n,
+                 "ivf_scan_launch": n, "chamvs_scan_launch": n})
+    for r, rk in enumerate(ranks):
+        if rk["launches"] != want:
+            raise AssertionError(f"steps.mesh rank {r}: launches "
+                                 f"{rk['launches']} != {want}")
+        if rk["resident"] != rk["dryrun_count"]:
+            raise AssertionError(f"steps.mesh rank {r}: resident bytes "
+                                 f"{rk['resident']} != the dry run's "
+                                 f"{rk['dryrun_count']}")
+    if not bool(torch.isfinite(out["logp"]).all()):
+        raise AssertionError("steps.mesh: non-finite log-probs")
+    tie = near_tie_check(torch, "steps.mesh tokens", out["gen"].numpy(),
+                         out["logp"], ref["gen"], ref["logp"],
+                         sizes["rows"])
+    truth = kept["corpus"][:W, T0:T0 + n]
+    report["decode_attn_partial"].update(
+        launches=ranks[0]["launches"]["decode_attn_partial_launch"],
+        launches_in=f"steps.mesh (each of {D * M} ranks)")
+    for name, sym in (("ivf_scan", "ivf_scan_launch"),
+                      ("fused_scan", "chamvs_scan_launch")):
+        report[name].update(
+            launches_steps_mesh=[rk["launches"][sym] for rk in ranks],
+            launches_steps_mesh_in="steps.mesh (each rank)")
+
+    def per_step(key):
+        return ",".join(f"{st[key]:.1f}" for st in ranks[0]["stats"])
+    log("steps.mesh", t0, card=card, data=D, model=M,
+        backend=dp.backend_for(dev.type, D * M), rows=W, prompt_len=T0,
+        cache=S, steps=n, save_s=f"{t_save:.1f}",
+        prefill_ms=f"{ranks[0]['prefill_ms']:.1f}",
+        step_ms=",".join(f"{x:.1f}" for x in ranks[0]["step_ms"]),
+        step_ms_median=f"{median(ranks[0]['step_ms']):.1f}",
+        data_mb=f"{ranks[0]['stats'][-1]['data_mb']:.2f}",
+        data_ms=per_step("data_ms"),
+        model_mb=f"{ranks[0]['stats'][-1]['model_mb']:.2f}",
+        model_ms=per_step("model_ms"),
+        mesh_mb=f"{ranks[0]['stats'][-1]['mesh_mb']:.3f}",
+        mesh_ms=per_step("mesh_ms"),
+        prefill_data_mb=f"{ranks[0]['prefill_stats']['data_mb']:.1f}",
+        prefill_model_mb=f"{ranks[0]['prefill_stats']['model_mb']:.1f}",
+        resident_mb=",".join(f"{rk['resident'] / 1e6:.2f}" for rk in ranks),
+        dryrun_per_dev_mb=f"{ranks[0]['dryrun_count'] / 1e6:.2f}",
+        launches={k: v for k, v in want.items() if v},
+        continuation_accuracy=f"{(out['gen'].numpy() == truth).mean():.4f}",
+        tokens_differ=tie["rows_differ"], near_tie_noise=f"{tie['noise']:.3g}")
 
 
 def search_tools(torch, dev, arch, sizes, keys, queries, ds, card):
@@ -4044,14 +4375,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     card = nvidia_smi()
-    steps_serve(torch, dev, kept, card)
-    del kept
+    ref = steps_serve(torch, dev, kept, card)
+    steps_mesh(torch, dev, kept, card, ref, report)
+    del kept, ref
     gc.collect()
     torch.cuda.empty_cache()
     quickstart_phase(torch, card)
-    kernels = [report[k] for k in ("decode_attn", "ivf_scan", "fused_scan",
-                                   "adc_scan", "shared_scan",
-                                   "hierarchical_topk")]
+    kernels = [report[k] for k in ("decode_attn", "decode_attn_partial",
+                                   "ivf_scan", "fused_scan", "adc_scan",
+                                   "shared_scan", "hierarchical_topk")]
     log("total", t_all,
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     print(json.dumps({"kernels": kernels}), flush=True)

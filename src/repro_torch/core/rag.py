@@ -30,12 +30,20 @@ class RagConfig:
 
 def knnlm_interpolate(lm_logits: torch.Tensor, knn_dists: torch.Tensor,
                       knn_tokens: torch.Tensor, lam: float,
-                      temperature: float) -> torch.Tensor:
+                      temperature: float, offset: int = 0,
+                      max_all=None, sum_all=None) -> torch.Tensor:
     """log((1-lam) softmax(lm_logits) + lam p_knn) -> [B, V] float32.
 
     p_knn(w) ∝ sum_{i: tok_i = w} exp(-d_i / T). Invalid neighbors (inf
     dist / token -1) carry zero mass; a row with no valid neighbor falls
-    back to the pure LM distribution."""
+    back to the pure LM distribution.
+
+    Logits split by vocabulary over ranks: ``lm_logits`` [B, V_local] are
+    this rank's columns [offset, offset + V_local), and the result is the
+    mix's log-probabilities of those columns. The LM softmax takes its
+    max and its sum over every rank's columns (``max_all`` / ``sum_all``:
+    the elementwise max / sum over the ranks; None: this rank's alone);
+    p_knn adds only the neighbours whose tokens fall in the columns."""
     B, V = lm_logits.shape
     valid = (knn_tokens >= 0) & torch.isfinite(knn_dists)
     logw = torch.where(valid, -knn_dists.float() / temperature,
@@ -44,13 +52,18 @@ def knnlm_interpolate(lm_logits: torch.Tensor, knn_dists: torch.Tensor,
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     w = torch.where(valid, torch.exp(logw - m), torch.zeros_like(logw))
     denom = w.sum(dim=-1, keepdim=True)
-    has_knn = denom[:, 0] > 0
     w = w / torch.clamp(denom, min=1e-20)
-    tok = torch.clamp(knn_tokens, min=0).long()
+    local = knn_tokens.long() - offset
+    mine = (knn_tokens >= 0) & (local >= 0) & (local < V)
     p_knn = torch.zeros((B, V), dtype=torch.float32, device=w.device)
-    p_knn.scatter_add_(1, tok, w)
-    p_lm = torch.softmax(lm_logits.float(), dim=-1)
-    lam_row = torch.where(has_knn, lam, 0.0)[:, None]
+    p_knn.scatter_add_(1, local.clamp(0, V - 1), torch.where(mine, w, 0.0))
+    logits = lm_logits.float()
+    top = logits.amax(-1)
+    top = top if max_all is None else max_all(top)
+    e = torch.exp(logits - top[:, None])
+    total = e.sum(-1)
+    p_lm = e / (total if sum_all is None else sum_all(total))[:, None]
+    lam_row = torch.where(denom[:, 0] > 0, lam, 0.0)[:, None]
     mixed = (1.0 - lam_row) * p_lm + lam_row * p_knn
     return torch.log(torch.clamp(mixed, min=1e-20))
 

@@ -47,6 +47,12 @@
 //  - the serve index's m = 32 (ksub = 256) reads each row as two 16-byte
 //    loads; any other m, and kk past the small queue, takes a byte-load
 //    path in the same kernel.
+//  - an LUT too large for shared memory beside the queue (m above ~200
+//    at ksub = 256: Phi-3.5-MoE's m 256, DBRX's 384, Llama-3-405B's
+//    1024) is read where it lies, from global memory through L1, by the
+//    byte path (kGL). Each row still sums its m terms in index order, so
+//    the distances stay the plain version's bit for bit; every m whose
+//    LUT fits keeps the shared-memory code above.
 #include <math.h>
 
 #include "adc_rows.cuh"
@@ -70,8 +76,9 @@ __device__ __forceinline__ int probe_of(const int* pref, int nprobe, int v) {
 }
 
 // V: 16-byte code chunks per row (m = 16 V, ksub = 256); 0 = byte path.
-// kSort: the queue's slots, >= kk + kRows * kThreads.
-template <int V, int kSort>
+// kSort: the queue's slots, >= kk + kRows * kThreads. kGL: the LUT is
+// read from global memory (byte path only) instead of shared memory.
+template <int V, int kSort, bool kGL>
 __global__ void __launch_bounds__(kThreads, 2)
 chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
                    long long lut_ps, const uint8_t* __restrict__ codes,
@@ -83,12 +90,14 @@ chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
                    int* __restrict__ counters, int nq, int nprobe, int nlist,
                    int cap, int m, int ksub, int kk, int groups) {
   using Queue = SmemQueue<kThreads, kSort, false>;
+  static_assert(!kGL || V == 0, "a global LUT takes the byte path");
   extern __shared__ __align__(16) float smem[];
-  float* lut = smem;                                  // [m * ksub]
-  float* sd = lut + m * ksub;                         // [kSort]
+  float* slut = smem;                           // [m * ksub] unless kGL
+  float* sd = kGL ? smem : slut + m * ksub;           // [kSort]
   int* sa = reinterpret_cast<int*>(sd + kSort);       // [kSort]
   int* pref = sa + kSort;        // [nprobe + 1] first virtual row of a probe
   int* plist = pref + nprobe + 1;                     // [nprobe] its list
+  const float* lut = nullptr;   // kGL: the LUT of the rows in flight
   __shared__ QueueScalars qs;
   const Queue queue{sd, sa, nullptr, kk, &qs};
 
@@ -121,7 +130,10 @@ chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
   queue.init();
   const bool shared_lut = lut_ps == 0;
   const float* lq = luts + (long long)q * lut_qs;
-  if (shared_lut) load_lut<kThreads>(lut, lq, m * ksub);
+  if (shared_lut) {
+    if (kGL) lut = lq;
+    else load_lut<kThreads>(slut, lq, m * ksub);
+  }
   __syncthreads();
 
   // this block's even share of the virtual rows
@@ -138,9 +150,13 @@ chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
     if (!shared_lut) {
       const int p = probe_of(pref, nprobe, v);
       end = min(hi, pref[p + 1]);
-      __syncthreads();
-      load_lut<kThreads>(lut, lq + p * lut_ps, m * ksub);
-      __syncthreads();
+      if (kGL) {
+        lut = lq + p * lut_ps;
+      } else {
+        __syncthreads();
+        load_lut<kThreads>(slut, lq + p * lut_ps, m * ksub);
+        __syncthreads();
+      }
     }
     for (int r0 = v; r0 < end; r0 += kRound) {
       long long off[kRows];   // row index in the [S, nlist, cap] tables
@@ -170,13 +186,18 @@ chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
 #pragma unroll
       for (int i = 0; i < kRows; ++i) dist[i] = 0.f;
       if (V > 0) {
-        lookup_rows(lut, c, dist);
+        lookup_rows(slut, c, dist);
       } else {
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
           if (arr[i] < 0) continue;
           const uint8_t* row = codes + off[i] * m;
-          for (int j = 0; j < m; ++j) dist[i] += lut[j * ksub + row[j]];
+          if (kGL) {
+            for (int j = 0; j < m; ++j)
+              dist[i] += __ldg(lut + j * ksub + row[j]);
+          } else {
+            for (int j = 0; j < m; ++j) dist[i] += slut[j * ksub + row[j]];
+          }
         }
       }
 #pragma unroll
@@ -218,7 +239,7 @@ chamvs_scan_kernel(const float* __restrict__ luts, long long lut_qs,
   }
 }
 
-template <int V, int kSort>
+template <int V, int kSort, bool kGL>
 int launch(dim3 grid, size_t smem, cudaStream_t st, const float* luts,
            long long lut_qs, long long lut_ps, const uint8_t* codes,
            const int32_t* gids, const int32_t* lens, const int32_t* probe,
@@ -226,10 +247,10 @@ int launch(dim3 grid, size_t smem, cudaStream_t st, const float* luts,
            int* counters, int nq, int nprobe, int nlist, int cap, int m,
            int ksub, int kk, int groups) {
   cudaError_t err = cudaFuncSetAttribute(
-      chamvs_scan_kernel<V, kSort>,
+      chamvs_scan_kernel<V, kSort, kGL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  chamvs_scan_kernel<V, kSort><<<grid, kThreads, smem, st>>>(
+  chamvs_scan_kernel<V, kSort, kGL><<<grid, kThreads, smem, st>>>(
       luts, lut_qs, lut_ps, codes, gids, lens, probe, out_d, out_i, part_d,
       part_a, counters, nq, nprobe, nlist, cap, m, ksub, kk, groups);
   return cudaGetLastError();
@@ -258,10 +279,12 @@ RT_EXPORT int chamvs_scan_launch(const void* luts, long long lut_qs,
     return cudaErrorInvalidValue;
   const bool small = kk <= kSmall - kThreads * kRows;
   const int kSort = small ? kSmall : kLarge;
-  const size_t smem = sizeof(float) * ((size_t)m * ksub + 2 * (size_t)kSort +
-                                       2 * (size_t)nprobe + 1);
+  const size_t rest = sizeof(float) * (2 * (size_t)kSort + 2 * (size_t)nprobe
+                                       + 1);
+  const bool glut = sizeof(float) * (size_t)m * ksub + rest > kSmemLimit;
+  const size_t smem = glut ? rest : sizeof(float) * (size_t)m * ksub + rest;
   if (S == 0 || nq == 0) return cudaSuccess;
-  const bool vec = small && ksub == 256 && m == 32 &&
+  const bool vec = small && !glut && ksub == 256 && m == 32 &&
                    reinterpret_cast<uintptr_t>(codes) % 16 == 0;
   dim3 grid(nq * groups, S);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -275,10 +298,14 @@ RT_EXPORT int chamvs_scan_launch(const void* luts, long long lut_qs,
   auto* pd = static_cast<float*>(part_d);
   auto* pa = static_cast<int32_t*>(part_a);
   auto* cn = static_cast<int*>(counters);
-#define CHAMVS_LAUNCH(VV, SORT)                                              \
-  launch<VV, SORT>(grid, smem, st, lf, lut_qs, lut_ps, cb, gb, lb, pb, od, oi, \
+#define CHAMVS_LAUNCH(VV, SORT, GL)                                          \
+  launch<VV, SORT, GL>(grid, smem, st, lf, lut_qs, lut_ps, cb, gb, lb, pb, od, oi, \
                    pd, pa, cn, nq, nprobe, nlist, cap, m, ksub, kk, groups)
-  if (vec) return CHAMVS_LAUNCH(2, kSmall);
-  return small ? CHAMVS_LAUNCH(0, kSmall) : CHAMVS_LAUNCH(0, kLarge);
+  if (glut)
+    return small ? CHAMVS_LAUNCH(0, kSmall, true)
+                 : CHAMVS_LAUNCH(0, kLarge, true);
+  if (vec) return CHAMVS_LAUNCH(2, kSmall, false);
+  return small ? CHAMVS_LAUNCH(0, kSmall, false)
+               : CHAMVS_LAUNCH(0, kLarge, false);
 #undef CHAMVS_LAUNCH
 }

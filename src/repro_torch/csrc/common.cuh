@@ -6,6 +6,10 @@
 
 #define RT_EXPORT extern "C" __attribute__((visibility("default")))
 
+// Dynamic shared memory one block may opt into on the H100 (227 KB). A
+// scan whose LUT and queue need more reads the LUT from global memory.
+constexpr size_t kSmemLimit = 227 * 1024;
+
 __device__ __forceinline__ int floor_mod(int x, int m) {
   int r = x % m;
   return r < 0 ? r + m : r;

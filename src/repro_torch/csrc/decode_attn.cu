@@ -55,6 +55,16 @@
 //    (last_block in common.cuh) merges them and writes the bf16 output.
 // Everything stays float32 until that final division, as in the
 // reference kernel (kernel.py:101-104).
+//
+// Partial mode (decode_attn_partial_launch): the cache holds one rank's
+// range of a sequence split over ranks, local slot i at absolute position
+// slot_offset + i, so validity is slot_offset + i <= pos. The launch
+// writes the rank's merged float32 partial instead of the bf16 output:
+// the unnormalised acc [W, H, D] with its running max m and sum l
+// [W, H], which the caller merges across ranks. A rank with no valid
+// slot writes l = 0, acc = 0 and m = -1e30: finite, and weightless in
+// the merge. Linear caches without a window; wave row w reads cache row
+// w (the wrapper passes identity slots).
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -79,6 +89,10 @@ struct Args {
   __nv_bfloat16* out;
   int S_pool, S, KV, G, window, ring, split_len, NS;
   float scale;
+  int slot_offset;   // absolute position of slot 0 (partial mode)
+  float* out_m;      // partial mode: [W, H] running max, else null
+  float* out_l;      // [W, H] sum of exp
+  float* out_acc;    // [W, H, D] unnormalised P.V
 };
 
 constexpr int pow2_at_least(int x) {
@@ -144,7 +158,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
   const int S = a.S, window = a.window, ring = a.ring, G = a.G, NS = a.NS;
   const int split = blockIdx.x, kvh = blockIdx.y, w = blockIdx.z;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int p = a.pos[w];
+  // the row's position relative to slot 0 of this cache
+  const int p = a.pos[w] - a.slot_offset;
   const long long row = a.slots[w];
   // the split's slots that can be valid, [lo, lo + n)
   int lo = split * a.split_len, hi = min(S, lo + a.split_len) - 1;
@@ -300,8 +315,16 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
       float A = 0.f;
 #pragma unroll
       for (int k = 0; k < J; ++k) A += red[(k * GM + g) * D + d];
-      a.out[(wk * G + g) * D + d] =
-          __float2bfloat16(A / fmaxf(s_l[g], 1e-20f));
+      if (a.out_acc != nullptr) {
+        a.out_acc[(wk * G + g) * D + d] = A;
+        if (d == 0) {
+          a.out_m[wk * G + g] = s_m[g];
+          a.out_l[wk * G + g] = s_l[g];
+        }
+      } else {
+        a.out[(wk * G + g) * D + d] =
+            __float2bfloat16(A / fmaxf(s_l[g], 1e-20f));
+      }
     }
     return;
   }
@@ -338,7 +361,15 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
       L += li * c;
       A += __ldcg(a.part_acc + pi * D + d) * c;
     }
-    a.out[(wk * G + g) * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+    if (a.out_acc != nullptr) {
+      a.out_acc[(wk * G + g) * D + d] = A;
+      if (d == 0) {
+        a.out_m[wk * G + g] = M;
+        a.out_l[wk * G + g] = L;
+      }
+    } else {
+      a.out[(wk * G + g) * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+    }
   }
 }
 
@@ -368,6 +399,26 @@ cudaError_t launch_d(dim3 grid, cudaStream_t st, const Args& a) {
 
 }  // namespace
 
+// The launch of either mode over the grid (splits, KV, W).
+static int run(const Args& a, int W, int D, void* stream) {
+  if (a.G < 1 || a.G > 16 || a.split_len < 1 ||
+      (long long)a.split_len * a.NS < a.S || a.S < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(a.NS, a.KV, W);
+  cudaError_t e;
+  switch (D) {
+    case 16: e = launch_d<16>(grid, st, a); break;
+    case 64: e = launch_d<64>(grid, st, a); break;
+    case 96: e = launch_d<96>(grid, st, a); break;
+    case 128: e = launch_d<128>(grid, st, a); break;
+    case 256: e = launch_d<256>(grid, st, a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 // q [W, KV*G, D] bf16; kc/vc [P, S_pool, KV, D] bf16 (one layer of the
 // pool); slots/pos [W] int32; the first S slots of each row are read in
 // NS splits of split_len slots (split_len * NS >= S); part_m/part_l
@@ -381,31 +432,44 @@ RT_EXPORT int decode_attn_launch(const void* q, const void* kc, const void* vc,
                                  int S, int KV, int G, int D, int window,
                                  int ring, int split_len, int NS, float scale,
                                  void* stream) {
-  if (G < 1 || G > 16 || split_len < 1 || (long long)split_len * NS < S ||
-      S < 1)
+  const Args a{static_cast<const __nv_bfloat16*>(q),
+               static_cast<const __nv_bfloat16*>(kc),
+               static_cast<const __nv_bfloat16*>(vc),
+               static_cast<const int32_t*>(slots),
+               static_cast<const int32_t*>(pos),
+               static_cast<float*>(part_m),
+               static_cast<float*>(part_l),
+               static_cast<float*>(part_acc),
+               static_cast<int*>(counters),
+               static_cast<__nv_bfloat16*>(out),
+               S_pool, S, KV, G, window, ring, split_len, NS, scale,
+               0, nullptr, nullptr, nullptr};
+  return run(a, W, D, stream);
+}
+
+// The partial mode: as above over a linear cache whose slot 0 holds
+// absolute position slot_offset, writing out_m / out_l [W, KV*G] and
+// out_acc [W, KV*G, D] float32 instead of a bf16 output.
+RT_EXPORT int decode_attn_partial_launch(
+    const void* q, const void* kc, const void* vc, const void* slots,
+    const void* pos, void* part_m, void* part_l, void* part_acc,
+    void* counters, void* out_m, void* out_l, void* out_acc, int W,
+    int S_pool, int S, int KV, int G, int D, int slot_offset, int split_len,
+    int NS, float scale, void* stream) {
+  if (out_m == nullptr || out_l == nullptr || out_acc == nullptr)
     return cudaErrorInvalidValue;
-  Args a{static_cast<const __nv_bfloat16*>(q),
-         static_cast<const __nv_bfloat16*>(kc),
-         static_cast<const __nv_bfloat16*>(vc),
-         static_cast<const int32_t*>(slots),
-         static_cast<const int32_t*>(pos),
-         static_cast<float*>(part_m),
-         static_cast<float*>(part_l),
-         static_cast<float*>(part_acc),
-         static_cast<int*>(counters),
-         static_cast<__nv_bfloat16*>(out),
-         S_pool, S, KV, G, window, ring, split_len, NS, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(NS, KV, W);
-  cudaError_t e;
-  switch (D) {
-    case 16: e = launch_d<16>(grid, st, a); break;
-    case 64: e = launch_d<64>(grid, st, a); break;
-    case 96: e = launch_d<96>(grid, st, a); break;
-    case 128: e = launch_d<128>(grid, st, a); break;
-    case 256: e = launch_d<256>(grid, st, a); break;
-    default: return cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  const Args a{static_cast<const __nv_bfloat16*>(q),
+               static_cast<const __nv_bfloat16*>(kc),
+               static_cast<const __nv_bfloat16*>(vc),
+               static_cast<const int32_t*>(slots),
+               static_cast<const int32_t*>(pos),
+               static_cast<float*>(part_m),
+               static_cast<float*>(part_l),
+               static_cast<float*>(part_acc),
+               static_cast<int*>(counters),
+               nullptr,
+               S_pool, S, KV, G, 0, 0, split_len, NS, scale, slot_offset,
+               static_cast<float*>(out_m), static_cast<float*>(out_l),
+               static_cast<float*>(out_acc)};
+  return run(a, W, D, stream);
 }

@@ -38,6 +38,10 @@
 //    k (adc_scan_kernel).
 // Ties go to the lower row, the reference's order; (+inf, -1) past the
 // valid rows.
+//  - an LUT too large for shared memory beside the selection (m above
+//    ~220 at ksub = 256) is read where it lies, from global memory through
+//    L1, by the byte path (kGL); the sums keep their index order, so the
+//    distances stay bit-equal to the plain version's.
 //
 // shared_scan replaces: src/repro/kernels/pq_adc/kernel.py:158
 //           shared_scan (body _shared_scan_kernel, kernel.py:142).
@@ -59,6 +63,9 @@
 //  - a row's four sums leave as one 16-byte store.
 //  - each query's m terms add in index order 0..m-1 in float32, the plain
 //    version's order, bit for bit.
+//  - a query whose one LUT does not fit in shared memory (m above ~220 at
+//    ksub = 256) takes a block of its own (TQ = 1) and reads its LUT from
+//    global memory through L1 (kGL), in the same order.
 #include <math.h>
 
 #include "adc_rows.cuh"
@@ -72,8 +79,9 @@ constexpr int kScanThreads = 512;  // shared_scan: threads per block
 constexpr int kScanRows = 2;       // shared_scan: rows a thread takes a round
 
 // V: 16-byte code chunks per row (m = 16 V, ksub = 256); 0 = byte path.
-// kSort: the queue's slots, >= k + kRows * kThreads.
-template <int V, int kSort>
+// kSort: the queue's slots, >= k + kRows * kThreads. kGL: the LUT is read
+// from global memory (byte path only).
+template <int V, int kSort, bool kGL>
 __global__ void __launch_bounds__(kThreads, 2)
 adc_scan_kernel(const float* __restrict__ luts, long long lut_qs,
                 long long lut_ps, const uint8_t* __restrict__ codes,
@@ -84,9 +92,10 @@ adc_scan_kernel(const float* __restrict__ luts, long long lut_qs,
                 int n, int per_q, int m, int ksub, int k, int chunks,
                 int chunk_rows) {
   using Queue = SmemQueue<kThreads, kSort, false>;
+  static_assert(!kGL || V == 0, "a global LUT takes the byte path");
   extern __shared__ __align__(16) float smem[];
-  float* lut = smem;                                  // [m * ksub]
-  float* sd = lut + m * ksub;                         // [kSort]
+  float* slut = smem;                           // [m * ksub] unless kGL
+  float* sd = kGL ? smem : slut + m * ksub;           // [kSort]
   int* sa = reinterpret_cast<int*>(sd + kSort);       // [kSort]
   __shared__ QueueScalars qs;
   const Queue queue{sd, sa, nullptr, k, &qs};
@@ -99,15 +108,19 @@ adc_scan_kernel(const float* __restrict__ luts, long long lut_qs,
   if (c >= parts) return;
   const int lo = (int)((long long)len * c / parts);
   const int hi = (int)((long long)len * (c + 1) / parts);
-  load_lut<kThreads>(lut, luts + (b / per_q) * lut_qs + (b % per_q) * lut_ps,
-                     m * ksub);
+  const float* glut =
+      luts + (b / per_q) * lut_qs + (b % per_q) * lut_ps;
+  if (!kGL) load_lut<kThreads>(slut, glut, m * ksub);
   queue.init();
   __syncthreads();
 
   const uint8_t* base = codes + (long long)list * n * m;
   for (int r0 = lo; r0 < hi; r0 += kThreads * kRows) {
     float dist[kRows];
-    round_sums<V, kRows, kThreads>(lut, base, m, ksub, r0 + t, hi, dist);
+    if (kGL)
+      round_sums<V, kRows, kThreads>(glut, base, m, ksub, r0 + t, hi, dist);
+    else
+      round_sums<V, kRows, kThreads>(slut, base, m, ksub, r0 + t, hi, dist);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = r0 + i * kThreads + t;
@@ -152,7 +165,7 @@ adc_scan_kernel(const float* __restrict__ luts, long long lut_qs,
 // publishes its k-th key after each merge), which drops only rows that k
 // rows of one warp beat. At the chunk's end warp 0 merges the other
 // warps' runs, then, as above, the entry's last block the other chunks'.
-template <int V, int R>
+template <int V, int R, bool kGL>
 __global__ void __launch_bounds__(kThreads, 4)
 adc_select_kernel(const float* __restrict__ luts, long long lut_qs,
                   long long lut_ps, const uint8_t* __restrict__ codes,
@@ -163,9 +176,10 @@ adc_select_kernel(const float* __restrict__ luts, long long lut_qs,
                   int n, int per_q, int m, int ksub, int k, int chunks,
                   int chunk_rows) {
   constexpr int kWarps = kThreads / 32;
+  static_assert(!kGL || V == 0, "a global LUT takes the byte path");
   extern __shared__ __align__(16) float smem[];
-  float* lut = smem;                                  // [m * ksub]
-  float* bd = lut + m * ksub;                         // [kWarps][64]
+  float* slut = smem;                           // [m * ksub] unless kGL
+  float* bd = kGL ? smem : slut + m * ksub;           // [kWarps][64]
   int* ba = reinterpret_cast<int*>(bd + kWarps * 64);
   float* rd = reinterpret_cast<float*>(ba + kWarps * 64);  // [kWarps][32R]
   int* ra = reinterpret_cast<int*>(rd + kWarps * 32 * R);
@@ -180,8 +194,9 @@ adc_select_kernel(const float* __restrict__ luts, long long lut_qs,
   if (c >= parts) return;
   const int lo = (int)((long long)len * c / parts);
   const int hi = (int)((long long)len * (c + 1) / parts);
-  load_lut<kThreads>(lut, luts + (b / per_q) * lut_qs + (b % per_q) * lut_ps,
-                     m * ksub);
+  const float* glut =
+      luts + (b / per_q) * lut_qs + (b % per_q) * lut_ps;
+  if (!kGL) load_lut<kThreads>(slut, glut, m * ksub);
   if (lane == 0) {
     tau_d[warp] = INFINITY;
     tau_a[warp] = kQueueIntMax;
@@ -203,7 +218,12 @@ adc_select_kernel(const float* __restrict__ luts, long long lut_qs,
   const uint8_t* base = codes + (long long)list * n * m;
   for (int r0 = lo + warp * 32; r0 < hi; r0 += kThreads * kRows) {
     float dist[kRows];
-    round_sums<V, kRows, kThreads>(lut, base, m, ksub, r0 + lane, hi, dist);
+    if (kGL)
+      round_sums<V, kRows, kThreads>(glut, base, m, ksub, r0 + lane, hi,
+                                     dist);
+    else
+      round_sums<V, kRows, kThreads>(slut, base, m, ksub, r0 + lane, hi,
+                                     dist);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = r0 + i * kThreads + lane;
@@ -252,7 +272,7 @@ adc_select_kernel(const float* __restrict__ luts, long long lut_qs,
   }
 }
 
-template <int V, int R>
+template <int V, int R, bool kGL>
 int launch_select(int blocks, size_t smem, cudaStream_t st, const float* luts,
                   long long lut_qs, long long lut_ps, const uint8_t* codes,
                   const int32_t* lists, const int32_t* lens, float* out_d,
@@ -260,16 +280,16 @@ int launch_select(int blocks, size_t smem, cudaStream_t st, const float* luts,
                   int* counters, int n, int per_q, int m, int ksub, int k,
                   int chunks, int chunk_rows) {
   cudaError_t err = cudaFuncSetAttribute(
-      adc_select_kernel<V, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      adc_select_kernel<V, R, kGL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  adc_select_kernel<V, R><<<blocks, kThreads, smem, st>>>(
+  adc_select_kernel<V, R, kGL><<<blocks, kThreads, smem, st>>>(
       luts, lut_qs, lut_ps, codes, lists, lens, out_d, out_i, part_d, part_a,
       counters, n, per_q, m, ksub, k, chunks, chunk_rows);
   return cudaGetLastError();
 }
 
-template <int V, int kSort>
+template <int V, int kSort, bool kGL>
 int launch_adc(int blocks, size_t smem, cudaStream_t st, const float* luts,
                long long lut_qs, long long lut_ps, const uint8_t* codes,
                const int32_t* lists, const int32_t* lens, float* out_d,
@@ -277,10 +297,10 @@ int launch_adc(int blocks, size_t smem, cudaStream_t st, const float* luts,
                int n, int per_q, int m, int ksub, int k, int chunks,
                int chunk_rows) {
   cudaError_t err = cudaFuncSetAttribute(
-      adc_scan_kernel<V, kSort>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      adc_scan_kernel<V, kSort, kGL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  adc_scan_kernel<V, kSort><<<blocks, kThreads, smem, st>>>(
+  adc_scan_kernel<V, kSort, kGL><<<blocks, kThreads, smem, st>>>(
       luts, lut_qs, lut_ps, codes, lists, lens, out_d, out_i, part_d, part_a,
       counters, n, per_q, m, ksub, k, chunks, chunk_rows);
   return cudaGetLastError();
@@ -311,20 +331,26 @@ __device__ __forceinline__ void add_terms(float (&acc)[TQ], const float* p) {
 // one TQ-wide load that serves the tile's TQ queries, and stores a row's
 // TQ sums as one vector when q % TQ == 0.
 // V: 16-byte code chunks per row (m = 16 V, ksub = 256); 0 = byte path.
-template <int TQ, int V, int kT, int kR>
+// kGL (TQ = 1, byte path): the query's LUT is read from global memory.
+template <int TQ, int V, int kT, int kR, bool kGL>
 __global__ void __launch_bounds__(kT, 1)
 shared_scan_kernel(const float* __restrict__ luts,
                    const uint8_t* __restrict__ codes, float* __restrict__ out,
                    int n, int q, int m, int ksub, int rows_per_block) {
-  extern __shared__ __align__(16) float lut[];        // [m * ksub][TQ]
+  static_assert(!kGL || (TQ == 1 && V == 0), "a global LUT: one query, "
+                "the byte path");
+  extern __shared__ __align__(16) float slut[];       // [m * ksub][TQ]
   const int q0 = blockIdx.x * TQ, t = threadIdx.x;
   const int nq = min(TQ, q - q0);
   const int tab = m * ksub;
+  const float* lut = kGL ? luts + (long long)q0 * tab : slut;
+  if (!kGL) {
 #pragma unroll
-  for (int qi = 0; qi < TQ; ++qi) {
-    const float* src = luts + (long long)(q0 + qi) * tab;
-    for (int e = t; e < tab; e += kT)
-      lut[e * TQ + qi] = qi < nq ? __ldg(src + e) : 0.f;
+    for (int qi = 0; qi < TQ; ++qi) {
+      const float* src = luts + (long long)(q0 + qi) * tab;
+      for (int e = t; e < tab; e += kT)
+        slut[e * TQ + qi] = qi < nq ? __ldg(src + e) : 0.f;
+    }
   }
   __syncthreads();
 
@@ -360,7 +386,7 @@ shared_scan_kernel(const float* __restrict__ luts,
                   reinterpret_cast<const unsigned*>(&c[i][j])[e];
               const int code = (w >> (8 * by)) & 0xffu;
               add_terms(acc[i],
-                        lut + ((j * 16 + e * 4 + by) * 256 + code) * TQ);
+                        slut + ((j * 16 + e * 4 + by) * 256 + code) * TQ);
             }
           }
         }
@@ -371,8 +397,13 @@ shared_scan_kernel(const float* __restrict__ luts,
         const long long r = r0 + (long long)i * kT;
         if (r >= hi) continue;
         const uint8_t* row = codes + r * m;
-        for (int j = 0; j < m; ++j)
-          add_terms(acc[i], lut + (j * ksub + row[j]) * TQ);
+        if (kGL) {
+          for (int j = 0; j < m; ++j)
+            acc[i][0] += __ldg(lut + j * ksub + row[j]);
+        } else {
+          for (int j = 0; j < m; ++j)
+            add_terms(acc[i], slut + (j * ksub + row[j]) * TQ);
+        }
       }
     }
 #pragma unroll
@@ -400,12 +431,12 @@ shared_scan_kernel(const float* __restrict__ luts,
   }
 }
 
-template <int TQ, int V>
+template <int TQ, int V, bool kGL = false>
 int launch_shared(dim3 grid, cudaStream_t st, const float* luts,
                   const uint8_t* codes, float* out, int n, int q, int m,
                   int ksub, int rows_per_block) {
-  const size_t smem = sizeof(float) * TQ * (size_t)m * ksub;
-  auto kernel = shared_scan_kernel<TQ, V, kScanThreads, kScanRows>;
+  const size_t smem = kGL ? 0 : sizeof(float) * TQ * (size_t)m * ksub;
+  auto kernel = shared_scan_kernel<TQ, V, kScanThreads, kScanRows, kGL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -439,8 +470,10 @@ RT_EXPORT int adc_scan_launch(const void* luts, long long lut_qs,
   if (B == 0) return cudaSuccess;
   const bool small = k <= kSmall - kThreads * kRows;
   const int kSort = small ? kSmall : kLarge;
-  const size_t smem = sizeof(float) * (size_t)m * ksub +
-                      (sizeof(float) + sizeof(int)) * kSort;
+  const size_t lut_bytes = sizeof(float) * (size_t)m * ksub;
+  const size_t queue_bytes = (sizeof(float) + sizeof(int)) * kSort;
+  const bool glut = lut_bytes + queue_bytes > kSmemLimit;
+  const size_t smem = (glut ? 0 : lut_bytes) + queue_bytes;
   const int chunks = n > 0 ? (n + chunk_rows - 1) / chunk_rows : 1;
   const long long blocks = (long long)B * chunks;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
@@ -454,34 +487,44 @@ RT_EXPORT int adc_scan_launch(const void* luts, long long lut_qs,
   auto* pd = static_cast<float*>(part_d);
   auto* pa = static_cast<int32_t*>(part_a);
   auto* cn = static_cast<int*>(counters);
-  const bool v2 = vec && m == 32 && ksub == 256;
+  const bool v2 = vec && m == 32 && ksub == 256 && !glut;
 #define ADC_ARGS(SMEM)                                                      \
   (int)blocks, SMEM, st, lf, lut_qs, lut_ps, cb, li, lb, od, oi, pd, pa, cn, \
       n, per_q, m, ksub, k, chunks, chunk_rows
   if (k <= 128) {
     const int R = k <= 32 ? 1 : (k <= 64 ? 2 : 4);
-    const size_t ssmem = sizeof(float) * (size_t)m * ksub +
-                         (sizeof(float) + sizeof(int)) * kThreads / 32 *
-                             (64 + 32 * (size_t)R);
-    if (v2) {
-      if (R == 1) return launch_select<2, 1>(ADC_ARGS(ssmem));
-      return R == 2 ? launch_select<2, 2>(ADC_ARGS(ssmem))
-                    : launch_select<2, 4>(ADC_ARGS(ssmem));
+    const size_t runs = (sizeof(float) + sizeof(int)) * kThreads / 32 *
+                        (64 + 32 * (size_t)R);
+    const bool sglut = lut_bytes + runs > kSmemLimit;
+    const size_t ssmem = (sglut ? 0 : lut_bytes) + runs;
+    if (sglut) {
+      if (R == 1) return launch_select<0, 1, true>(ADC_ARGS(ssmem));
+      return R == 2 ? launch_select<0, 2, true>(ADC_ARGS(ssmem))
+                    : launch_select<0, 4, true>(ADC_ARGS(ssmem));
     }
-    if (R == 1) return launch_select<0, 1>(ADC_ARGS(ssmem));
-    return R == 2 ? launch_select<0, 2>(ADC_ARGS(ssmem))
-                  : launch_select<0, 4>(ADC_ARGS(ssmem));
+    if (v2) {
+      if (R == 1) return launch_select<2, 1, false>(ADC_ARGS(ssmem));
+      return R == 2 ? launch_select<2, 2, false>(ADC_ARGS(ssmem))
+                    : launch_select<2, 4, false>(ADC_ARGS(ssmem));
+    }
+    if (R == 1) return launch_select<0, 1, false>(ADC_ARGS(ssmem));
+    return R == 2 ? launch_select<0, 2, false>(ADC_ARGS(ssmem))
+                  : launch_select<0, 4, false>(ADC_ARGS(ssmem));
   }
-  if (v2 && small) return launch_adc<2, kSmall>(ADC_ARGS(smem));
-  return small ? launch_adc<0, kSmall>(ADC_ARGS(smem))
-               : launch_adc<0, kLarge>(ADC_ARGS(smem));
+  if (glut)
+    return small ? launch_adc<0, kSmall, true>(ADC_ARGS(smem))
+                 : launch_adc<0, kLarge, true>(ADC_ARGS(smem));
+  if (v2 && small) return launch_adc<2, kSmall, false>(ADC_ARGS(smem));
+  return small ? launch_adc<0, kSmall, false>(ADC_ARGS(smem))
+               : launch_adc<0, kLarge, false>(ADC_ARGS(smem));
 #undef ADC_ARGS
 }
 
 // luts: float32 [q, m, ksub], contiguous; codes [n, m] uint8, contiguous
 // -> out [n, q] f32. tq: queries per block (1, 2 or 4; tq LUTs must fit
-// in shared memory); rows_per_block: rows of one block's chunk; vec: the
-// code rows are 16-byte aligned.
+// in shared memory, or tq = 1 reads its LUT from global memory);
+// rows_per_block: rows of one block's chunk; vec: the code rows are
+// 16-byte aligned.
 RT_EXPORT int shared_scan_launch(const void* luts, const void* codes,
                                  void* out, int n, int q, int m, int ksub,
                                  int tq, int rows_per_block, int vec,
@@ -498,6 +541,10 @@ RT_EXPORT int shared_scan_launch(const void* luts, const void* codes,
   auto* of = static_cast<float*>(out);
   const bool v2 = vec && m == 32 && ksub == 256;
 #define SHARED_ARGS grid, st, lf, cb, of, n, q, m, ksub, rows_per_block
+  if (sizeof(float) * tq * (size_t)m * ksub > kSmemLimit) {
+    if (tq != 1) return cudaErrorInvalidValue;
+    return launch_shared<1, 0, true>(SHARED_ARGS);
+  }
   if (tq == 4)
     return v2 ? launch_shared<4, 2>(SHARED_ARGS)
               : launch_shared<4, 0>(SHARED_ARGS);

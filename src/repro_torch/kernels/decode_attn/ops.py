@@ -7,6 +7,11 @@ which only propagates shapes; a CUDA tensor launches the
 split-KV kernel of ``csrc/decode_attn.cu``, which reads the pool rows
 through ``slots`` itself and merges its splits inside the one launch, or
 raises.
+
+``decode_attention_partial`` is the same kernel's partial mode, for a
+cache that holds one rank's slot range of a sequence split over ranks:
+it returns the range's float32 (acc, m, l), which the caller merges
+across ranks (``ref.merge_partials``).
 """
 from __future__ import annotations
 
@@ -17,13 +22,18 @@ import torch
 
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.common import PLAIN_DEVICES
-from repro_torch.kernels.decode_attn.ref import ref_decode_attention
+from repro_torch.kernels.decode_attn.ref import (
+    ref_decode_attention, ref_decode_attention_partial)
 
 _P, _I, _F = _build.P, _build.I, _build.F
 
 #: the CUDA entry point; ``KERNEL.launches`` counts wave launches
 KERNEL = _build.Kernel("decode_attn_launch",
                        [_P] * 10 + [_I] * 10 + [_F, _P])
+#: the partial mode's entry point; ``PARTIAL_KERNEL.launches`` counts its
+#: launches
+PARTIAL_KERNEL = _build.Kernel("decode_attn_partial_launch",
+                               [_P] * 12 + [_I] * 9 + [_F, _P])
 TILE = 32          # slots the kernel stages at a time (kTile)
 HEAD_DIMS = (16, 64, 96, 128, 256)   # the instances the kernel has
 MAX_G = 16         # query heads a KV head, at most
@@ -71,6 +81,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return ref_decode_attention(q, k, v, position, window=window, ring=ring)
 
 
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, position: torch.Tensor,
+                             slot_offset: int = 0,
+                             spec: registry.KernelSpec = registry.DEFAULT):
+    """One decode token's attention over one rank's slot range of a
+    sequence split over ranks: q [W, 1, H, D]; linear caches
+    [W, S, KV, D] whose slot ``i`` holds absolute position
+    ``slot_offset + i``; position [W] absolute. Returns float32
+    (acc [W, H, D], m [W, H], l [W, H]); a row with no valid slot in the
+    range gives l = 0, acc = 0 and a finite m."""
+    if q.is_cuda:
+        return _launch_partial(q, k_cache, v_cache, position,
+                               int(slot_offset), spec)
+    if q.device.type not in PLAIN_DEVICES:
+        raise RuntimeError(f"decode_attention_partial: no kernel for "
+                           f"{q.device}")
+    return ref_decode_attention_partial(q, k_cache, v_cache, position,
+                                        slot_offset)
+
+
 def pick_split(W: int, KV: int, S: int, sms: int,
                tile_n: Optional[int] = None, blocks_per_sm: int = 8) -> int:
     """Slots per block of the CUDA kernel: ``tile_n`` when the spec sets
@@ -102,8 +132,10 @@ def resident_blocks(D: int, G: int) -> int:
     return max(1, min(8, SMEM_PER_SM // (dyn + static + 1024)))
 
 
-def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
-            spec):
+def _prepare(q, k_cache, v_cache, position, ring, slots, kv_len, spec):
+    """The checked launch geometry shared by both modes: (W, H, D, KV, G,
+    S_pool, S, slots, pos, split, NS) and the splits' scratch (part_m,
+    part_l, part_acc)."""
     W, T, H, D = q.shape
     P, S_pool, KV, Dk = k_cache.shape
     if T != 1:
@@ -138,6 +170,15 @@ def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((W, KV, NS, G, D), device=q.device,
                            dtype=torch.float32)
+    return (W, H, D, KV, G, S_pool, S, slots, pos, split, NS, part_m,
+            part_l, part_acc)
+
+
+def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
+            spec):
+    (W, H, D, KV, G, S_pool, S, slots, pos, split, NS, part_m, part_l,
+     part_acc) = _prepare(q, k_cache, v_cache, position, ring, slots, kv_len,
+                          spec)
     counters = _build.merge_counters(KERNEL.symbol, q, W * KV)
     out = torch.empty_like(q)
     KERNEL(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -147,6 +188,23 @@ def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
            int(bool(ring)), split, NS, float(D ** -0.5),
            _build.stream_ptr(q))
     return out
+
+
+def _launch_partial(q, k_cache, v_cache, position, slot_offset, spec):
+    (W, H, D, KV, G, S_pool, S, slots, pos, split, NS, part_m, part_l,
+     part_acc) = _prepare(q, k_cache, v_cache, position, False, None, None,
+                          spec)
+    counters = _build.merge_counters(PARTIAL_KERNEL.symbol, q, W * KV)
+    out_m = torch.empty((W, H), device=q.device, dtype=torch.float32)
+    out_l = torch.empty_like(out_m)
+    out_acc = torch.empty((W, H, D), device=q.device, dtype=torch.float32)
+    PARTIAL_KERNEL(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                   slots.data_ptr(), pos.data_ptr(), part_m.data_ptr(),
+                   part_l.data_ptr(), part_acc.data_ptr(),
+                   counters.data_ptr(), out_m.data_ptr(), out_l.data_ptr(),
+                   out_acc.data_ptr(), W, S_pool, S, KV, G, D, slot_offset,
+                   split, NS, float(D ** -0.5), _build.stream_ptr(q))
+    return out_acc, out_m, out_l
 
 
 def count_skipped_blocks(positions: np.ndarray, S: int, blk: int,

@@ -29,7 +29,6 @@ ADC_KERNEL = _build.Kernel("adc_scan_launch",
 SHARED_KERNEL = _build.Kernel("shared_scan_launch",
                               [_P] * 3 + [_I] * 7 + [_P])
 MAX_K = 1792                    # as the fused scan's MAX_KK
-QUEUE_BYTES = 4096 * 8          # adc_scan's largest queue: (dist, row) slots
 MIN_CHUNK_ROWS = 4096           # adc_scan: the fewest rows a block takes
 MAX_TILE_Q = 4                  # shared_scan queries per block: one 16-byte
                                 # LUT load serves four
@@ -144,9 +143,6 @@ def _launch_adc(luts, lut_qs, lut_ps, per_q, codes, lists, lens, k):
             luts.stride(-2) != ksub or luts.device != dev:
         raise ValueError("luts must be float32 with contiguous [m, ksub] "
                          "blocks")
-    if m * ksub * 4 + QUEUE_BYTES > SMEM_LIMIT:
-        raise ValueError(f"adc_scan: an m={m} x ksub={ksub} LUT does not "
-                         "fit in shared memory")
     _check("codes", codes, torch.uint8, dev)
     _check("lens", lens, torch.int32, dev)
     out_d = torch.empty((B, k), device=dev, dtype=torch.float32)
@@ -171,11 +167,9 @@ def shared_tile_q(q: int, m: int, ksub: int,
     """shared_scan's queries per block: 4, 2 or 1 (the floats of one LUT
     load), halved while half of them would still cover all ``q`` queries,
     while above ``cap``, or while their LUTs would not fit in shared
-    memory. Raises when one LUT does not fit."""
+    memory. 1 when one LUT does not fit: the kernel then reads it from
+    global memory."""
     lut_bytes = m * ksub * 4
-    if lut_bytes > SMEM_LIMIT:
-        raise ValueError(f"pq_shared_scan: an m={m} x ksub={ksub} LUT does "
-                         "not fit in shared memory")
     tq = MAX_TILE_Q
     while tq > 1 and (tq // 2 >= q or (cap is not None and tq > cap)
                       or tq * lut_bytes > SMEM_LIMIT):

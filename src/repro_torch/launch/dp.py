@@ -114,6 +114,20 @@ class Group:
             return self._axes.setdefault(name, Group.single(self.device))
         return self._axes[name]
 
+    def over(self, axes) -> "Group":
+        """The ranks that share this rank's coordinates off ``axes`` (mesh
+        axis names): the group of a dimension split over those axes, in
+        which this rank's rank is its row-major index over them (a split
+        over "data" and "model" is the whole mesh, rank d * M + m)."""
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        live = [a for a in ("data", "model")
+                if a in axes and self.shape[a] > 1]
+        if len(live) == 2:
+            return self
+        if live:
+            return self.axis(live[0])
+        return self._axes.setdefault("none", Group.single(self.device))
+
     def _run(self, fn, *tensors: torch.Tensor):
         """``fn(*host_or_device tensors)`` waited on, the first tensor the
         output; gloo on CUDA tensors goes through host copies. Adds the

@@ -26,10 +26,32 @@ the reference sanitises them) and abstract inputs (``launch.specs``).
 Where the reference jits a GSPMD program over the mesh, these steps are
 plain eager functions that run on whatever device their tensors are on:
 CUDA tensors launch the port's kernels, CPU tensors run the plain
-versions, and meta tensors (the dry run) only propagate shapes. Both
-run under ``activation_sharding`` without a rank group, where every
-axis has size 1: on a mesh of more than one position their specs are
-descriptive, and the step runs in one process.
+versions, and meta tensors (the dry run) only propagate shapes.
+
+Without a rank group (or with a group of one) a step runs in one
+process on whole tensors, its specs descriptive. With the ``group`` of a
+``data x model`` mesh of ranks (``launch.dp``), whose mesh the specs are
+computed over, each rank runs the step on its own shards: the ones
+``put_named`` gives it from the returned specs (parameters, caches,
+batch, and the serve step's DB params and shards, payload and ``proj``).
+It returns its shards under the reference's out specs: the logits
+``P(dp, "model")`` (sanitised: this rank's rows and vocabulary columns)
+and the caches; ``gather_named`` reassembles them. The layers read each
+parameter through ``models.parallel.leaf`` (gathered over "data",
+computed split over "model" where ``TP_GROUPS`` allows), the caches hold
+a range of the sequence (over "model" at a batch of 8 or more, whose
+rows split over the data axes; over data x model below that, every rank
+holding every row), and decode attention merges the ranks' partial
+softmaxes. The serve step's search is ``retrieval.router``'s mesh
+search (one DB shard per data rank), its payload gather sums the ranks'
+slices of the table, and the kNN-LM mix runs on the vocabulary columns
+of the rank. Each step's collectives add their bytes and host
+milliseconds to the group's ``stats`` (``step.stats()`` after a step:
+``data_mb`` / ``data_ms``, ``model_mb`` / ``model_ms``, ``mesh_mb`` /
+``mesh_ms`` for those over the whole mesh). Dense decoders and
+encoder-decoders with linear caches only: a hybrid, RWKV-6 or MoE model,
+or a ring (windowed) cache, raises ``NotImplementedError`` on a mesh of
+more than one position (ROADMAP Queue 1 item 25).
 """
 from __future__ import annotations
 
@@ -45,11 +67,13 @@ from repro_torch.launch import specs as specs_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ctx import activation_sharding
+from repro_torch.models import parallel
 from repro_torch.models.sharding import (P, cache_specs, dp_axes,
                                          gather_named, keyed_specs,
                                          param_specs, put_named, sanitize,
                                          shard_shape)
 from repro_torch.optim import adamw
+from repro_torch.retrieval import router as router_lib
 from repro_torch.retrieval.service import search_stacked
 
 
@@ -282,34 +306,102 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
 
 
 # ---------------------------------------------------------------------------
+# serving on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+def _serving_group(cfg: ModelConfig, mesh, group):
+    """``group`` when it spans more than one rank (checked against
+    ``mesh``), else None. Raises ``NotImplementedError`` for what the
+    sharded steps do not split."""
+    if group is None or group.size == 1:
+        return None
+    if dict(mesh.shape) != dict(group.shape):
+        raise ValueError(f"mesh {dict(mesh.shape)} is not the rank group's "
+                         f"{group.shape}")
+    if cfg.block != "dense":
+        raise NotImplementedError(
+            f"the sharded prefill and serve steps run dense blocks; "
+            f"{cfg.name} is {cfg.block!r} (ROADMAP Queue 1 item 25)")
+    if cfg.window > 0 and "local" in cfg.pattern_classes():
+        raise NotImplementedError(
+            f"{cfg.name} has ring (windowed) caches, which the sharded "
+            "steps do not split (ROADMAP Queue 1 item 25)")
+    return group
+
+
+class _Stats:
+    """The step's collective bytes and host milliseconds over each axis
+    of ``group`` and over the whole mesh (reset at the step's start); an
+    axis that spans the whole mesh owns its collectives, and "mesh" then
+    counts none."""
+
+    def __init__(self, group):
+        self.groups = {"data": group.axis("data"),
+                       "model": group.axis("model"), "mesh": group}
+
+    def reset(self) -> None:
+        for g in self.groups.values():
+            g.stats.update(bytes=0, ms=0.0)
+
+    def __call__(self) -> Dict[str, float]:
+        out, seen = {}, set()
+        for name, g in self.groups.items():
+            if id(g) in seen:       # the mesh, when an axis spans it
+                out[f"{name}_mb"], out[f"{name}_ms"] = 0.0, 0.0
+                continue
+            seen.add(id(g))
+            out[f"{name}_mb"] = g.stats["bytes"] / 1e6
+            out[f"{name}_ms"] = g.stats["ms"]
+        return out
+
+
+def _sharded_context(group, dp, kv_batch, kv_seq, p_specs, c_specs,
+                     batch: Optional[int]):
+    """A step's ``activation_sharding`` over ``group``, every time the
+    step runs."""
+    keyed = dict(specs=keyed_specs(p_specs), caches=keyed_specs(c_specs))
+    return lambda: activation_sharding(
+        dp, "model", kv_batch=kv_batch, kv_seq=kv_seq, group=group,
+        batch=batch, **keyed)
+
+
+def _axes(spec, dim: int = 0) -> tuple:
+    """The axes a spec splits dimension ``dim`` over (() when whole)."""
+    entries = tuple(spec)
+    entry = entries[dim] if dim < len(entries) else None
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _cache_rows(c_specs) -> tuple:
+    """The axes the caches' K/V split their batch rows over."""
+    keyed = keyed_specs(c_specs)
+    return next((_axes(v, 1) for k, v in keyed.items()
+                 if k.endswith("/k")), ())
+
+
+# ---------------------------------------------------------------------------
 # serving: prefill
 # ---------------------------------------------------------------------------
 
-def build_prefill_step(spec: ArchSpec, shape_name: str, mesh):
+def build_prefill_step(spec: ArchSpec, shape_name: str, mesh, group=None):
     """Returns ``(prefill_step, (param_specs, cache_specs, batch_specs))``.
 
     ``prefill_step(params, caches, batch) -> (last-position logits
     [B, V], caches)``: an encoder-decoder's ``enc_embeds`` go through
-    ``encode`` first; the caches are filled in place."""
+    ``encode`` first; the caches are filled in place. With a ``group`` of
+    more than one rank: the rank's shards in, its shards out (the module
+    docstring); where the batch's rows split over the data axes but the
+    caches' do not (a batch below 8 that the data axes divide), the rows
+    are all-gathered first and the logits' rows cut after."""
     cfg = spec.model
     sh = SHAPES[shape_name]
     dp = dp_axes(mesh)
+    group = _serving_group(cfg, mesh, group)
 
     kv_batch = "dp" if sh["global_batch"] >= 8 else None
     kv_seq = "model" if sh["global_batch"] >= 8 else ("dp", "model")
-
-    @torch.no_grad()
-    def prefill_step(params, caches, batch):
-        with activation_sharding(dp, "model", kv_batch=kv_batch,
-                                 kv_seq=kv_seq):
-            enc_states = None
-            if "enc_embeds" in batch:
-                enc_states = tf.encode(params, cfg, batch["enc_embeds"])
-            logits, caches = tf.forward(
-                params, cfg, tokens=batch.get("tokens"),
-                embeds=batch.get("embeds"), positions=batch.get("positions"),
-                mode="prefill", caches=caches, enc_states=enc_states)
-        return logits[:, -1], caches
 
     p_struct = abstract_params(cfg)
     p_specs = sanitize(param_specs(cfg, mesh, p_struct), p_struct, mesh)
@@ -323,6 +415,48 @@ def build_prefill_step(spec: ArchSpec, shape_name: str, mesh):
                else P(None, dp, None)
                for k, v in b_struct.items()}
     b_specs = sanitize(b_specs, b_struct, mesh)
+
+    def forward(params, caches, batch):
+        enc_states = None
+        if "enc_embeds" in batch:
+            enc_states = tf.encode(params, cfg, batch["enc_embeds"])
+        logits, caches = tf.forward(
+            params, cfg, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"), positions=batch.get("positions"),
+            mode="prefill", caches=caches, enc_states=enc_states)
+        return logits[:, -1], caches
+
+    if group is None:
+        regather, stats = False, None
+
+        def context():
+            return activation_sharding(dp, "model", kv_batch=kv_batch,
+                                       kv_seq=kv_seq)
+    else:
+        rows = _axes(b_specs["tokens" if "tokens" in b_specs else "embeds"])
+        regather = bool(rows) and not _cache_rows(c_specs)
+        row_group = group.over(rows)
+        stats = _Stats(group)
+        context = _sharded_context(group, dp, kv_batch, kv_seq, p_specs,
+                                   c_specs, sh["global_batch"]
+                                   if rows and not regather else None)
+
+    @torch.no_grad()
+    def prefill_step(params, caches, batch):
+        if stats is not None:
+            stats.reset()
+        if regather:
+            batch = {k: row_group.all_gather(
+                v, 1 if k == "positions" and v.dim() == 3 else 0)
+                for k, v in batch.items()}
+        with context():
+            logits, caches = forward(params, caches, batch)
+        if regather:
+            n = logits.shape[0] // row_group.size
+            logits = logits[row_group.rank * n:(row_group.rank + 1) * n]
+        return logits, caches
+
+    prefill_step.stats = stats
     return prefill_step, (p_specs, c_specs, b_specs)
 
 
@@ -332,7 +466,7 @@ def build_prefill_step(spec: ArchSpec, shape_name: str, mesh):
 
 def build_serve_step(spec: ArchSpec, shape_name: str, mesh,
                      db: Optional[specs_lib.ServeDBSpec] = None,
-                     with_retrieval: bool = True):
+                     with_retrieval: bool = True, group=None):
     """The paper's token-generation step (Fig. 3). Returns
     ``(serve_step, shardings, (db_cfg, structs))``.
 
@@ -352,7 +486,15 @@ def build_serve_step(spec: ArchSpec, shape_name: str, mesh,
     host. The step calls it as ``serve_step.search(db_params,
     db_shard, queries) -> (dists [nq, K], ids [nq, K])``, where a caller
     can run it alone or observe it. ``payload`` is the next-token table
-    [N] (kNN-LM) or the chunk table [N, chunk_len] (RETRO)."""
+    [N] (kNN-LM) or the chunk table [N, chunk_len] (RETRO).
+
+    With a ``group`` of more than one rank (the module docstring) the
+    search is ``router.build_mesh_search`` over the rank's one DB shard
+    and the whole batch's queries (all-gathered over the data axes where
+    the rows split over them), the payload gather
+    ``router.build_mesh_gather``, and each rank mixes its rows and
+    vocabulary columns (``rag.knnlm_interpolate`` with the model axis's
+    reducers)."""
     cfg = spec.model
     rag = spec.rag
     B = SHAPES[shape_name]["global_batch"]
@@ -363,43 +505,11 @@ def build_serve_step(spec: ArchSpec, shape_name: str, mesh,
     dq = ccfg.ivfpq.dim
     needs_proj = cfg.d_model != dq
     retro = rag.mode == "retro" and cfg.arch == "encdec"
+    group = _serving_group(cfg, mesh, group)
 
     kv_batch = "dp" if B >= 8 else None
     kv_seq = "model" if B >= 8 else ("dp", "model")
 
-    def search(db_params, db_shard, query):
-        return search_stacked(db_params, db_shard, query, ccfg)
-
-    @torch.no_grad()
-    def serve_step(params, caches, batch, db_params=None, db_shard=None,
-                   payload=None, proj=None):
-        token, position = batch["token"], batch["position"]
-        with activation_sharding(dp, "model", kv_batch=kv_batch,
-                                 kv_seq=kv_seq):
-            logits, caches, hidden = tf.decode_step(
-                params, cfg, caches, token, position,
-                enc_states=batch.get("enc_states"), return_hidden=True)
-        if not with_retrieval:
-            return logits, caches
-        query = hidden.float()
-        if needs_proj:
-            query = query @ proj
-        dists, ids = serve_step.search(db_params, db_shard, query)
-        if retro:
-            chunks = rag_lib.retro_neighbor_tokens(payload, ids)
-            emb = tf.embed_tokens(params, chunks.reshape(B, -1))
-            new_enc = tf.encode(params, cfg, emb)
-            logits2, caches, _ = tf.decode_step(
-                params, cfg, caches, token, position, enc_states=new_enc,
-                return_hidden=True)
-            return logits2, caches
-        knn_tok = rag_lib.gather_payload(payload, ids)
-        knn_tok = torch.where(ids >= 0, knn_tok, torch.full_like(knn_tok, -1))
-        logp = rag_lib.knnlm_interpolate(logits, dists, knn_tok, rag.lam,
-                                         rag.temperature)
-        return logp, caches
-
-    serve_step.search = search
     p_struct = abstract_params(cfg)
     p_specs = sanitize(param_specs(cfg, mesh, p_struct), p_struct, mesh)
     c_struct = specs_lib.cache_struct(spec, shape_name)
@@ -412,10 +522,10 @@ def build_serve_step(spec: ArchSpec, shape_name: str, mesh,
         b_specs = {"token": P(), "position": P()}
         if cfg.arch == "encdec":
             b_specs["enc_states"] = P(None, None, "model")
-    shardings: Dict[str, Any] = dict(params=p_specs, caches=c_specs,
-                                     batch=b_specs)
     structs: Dict[str, Any] = dict(
         cache=c_struct, batch=specs_lib.decode_struct(spec, shape_name))
+    shardings: Dict[str, Any] = dict(params=p_specs, caches=c_specs,
+                                     batch=b_specs)
     if with_retrieval:
         dbp_struct, dbs_struct = specs_lib.db_struct(ccfg, n_shards)
         dbp_specs, dbs_specs = specs_lib.db_specs(mesh)
@@ -433,4 +543,86 @@ def build_serve_step(spec: ArchSpec, shape_name: str, mesh,
         if needs_proj:
             shardings["proj"] = P(None, "model")
             structs["proj"] = specs_lib.S((cfg.d_model, dq), torch.float32)
+
+    if group is None:
+        def search(db_params, db_shard, query):
+            return search_stacked(db_params, db_shard, query, ccfg)
+
+        def context():
+            return activation_sharding(dp, "model", kv_batch=kv_batch,
+                                       kv_seq=kv_seq)
+        gather = rag_lib.gather_payload
+        rows, row_group, proj_cols, stats = (), None, None, None
+    else:
+        # what the rank holds: the specs as put_named lays them out
+        held = sanitize({k: shardings[k] for k in shardings
+                         if k not in ("params", "caches")},
+                        {k: structs[k] for k in shardings
+                         if k not in ("params", "caches")}, mesh)
+        search = gather = None
+        if with_retrieval:
+            search = router_lib.build_mesh_search(group, ccfg, nq=B,
+                                                  db_axes=dp)
+            gather = router_lib.build_mesh_gather(group,
+                                                  _axes(held["payload"]))
+        rows = _axes(held["batch"]["token"])
+        row_group = group.over(rows)
+        proj_cols = group.over(_axes(held.get("proj", P()), 1))
+        stats = _Stats(group)
+        context = _sharded_context(group, dp, kv_batch, kv_seq, p_specs,
+                                   c_specs, B if rows else None)
+
+    def my_rows(t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a tensor over the whole batch."""
+        if not rows:
+            return t
+        n = t.shape[0] // row_group.size
+        return t[row_group.rank * n:(row_group.rank + 1) * n]
+
+    @torch.no_grad()
+    def serve_step(params, caches, batch, db_params=None, db_shard=None,
+                   payload=None, proj=None):
+        if stats is not None:
+            stats.reset()
+        token, position = batch["token"], batch["position"]
+        with context():
+            logits, caches, hidden = tf.decode_step(
+                params, cfg, caches, token, position,
+                enc_states=batch.get("enc_states"), return_hidden=True)
+            if not with_retrieval:
+                return logits, caches
+            query = hidden.float()
+            if needs_proj:
+                query = query @ proj
+                if proj_cols is not None:
+                    query = proj_cols.all_gather(query.contiguous(), 1)
+            if rows:
+                query = row_group.all_gather(query.contiguous(), 0)
+            dists, ids = serve_step.search(db_params, db_shard, query)
+            if retro:
+                chunks = my_rows(rag_lib.retro_neighbor_tokens(
+                    payload, ids) if group is None else torch.where(
+                    (ids >= 0)[..., None], gather(payload, ids), 0))
+                emb = tf.embed_tokens(params,
+                                      chunks.reshape(chunks.shape[0], -1))
+                new_enc = tf.encode(params, cfg, emb)
+                logits2, caches, _ = tf.decode_step(
+                    params, cfg, caches, token, position, enc_states=new_enc,
+                    return_hidden=True)
+                return logits2, caches
+            knn_tok = gather(payload, ids)
+            knn_tok = my_rows(torch.where(ids >= 0, knn_tok,
+                                          torch.full_like(knn_tok, -1)))
+            dists = my_rows(dists)
+            # this rank's vocabulary columns where the head splits them
+            split = logits.shape[-1] != cfg.vocab_size
+            logp = rag_lib.knnlm_interpolate(
+                logits, dists, knn_tok, rag.lam, rag.temperature,
+                parallel.model_rank() * logits.shape[-1] if split else 0,
+                parallel.max_over_model if split else None,
+                parallel.reduce_from_model if split else None)
+        return logp, caches
+
+    serve_step.search = search
+    serve_step.stats = stats
     return serve_step, shardings, (ccfg, structs)

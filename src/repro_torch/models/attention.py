@@ -166,12 +166,22 @@ def flash_attention(q, k, v, q_positions, k_positions, causal=True,
                           q_block, k_block, with_lse=False)[0]
 
 
-def prefill_cache(k_cache, v_cache, k_new, v_new, ring: bool = False):
+def prefill_cache(k_cache, v_cache, k_new, v_new, ring: bool = False,
+                  slot_offset: int = 0):
     """Write prefill K/V of positions 0..T-1 into [B, S, KV, D] caches,
     in place (linear: slots 0..T-1; ring: the last S positions, each at
-    slot p % S)."""
+    slot p % S). ``slot_offset``: the linear cache is one rank's range of
+    a sequence split over ranks, its slot 0 at that position; it keeps
+    the positions in its range."""
     S = k_cache.shape[1]
     T = k_new.shape[1]
+    if slot_offset:
+        n = max(0, min(T - slot_offset, S))
+        k_cache[:, :n] = k_new[:, slot_offset:slot_offset + n].to(
+            k_cache.dtype)
+        v_cache[:, :n] = v_new[:, slot_offset:slot_offset + n].to(
+            v_cache.dtype)
+        return k_cache, v_cache
     if not ring or T <= S:
         n = min(T, S)
         k_cache[:, :n] = k_new[:, :n].to(k_cache.dtype)
@@ -184,14 +194,20 @@ def prefill_cache(k_cache, v_cache, k_new, v_new, ring: bool = False):
 
 
 def update_cache(k_cache, v_cache, k_new, v_new, position,
-                 ring: bool = False, slots=None):
+                 ring: bool = False, slots=None, slot_offset=None):
     """Write [B,Tn,KV,D] new keys/values at ``position`` ([B] or scalar),
     in place. Full cache: slot = position + t; ring: (position + t) % S.
     With ``slots``, row ``w`` of the wave goes to cache row ``slots[w]``
     (the KV pool). A full cache must be long enough for every write
     (the engine grows its pool before a request outruns it); the
     reference's scatter would drop such writes, an index past the end
-    here is an error."""
+    here is an error.
+
+    ``slot_offset`` (an int): the linear cache is one rank's range of a
+    sequence split over ranks, slot ``i`` holding position
+    ``slot_offset + i``; a position outside the range writes nothing
+    (its slot is rewritten with what it holds, so no host sync decides
+    which rows write)."""
     S = k_cache.shape[1]
     B, Tn = k_new.shape[:2]
     pos = torch.as_tensor(position, device=k_new.device).long()
@@ -202,6 +218,14 @@ def update_cache(k_cache, v_cache, k_new, v_new, position,
     rows = (torch.arange(B, device=pos.device) if slots is None
             else torch.as_tensor(slots, device=pos.device).long())
     bidx = rows[:, None].expand(B, Tn)
+    if slot_offset is not None:
+        local = seq_idx - slot_offset
+        mine = ((local >= 0) & (local < S))[..., None, None]
+        seq_idx = local.clamp(0, S - 1)
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            cache[bidx, seq_idx] = torch.where(
+                mine, new.to(cache.dtype), cache[bidx, seq_idx])
+        return k_cache, v_cache
     k_cache[bidx, seq_idx] = k_new.to(k_cache.dtype)
     v_cache[bidx, seq_idx] = v_new.to(v_cache.dtype)
     return k_cache, v_cache

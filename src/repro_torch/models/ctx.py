@@ -18,9 +18,12 @@ tests, serving) it does nothing, and inside a context without a group
 (the one-process prefill and serve steps) every axis has size 1.
 
 A context with a ``group`` (``launch.dp.Group``) and the keyed partition
-specs of the parameters is a sharded training step: the layers read
-their leaves through ``models.parallel.leaf``, and ``models.parallel``'s
-autograd collectives run over the group's axes.
+specs of the parameters is a sharded step: the layers read their leaves
+through ``models.parallel.leaf``, and ``models.parallel``'s autograd
+collectives run over the group's axes. A sharded prefill or serve step
+also gives the keyed specs of its caches (``caches``): a layer whose
+K/V sequence is split over ranks attends over its own slot range and
+merges the ranks' partial softmaxes (``models.parallel.seq_shard``).
 """
 from __future__ import annotations
 
@@ -41,7 +44,9 @@ class ShardContext:
     """What ``activation_sharding`` sets. ``group``: the rank's mesh group
     (None in one process); ``specs``: tree key -> sanitised partition
     spec of each parameter leaf (None: the leaves are whole); ``batch``:
-    the global rows of the step's (micro-)batch, where known."""
+    the global rows of the step's (micro-)batch, where known and split;
+    ``caches``: tree key -> sanitised spec of each cache leaf (a sharded
+    prefill or serve step)."""
     dp: Tuple[str, ...]
     model: str
     kv_batch: Any
@@ -49,6 +54,7 @@ class ShardContext:
     group: Any = None
     specs: Optional[Dict[str, Any]] = None
     batch: Optional[int] = None
+    caches: Optional[Dict[str, Any]] = None
 
     def size(self, axis: str) -> int:
         """The rank group's size along ``axis`` (1 without a group)."""
@@ -83,13 +89,14 @@ class ShardContext:
 def activation_sharding(dp_axes: Tuple[str, ...], model_axis: str = "model",
                         kv_batch="dp", kv_seq="model", *, group=None,
                         specs: Optional[Dict[str, Any]] = None,
-                        batch: Optional[int] = None):
+                        batch: Optional[int] = None,
+                        caches: Optional[Dict[str, Any]] = None):
     """kv_batch / kv_seq: logical tags of the KV cache's batch and
     sequence dims (long_500k flips them: a batch of 1 cannot shard, the
-    sequence takes every axis). ``group``, ``specs``, ``batch``: see
-    ``ShardContext``."""
+    sequence takes every axis). ``group``, ``specs``, ``batch``,
+    ``caches``: see ``ShardContext``."""
     tok = _CTX.set(ShardContext(tuple(dp_axes), model_axis, kv_batch,
-                                kv_seq, group, specs, batch))
+                                kv_seq, group, specs, batch, caches))
     try:
         yield
     finally:

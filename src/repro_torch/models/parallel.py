@@ -16,10 +16,19 @@ forward and its gradient sliced backward (every model rank computed the
 same whole gradient from the same replicated activations). The
 reductions of gradients run in float32.
 
+Serving (the sharded prefill and serve steps, no autograd):
+``seq_shard`` says where a cache's K/V sequence is split over ranks,
+``gather_model`` / ``model_chunk`` move a small activation's heads
+between the model ranks, and ``argmax_over_model`` picks a greedy token
+from vocabulary-split logits.
+
 Outside a sharded context every function returns its input, so the
 one-process paths do not move.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
 
 import torch
 
@@ -156,3 +165,73 @@ def split_on(key: str, dim: int, ndim: int) -> bool:
         return False
     spec = tuple(ctx.spec(key)) + (None,) * ndim
     return spec[dim % ndim] == ctx.model
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A cache whose sequence is split over ``group``: this rank holds
+    chunk ``index`` (its slot 0 is absolute position ``index * S_local``)."""
+    group: Any
+    index: int
+
+    def offset(self, local_len: int) -> int:
+        return self.index * local_len
+
+
+def seq_shard(key: str) -> Optional[SeqShard]:
+    """Where the cache leaf ``key`` ([n, B, S, ...]) splits its sequence
+    (dim 2) over ranks in the context in force, or None (not split, or
+    no sharded serving context)."""
+    ctx = ctx_lib.current()
+    if not sharded() or not ctx.caches or key not in ctx.caches:
+        return None
+    spec = tuple(ctx.caches[key]) + (None,) * 3
+    entry = spec[2]
+    if entry is None:
+        return None
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    if all(ctx.size(a) == 1 for a in axes):
+        return None
+    g = ctx.group.over(axes)
+    return SeqShard(g, g.rank)
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated along ``dim`` (contiguous),
+    outside autograd; ``x`` without a model axis."""
+    g = _model_group()
+    if g is None:
+        return x
+    return g.all_gather(x.detach().contiguous(), dim).contiguous()
+
+
+def model_chunk(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This model rank's chunk of ``x`` along ``dim`` (``gather_model``'s
+    inverse)."""
+    g = _model_group()
+    if g is None:
+        return x
+    n = x.shape[dim] // g.size
+    return x.narrow(dim, g.rank * n, n)
+
+
+def argmax_over_model(logits: torch.Tensor, group=None) -> torch.Tensor:
+    """Greedy token ids [..., 1] (int32) from ``logits`` [..., V_local],
+    this rank's vocabulary columns of a split over the model axis (the
+    whole vocabulary without one): the largest value over every rank's
+    columns, ties to the lower id. ``group``: the model axis's ranks
+    (default: the context's)."""
+    g = _model_group() if group is None else group
+    idx = logits.argmax(-1)
+    vals = torch.gather(logits, -1, idx[..., None])[..., 0]
+    if g is None or g.size == 1:
+        return idx[..., None].int()
+    idx = idx + g.rank * logits.shape[-1]
+    pair = torch.stack([vals.float(), idx.float()], -1)[None]
+    both = g.all_gather(pair.contiguous(), 0)          # [M, ..., 2]
+    pick = both[..., 0].argmax(0, keepdim=True)        # first max: lower id
+    return torch.gather(both[..., 1], 0, pick)[0][..., None].int()

@@ -270,20 +270,17 @@ def put_named(tree, specs, mesh, group):
 
 def gather_named(tree, specs, mesh, group):
     """Whole leaves on every rank from each rank's shards (``put_named``'s
-    inverse): each split dim all-gathered over its axis. Every rank of
-    ``group`` must call it."""
+    inverse): each split dim all-gathered over its axes (a dim split over
+    "data" and "model" over the whole mesh, in rank order: the row-major
+    order ``put_named`` slices by). Every rank of ``group`` must call
+    it."""
     def whole(spec, leaf):
         for dim, entry in enumerate(spec):
             if entry is None:
                 continue
             axes = entry if isinstance(entry, tuple) else (entry,)
-            live = [a for a in axes if mesh.shape[a] > 1]
-            if len(live) > 1:
-                raise NotImplementedError(
-                    f"dim {dim} split over {axes}: the training mesh "
-                    "splits a dim over one axis")
-            if live:
-                leaf = group.axis(live[0]).all_gather(leaf, dim)
+            if any(mesh.shape[a] > 1 for a in axes):
+                leaf = group.over(axes).all_gather(leaf, dim)
         return leaf.contiguous()
 
     return _map_specs(whole, specs, tree)

@@ -53,6 +53,17 @@ all-reduced maxima and sums. Any other leaf split over "model" (a head
 cut in two, Mamba's, RWKV-6's and the MoE's leaves) is gathered whole
 and computed replicated. The layers read the layout they got from their
 leaves' shapes.
+
+Sharded prefill and serving (``launch.steps``' builders with a rank
+group of more than one): the leaves are read as in training, and each
+rank's caches hold a range of the sequence (``parallel.seq_shard``), all
+KV heads. A layer gathers the new token's K/V heads (and its query's)
+over the model axis, writes the K/V into the rank that owns the
+position, attends over its own slots in the decode kernel's partial mode
+and merges the ranks' float32 partials (``_split_attention``), then
+keeps its own heads for the row-split ``wo``. Prefill computes a layer's
+K/V as in training and keeps the rank's slot range; RETRO's cross K/V
+are split and read the same way, every slot valid.
 """
 from __future__ import annotations
 
@@ -61,7 +72,9 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.decode_attn.ops import decode_attention
+from repro_torch.kernels.decode_attn.ops import (decode_attention,
+                                                 decode_attention_partial)
+from repro_torch.kernels.decode_attn.ref import merge_partials
 from repro_torch.models import ctx as ctx_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import parallel
@@ -336,15 +349,35 @@ def _proj_qkv(cfg, p, x):
     return q, k, v
 
 
+def _split_attention(q, k_cache, v_cache, position, seq):
+    """Decode attention over a cache whose sequence is split over
+    ``seq.group``: this rank's partial over its slot range, every rank's
+    partial all-gathered (one [R, W, H, D + 2] float32 buffer), merged in
+    rank order. q [W, 1, H, D] (all heads) -> [W, 1, H, D] in the cache
+    dtype."""
+    off = seq.offset(k_cache.shape[1])
+    acc, m, l = decode_attention_partial(q, k_cache, v_cache, position,
+                                         slot_offset=off)
+    D = acc.shape[-1]
+    buf = torch.cat([acc, m[..., None], l[..., None]], -1)[None]
+    every = seq.group.all_gather(buf.contiguous(), 0)
+    out = merge_partials(every[..., :D], every[..., D], every[..., D + 1])
+    return out.to(v_cache.dtype)[:, None]
+
+
 def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
-                    kv_len=None, rope=None):
+                    kv_len=None, rope=None, seq=None):
     """Returns attn_out [B, T, d]; fills ``cache`` in place.
 
     ``slots``: the cache is the KV pool and wave row ``w`` lives in pool
     row ``slots[w]``. ``kv_len`` crops every full-cache attention read
     to the wave's block-aligned valid prefix (ring caches never crop).
     Under M-RoPE ``positions`` are [3, B, T]; cache slots, validity and
-    masks follow the first (temporal) stream, as in the reference."""
+    masks follow the first (temporal) stream, as in the reference.
+
+    ``seq`` (``parallel.SeqShard``): the cache holds this rank's range of
+    a sequence split over ranks, every KV head (a linear cache, no
+    window, not the pool)."""
     B, T, _ = h.shape
     tp = p["wq"].shape[-1] != cfg.n_heads * cfg.d_head
     q, k, v = _proj_qkv(cfg, p, _tp_in(h, tp))
@@ -352,6 +385,22 @@ def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
     q = positional_rotate(q, positions, cfg, rope)
     k = positional_rotate(k, positions, cfg, rope)
     ring = window > 0
+    if seq is not None:
+        off = seq.offset(cache["k"].shape[1])
+        if mode != "decode":
+            out = flash_attention(q, k, v, pos1d, pos1d, causal=True,
+                                  window=window)
+        if tp:          # every head's K/V (and the query) on every rank
+            k, v = parallel.gather_model(k, 2), parallel.gather_model(v, 2)
+        if mode == "decode":
+            update_cache(cache["k"], cache["v"], k, v, pos1d[:, 0],
+                         slot_offset=off)
+            out = _split_attention(parallel.gather_model(q, 2) if tp else q,
+                                   cache["k"], cache["v"], pos1d[:, 0], seq)
+            out = parallel.model_chunk(out, 2) if tp else out
+        else:
+            prefill_cache(cache["k"], cache["v"], k, v, slot_offset=off)
+        return _tp_out(out.reshape(B, T, -1) @ p["wo"], tp)
     if mode == "decode":
         update_cache(cache["k"], cache["v"], k, v, pos1d[:, 0],
                      ring=ring, slots=slots)
@@ -366,15 +415,27 @@ def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
     return _tp_out(out.reshape(B, T, -1) @ p["wo"], tp)
 
 
-def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None):
+def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None,
+                     seq=None):
     """Cross-attention over the encoder states (RETRO) of ``hn``, the
     input normed by ``lnx``; returns ``out @ xwo``. Decode reads the
     cached cross K/V when the cache has them (gathered to the wave's rows
     under ``slots``), else recomputes them from ``enc_states`` [B, S, d]
-    (already the wave's rows). Prefill fills a cross cache in place."""
+    (already the wave's rows). Prefill fills a cross cache in place.
+    ``seq``: the cross cache holds this rank's range of the encoder
+    positions (every KV head); decode merges the ranks' partials, every
+    slot valid."""
     B, T, _ = hn.shape
     tp = p["xwq"].shape[-1] != cfg.n_heads * cfg.d_head
     q = (_tp_in(hn, tp) @ p["xwq"]).reshape(B, T, -1, cfg.d_head)
+    if seq is not None and mode == "decode":
+        xk, xv = cache["xk"], cache["xv"]
+        last = torch.full((B,), xk.shape[1] * seq.group.size - 1,
+                          dtype=torch.int32, device=hn.device)
+        out = _split_attention(parallel.gather_model(q, 2) if tp else q,
+                               xk, xv, last, seq)
+        out = parallel.model_chunk(out, 2) if tp else out
+        return _tp_out(out.reshape(B, T, -1) @ p["xwo"], tp)
     if mode == "decode" and cache is not None and "xk" in cache:
         xk, xv = cache["xk"], cache["xv"]
         if slots is not None:
@@ -390,6 +451,13 @@ def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None):
     kpos = torch.arange(S, device=hn.device)[None].expand(B, S)
     out = flash_attention(q, xk, xv, qpos, kpos, causal=False)
     if mode == "prefill" and cache is not None and "xk" in cache:
+        if seq is not None:
+            n = cache["xk"].shape[1]
+            off = seq.offset(n)
+            if tp:
+                xk, xv = (parallel.gather_model(xk, 2),
+                          parallel.gather_model(xv, 2))
+            xk, xv = xk[:, off:off + n], xv[:, off:off + n]
         cache["xk"].copy_(xk.to(cache["xk"].dtype))
         cache["xv"].copy_(xv.to(cache["xv"].dtype))
     return _tp_out(out.reshape(B, T, -1) @ p["xwo"], tp)
@@ -471,17 +539,20 @@ def _rwkv6_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
 def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
                 positions: torch.Tensor, mode: str, cache: Optional[Params],
                 window: int, slots=None, kv_len=None, rope=None,
-                enc_states=None) -> torch.Tensor:
+                enc_states=None, seq=None) -> torch.Tensor:
     """One layer: pre-norm self-attention (a hybrid block also runs the
     normed input through the Mamba head and averages the two normed
     outputs), the cross-attention when the layer has one and
     ``enc_states`` are given, the FFN (gated MLP or MoE). RWKV-6 layers
-    are ``_rwkv6_block``."""
+    are ``_rwkv6_block``. ``seq``: cache leaf name -> its
+    ``parallel.SeqShard`` (a sequence split over ranks)."""
     if cfg.block == "rwkv6":
         return _rwkv6_block(cfg, p, h, cache, slots)
+    seq = seq or {}
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     attn_out = _self_attention(cfg, p, hn, positions, mode, cache, window,
-                               slots=slots, kv_len=kv_len, rope=rope)
+                               slots=slots, kv_len=kv_len, rope=rope,
+                               seq=seq.get("k"))
     if cfg.block == "hybrid":
         state = (None if cache is None
                  else tuple(_rows(cache, ("ssm", "conv"), slots)))
@@ -493,7 +564,7 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
     if enc_states is not None and "xwq" in p:
         h, hx = _residual_norm(cfg, h, attn_out, p["lnx"])
         attn_out = _cross_attention(cfg, p, hx, enc_states, mode, cache,
-                                    slots=slots)
+                                    slots=slots, seq=seq.get("xk"))
     h, hn = _residual_norm(cfg, h, attn_out, p["ln2"])
     return h + _ffn(cfg, p, hn)
 
@@ -524,9 +595,12 @@ def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
                      {name: a[idx]
                       for name, a in caches["classes"][cls].items()})
             window = cfg.window if cls == "local" else 0
+            seq = None if cache is None or not parallel.sharded() else {
+                name: parallel.seq_shard(f"classes/{cls}/{name}")
+                for name in ("k", "xk") if name in cache}
             h = apply_block(cfg, p, h, positions, mode, cache, window,
                             slots=slots, kv_len=kv_len, rope=rope,
-                            enc_states=enc_states)
+                            enc_states=enc_states, seq=seq)
             ctx_lib.constrain(h, "dp", None, None,
                               full=(None, None, cfg.d_model))
         return h

@@ -27,6 +27,13 @@ stable ascending sort.
 
 A router owns processes, so it has ``close()`` and is a context manager:
 lifetime management that the reference's single controller never needed.
+
+``build_mesh_search`` and ``build_mesh_gather`` are the same search and
+gather inside a sharded serve step (``launch.steps.build_serve_step``
+with a rank group), the twin of the reference's ``shard_map`` bodies:
+every rank of a ``launch.dp.Group`` runs them on its own shards, data
+rank d scanning its one DB shard, and the group's collectives stand in
+for the fabric.
 """
 from __future__ import annotations
 
@@ -195,6 +202,82 @@ def build_search(mesh: Mesh, cfg: ChamVSConfig,
                           cfg.k)
 
     return search
+
+
+def build_mesh_search(group, cfg: ChamVSConfig, nq: int,
+                      db_axes: Tuple[str, ...] = ("data",),
+                      query_axis: str = "model"):
+    """The reference's ``build_search`` body on a rank of ``group``:
+    ``search(params, shard, queries) -> (dists [nq, K], ids [nq, K])``,
+    the same on every rank. ``shard`` is this rank's slice of the
+    stacked DB (leading axis 1: the shard of its coordinate over
+    ``db_axes``); ``queries`` [nq, D] are the whole batch's.
+
+    The rank probes its queries (the IVF probe kernel), computes their
+    LUTs and runs one fused scan over its shard keeping k' =
+    ``cfg.k_prime(producers)``. The work splits over ``query_axis``:
+    each column takes nq / M of the queries (the query split), or, when
+    nq does not divide and nprobe does (a batch of 1), nprobe / M of
+    every query's probed lists (the probe split). The survivors of every
+    producer are all-gathered in the reference's order (over the db axes,
+    and the column too under the probe split: rank order), merged by a
+    stable ascending sort, and the query split is undone."""
+    from repro_torch.kernels.chamvs_scan.ops import fused_shard_scan
+    from repro_torch.kernels.ivf_scan.ops import ivf_index_scan
+    db = group.over(db_axes)
+    M = group.shape.get(query_axis, 1)
+    col = group.coords.get(query_axis, 0)
+    probe_split = M > 1 and nq % M != 0 and cfg.nprobe % M == 0
+    if M > 1 and not probe_split and nq % M:
+        raise ValueError(f"{nq} queries split neither by query nor by "
+                         f"probe ({cfg.nprobe}) over {M} columns")
+    producers = db.size * (M if probe_split else 1)
+    kk = cfg.k_prime(producers)
+    merge_group = group if probe_split else db
+
+    def search(params, shard, queries: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if shard.codes.shape[0] != 1:
+            raise ValueError(f"a rank scans one shard, got "
+                             f"{shard.codes.shape[0]}")
+        q = queries.float()
+        if M > 1 and not probe_split:
+            n = nq // M
+            q = q[col * n:(col + 1) * n]
+        _, probe_ids = ivf_index_scan(q, params.coarse_centroids, cfg.nprobe)
+        if probe_split:
+            npl = cfg.nprobe // M
+            probe_ids = probe_ids[:, col * npl:(col + 1) * npl].contiguous()
+        d, i = fused_shard_scan(params, shard, q, probe_ids, cfg, kk)
+        d = merge_group.all_gather(d.contiguous(), 0)
+        i = merge_group.all_gather(i.contiguous(), 0)
+        d, i = flat_merge(d, i, cfg.k)
+        if M > 1 and not probe_split:
+            cols = group.axis(query_axis)
+            d, i = cols.all_gather(d, 0), cols.all_gather(i, 0)
+        return d, i
+
+    search.kk, search.probe_split = kk, probe_split
+    return search
+
+
+def build_mesh_gather(group, table_axes: Tuple[str, ...]):
+    """Id -> payload inside a sharded step: ``gather(table, ids)`` with
+    ``table`` this rank's row slice of a table split over ``table_axes``
+    (row-major over them) and ``ids`` the same on every rank. Each rank
+    looks up the ids in its row range, zeros the others, and the slices'
+    results are summed over the ranks that split the table."""
+    over = group.over(table_axes)
+
+    def gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        n = table.shape[0]
+        rel = ids.long() - over.rank * n
+        hit = (rel >= 0) & (rel < n)
+        vals = table[rel.clamp(0, n - 1)]
+        hit = hit.reshape(hit.shape + (1,) * (vals.dim() - hit.dim()))
+        return over.all_reduce(torch.where(hit, vals, 0).contiguous())
+
+    return gather
 
 
 def build_gather(mesh: Mesh, table_axes: Tuple[str, ...]):

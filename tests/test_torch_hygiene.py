@@ -155,7 +155,7 @@ assert all(torch.equal(a, b) for a, b in zip(
 assert _build._lib is None
 assert all(kern.launches == 0 for kern in _build.kernels().values())
 assert sorted(_build.kernels()) == ["adc_scan_launch", "chamvs_scan_launch",
-    "decode_attn_launch", "hierarchical_topk_launch", "ivf_scan_launch",
-    "shared_scan_launch"]
+    "decode_attn_launch", "decode_attn_partial_launch",
+    "hierarchical_topk_launch", "ivf_scan_launch", "shared_scan_launch"]
 """)
     assert p.returncode == 0, p.stdout + p.stderr

@@ -1506,3 +1506,191 @@ def test_quickstart_on_the_card_agrees_with_the_plain_versions(dev, capsys):
     assert out["device"] == "cuda" and 0.0 < out["recall"] <= 1.0
     assert "the card's kernels agree with the plain versions: dists " \
            "within 1e-5" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the scans at an m whose LUT does not fit in shared memory (Phi-3.5-MoE's
+# m 256, DBRX's 384, Qwen2-VL-72B's 512, Llama-3-405B's 1024): the LUT is
+# read from global memory, the sums keep their order
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [256, 384, 512, 1024])
+@pytest.mark.parametrize("kk,residual", [(63, False), (63, True),
+                                         (10, False), (300, True)])
+def test_fused_scan_above_shared_memory(dev, m, kk, residual):
+    """kk 63 (K 100 over 2 shards, as served), 10 (RETRO's K) and a queue
+    past the small one; shared and per-probe LUTs; ids identical and
+    distances bit-equal to the plain version."""
+    _check_scan(dev, _gen(dev, 60 + m), 2, 4, 8, 16, 700, m, 256, kk,
+                residual, False)
+
+
+@pytest.mark.parametrize("m", [256, 384, 512, 1024])
+@pytest.mark.parametrize("k,residual", [(63, False), (63, True),
+                                        (10, True), (200, False)])
+def test_adc_scan_above_shared_memory(dev, m, k, residual):
+    """adc_scan's warp-select path (k <= 128, the staged serve's k 63 and
+    RETRO's 10) and its queue path (k 200), in place and gathered, bit
+    for bit the plain version."""
+    _check_probed(dev, _gen(dev, 70 + m), 4, 8, 16, 1500, m, 256, k,
+                  residual, long_list=True)
+
+
+@pytest.mark.parametrize("q", [1, 5])
+def test_shared_scan_above_shared_memory(dev, q):
+    """m 256 at ksub 256: one query a block, its LUT read from global
+    memory; torch.equal to the plain version."""
+    g = _gen(dev, 80 + q)
+    luts = torch.randn((q, 256, 256), generator=g, device=dev)
+    codes = torch.randint(0, 256, (5001, 256), generator=g, device=dev
+                          ).to(torch.uint8)
+    assert pq.shared_tile_q(q, 256, 256) == 1
+    before = pq.SHARED_KERNEL.launches
+    out = pq.pq_shared_scan(luts, codes)
+    want = pq.ref_shared_scan(luts, codes).T
+    torch.cuda.synchronize()
+    assert pq.SHARED_KERNEL.launches == before + 1
+    assert torch.equal(out, want)
+
+
+# ---------------------------------------------------------------------------
+# decode attention's partial mode: a sequence split over ranks
+# ---------------------------------------------------------------------------
+
+def _check_partial(dev, g, H, KV, D, S, R, pos, tile_n=None):
+    """The cache's S slots cut into R ranges, each attended by one launch
+    in partial mode with its slot offset, merged by ``merge_partials``:
+    against a float32 oracle over the whole cache (2^-8 of the output
+    range) and the bf16-rounding plain version (2^-5). Returns each
+    range's l."""
+    from repro_torch.kernels.decode_attn.ref import merge_partials
+    W = pos.shape[0]
+    k = torch.randn((W, S, KV, D), generator=g, device=dev).bfloat16()
+    v = torch.randn((W, S, KV, D), generator=g, device=dev).bfloat16()
+    q = torch.randn((W, 1, H, D), generator=g, device=dev).bfloat16()
+    n = S // R
+    spec = registry.KernelSpec(tile_n=tile_n)
+    parts = []
+    before = da.PARTIAL_KERNEL.launches
+    for r in range(R):
+        kr = k[:, r * n:(r + 1) * n].contiguous()
+        vr = v[:, r * n:(r + 1) * n].contiguous()
+        parts.append(da.decode_attention_partial(
+            q, kr, vr, pos, slot_offset=r * n, spec=spec))
+    torch.cuda.synchronize()
+    assert da.PARTIAL_KERNEL.launches == before + R
+    acc, m, l = (torch.stack(t) for t in zip(*parts))
+    assert bool(torch.isfinite(acc).all() and torch.isfinite(m).all())
+    out = merge_partials(acc, m, l)
+    exact = da.ref_decode_attention(q.float(), k.float(), v.float(),
+                                    pos)[:, 0]
+    plain = da.ref_decode_attention(q, k, v, pos)[:, 0]
+    scale = exact.abs().max().item()
+    assert (out - exact).abs().max().item() <= 2 ** -8 * scale + 1e-5
+    assert (out - plain.float()).abs().max().item() <= 2 ** -5 * scale + 1e-3
+    return l
+
+
+@pytest.mark.parametrize("H,KV,D", [(8, 8, 64), (16, 16, 64), (8, 2, 128)])
+@pytest.mark.parametrize("R", [2, 4])
+def test_decode_attention_partial_mode(dev, H, KV, D, R):
+    """Dec-S's and Dec-L's head shapes (and a GQA one) over 512 slots cut
+    in R ranges; ragged positions, one row in the first range only, one
+    at the last slot: each range's partial, merged, against the oracle
+    and the plain version; the rows whose range lies past their position
+    weigh nothing (l = 0)."""
+    g = _gen(dev, 90 + R)
+    pos = torch.randint(0, 512, (12,), generator=g, device=dev).int()
+    pos[0], pos[1], pos[2] = 3, 511, 512 // R
+    l = _check_partial(dev, g, H, KV, D, 512, R, pos)
+    assert bool((l[1:, 0] == 0).all())                 # an empty range
+    assert bool((l[:, 1] > 0).all())
+
+
+@pytest.mark.parametrize("tile_n", [32, 48, None, 16])
+def test_decode_attention_partial_splits(dev, tile_n):
+    """Ragged splits inside a range (200 slots in splits of 48 or 16, or
+    as ``pick_split`` cuts them)."""
+    g = _gen(dev, 95)
+    pos = torch.randint(0, 400, (9,), generator=g, device=dev).int()
+    pos[0] = 210
+    _check_partial(dev, g, 8, 8, 64, 400, 2, pos, tile_n=tile_n)
+
+
+# ---------------------------------------------------------------------------
+# the sharded serve steps on the card
+# ---------------------------------------------------------------------------
+
+def test_sharded_serve_steps_on_the_card_match_the_cpu(dev, tmp_path,
+                                                       monkeypatch):
+    """Reduced Dec-S (bf16, as registered) through the sharded prefill and
+    3 serve steps on 4 ranks sharing the card (2 x 2 over gloo, the entry
+    ``tests/torch_serve_ranks.py``), against the one-position steps on
+    the CPU from the same init, index and inputs, the CPU searching the
+    card's queries (the devices' bf16 hidden states part in their last
+    bits): every step's log-probs within 2^-5 of their range, the greedy
+    tokens equal wherever the CPU's margin exceeds twice that
+    difference, the search ids equal but at near ties
+    (``ivfpq.id_swaps``), and rank 0's launches: decode attention's
+    partial mode once a layer a step, the IVF probe and the fused scan
+    once a step."""
+    import os
+
+    import torch_serve_ranks
+    from repro_torch.core.chamvs import stack_shards
+    from repro_torch.core.ivfpq import id_swaps
+    from repro_torch.launch import dp, specs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import DatastoreBuilder
+
+    spec = torch_serve_ranks.spec_of("dec_s", "bfloat16")
+    cfg = spec.model
+    B, S, T0 = 8, 32, 16
+    db = dict(n_vectors=4096, nlist=16, nprobe=4)
+    ccfg = specs.ServeDBSpec(**db).for_model(cfg, 2, spec.rag.k)
+    g = torch.Generator().manual_seed(3)
+    ds = DatastoreBuilder(dim=ccfg.ivfpq.dim, nlist=16, m=ccfg.ivfpq.m,
+                          list_cap=ccfg.ivfpq.list_cap, residual=True,
+                          num_shards=2, device="cpu").build(
+        torch.randn(2048, ccfg.ivfpq.dim, generator=g))
+
+    def ints(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=g,
+                             dtype=torch.int32)
+    case = dict(
+        arch="dec_s", dtype="bfloat16",
+        params=tf.init_params(torch.Generator().manual_seed(0), cfg),
+        shapes=dict(prefill=dict(seq_len=S, global_batch=B),
+                    decode=dict(seq_len=S, global_batch=B)),
+        db=db, db_params=ds.params, db_shard=stack_shards(ds.shards),
+        payload=ints(db["n_vectors"]),
+        prefill={"tokens": ints(B, T0), "positions": torch.arange(
+            T0, dtype=torch.int32)[None].expand(B, T0).contiguous()},
+        steps=[{"token": ints(B, 1), "position": torch.full(
+            (B,), T0 + s, dtype=torch.int32)} for s in range(3)])
+    torch.save([case], tmp_path / "cases.pt")
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(pathlib.Path(__file__).resolve().parent)]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+    dp.launch(4, "torch_serve_ranks:run",
+              [str(tmp_path / "cases.pt"), str(tmp_path)], device="cuda",
+              timeout_s=600, model=2)
+    card = torch.load(tmp_path / "result.pt", weights_only=False)[0]
+    assert {k: v for k, v in card["launches"].items() if v} == {
+        "decode_attn_partial_launch": cfg.n_layers * 3,
+        "ivf_scan_launch": 3, "chamvs_scan_launch": 3}
+    cpu = torch_serve_ranks.run_case(
+        dp.Group.single("cpu"), case, queries=card["queries"],
+        mesh=Mesh(("data", "model"), (1, 1), ("cpu",)))
+    for mine, want in zip([card["prefill"]] + card["serve"],
+                          [cpu["prefill"]] + cpu["serve"]):
+        mine, want = mine.float().cpu(), want.float()
+        err = (mine - want).abs().max().item()
+        assert err <= 2 ** -5 * (want.max() - want.min()).item()
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+        assert torch.equal(mine.argmax(-1)[sure], want.argmax(-1)[sure])
+    for (dc, ic), (dw, iw) in zip(card["search"], cpu["search"]):
+        id_swaps(dc, ic, dw, iw)
