@@ -148,7 +148,7 @@ failure raises, so the run exits non-zero):
      d_ff 10 752, top-4, 6.3 GB of expert weights) on a 32-row wave, two
      runs bit-equal, timed against the bytes of its experts (DBRX does
      not fit the card); then Hymba-1.5B (attention and a Mamba head in
-     every block, depth cut to 16 of 32 layers: 1 global + 15 local with
+     every block, depth cut to 8 of 32 layers: 1 global + 7 local with
      1024-slot rings, 25:5 heads of 64), RWKV-6-3B (no attention: decode-attention launches
      must be 0; its recurrent state rides in the pool's rows) and
      Phi-3.5-MoE (16 experts top-2, 32:8 heads of 128; depth cut to 16 of
@@ -223,10 +223,20 @@ failure raises, so the run exits non-zero):
      rank's resident bytes equal to the dry run's per-device count of
      the same arguments, every rank's launches (the partial mode 24 x
      6, the IVF probe and the fused scan 6, the whole-wave decode
-     attention 0), step ms and each axis's collective MB and ms a step;
-     kernel.decode_attn_partial before it holds the partial mode, two
-     slot ranges merged, against its plain version (2^-5) and a float32
-     oracle (2^-8) at a rank's shapes and times it. quickstart: the
+     attention 0), step ms and each axis's collective MB and ms a step.
+     In the same launch of the ranks, Hymba-1.5B at full width cut to 4
+     layers (1 global, 3 local rings of 1024 slots split over "model";
+     the Mamba state's channels split over it too), 8 rows of
+     1040-token prompts (the rings wrap), 6 greedy steps over an index
+     of its own projected hidden states over 16 seeded documents (the
+     prompts are 8 of them), held to the same steps in one process by
+     the same rules (partial launches 4 x 6 a rank, 3 x 6 of them on
+     the rings).
+     kernel.decode_attn_partial and kernel.decode_attn_partial_ring
+     before it hold the partial mode, slot ranges merged, against its
+     plain version (2^-5) and a float32 oracle (2^-8) at each case's
+     rank shapes (Dec-S's linear cache; Hymba's wrapped ring, 25:5
+     heads, its window) and time it. quickstart: the
      quickstart twin's main() on the card, R10@32, and the same search
      on the CPU by the same rule.
      search.tools runs earlier, at the end of phase 5, while the 8.6 GB
@@ -3307,12 +3317,12 @@ def assigned_phases(torch, dev, sizes, report):
 # docs, 262 144 keys; RWKV-6 256 docs of 544 tokens, 139 008 keys: 544
 # is 17 chunks of 32, so the keys' forward takes the chunked time mix,
 # 512 docs took 22.4 s of keys; Phi-3.5-MoE 512 docs, 262 144 keys;
-# SeamlessM4T 1024 docs, 524 288 keys), and Hymba's depth, 16 of 32
-# layers (one whole cycle of its layer pattern: its Python Mamba loop made
-# the phase 69-70 s at 32). The kNN-LM keys of Hymba run its Mamba loop,
+# SeamlessM4T 1024 docs, 524 288 keys), and Hymba's depth, 8 of 32
+# layers (1 global and 7 local: its Python Mamba loop made the phase 69-70
+# s at 32, 44.0 s at 16). The kNN-LM keys of Hymba run its Mamba loop,
 # 128 documents a batch.
 NONDENSE_SERVED = (
-    ("hymba_1_5b", dict(m=100, n_docs=512, key_batch=128, n_layers=16)),
+    ("hymba_1_5b", dict(m=100, n_docs=512, key_batch=128, n_layers=8)),
     ("rwkv6_3b", dict(m=160, n_docs=256, doc_len=544)),
     ("phi3_5_moe_42b", dict(m=256, n_docs=512, n_layers=16)),
 )
@@ -3951,22 +3961,55 @@ def steps_serve(torch, dev, kept, card):
 #: 2 x 2 ranks; greedy serve steps after the prefill (steps.serve's first
 #: ``steps`` are the reference)
 STEPS_MESH = dict(data=2, model=2, steps=6)
+#: Hymba-1.5B at full width on the same mesh: 4 of its 32 layers (1 global
+#: with a linear cache, 3 local with rings of 1024 slots; the cut is for
+#: the gloo gathers of the weights, PERF.md section 4), 8 rows of
+#: 1040-token prompts (1039 prefilled: the rings wrap), a linear cache of
+#: 1056, 6 greedy steps; its own index: the model's hidden state at every
+#: prefix of 16 seeded documents of 1046 tokens (the prompts are the first
+#: 1040 of 8 of them), through a seeded [1600, 1024] projection, in an
+#: index sized for 262 144 keys (128 lists of 1152 slots a shard: k-means
+#: fills lists unevenly), one shard a data rank, nprobe 16
+MESH_HYMBA = dict(arch="hymba_1_5b", n_layers=4, rows=8, prompt_len=1040,
+                  max_seq=1056, steps=6, n_docs=16,
+                  db=dict(n_vectors=262144, nlist=128, nprobe=16))
 
 
 def mesh_rank(group, argv):
     """One rank of ``steps.mesh`` (``launch.dp``'s entry
-    ``chip_smoke:mesh_rank``, argv ``[dir]``): Dec-S's sharded prefill and
-    serve steps (``launch.steps`` with the rank's group) on the shards
-    ``put_named`` gives it of the smoke's weights, index and payload
-    (``dir/case.pt``), then ``steps`` greedy steps, each rank taking its
-    rows' tokens by ``argmax_over_model``. Writes ``rank<r>.json``: the
-    launches, the resident bytes beside the dry run's per-device count of
-    the same arguments, step ms and each axis's collective MB and ms a
-    step; rank 0 also ``out.pt``, every step's whole log-probs and
-    tokens."""
+    ``chip_smoke:mesh_rank``, argv: one directory a case), each case in
+    turn (``mesh_case``)."""
+    for d in argv:
+        mesh_case(group, pathlib.Path(d))
+
+
+def mesh_spec(case):
+    """The ``ArchSpec`` a ``steps.mesh`` case serves: its arch, reduced
+    for a rehearsal, its depth cut to ``n_layers``."""
+    from repro_torch.configs import get_arch
+    spec = get_arch(case["arch"])
+    if case.get("reduced"):             # a rehearsal at the reduced widths
+        spec = dataclasses.replace(spec, model=spec.reduced)
+    if case.get("n_layers"):
+        spec = dataclasses.replace(spec, model=dataclasses.replace(
+            spec.model, n_layers=case["n_layers"]))
+    return spec
+
+
+def mesh_case(group, root):
+    """The sharded prefill and serve steps (``launch.steps`` with the
+    rank's group) of the case in ``root/case.pt`` on the shards
+    ``put_named`` gives the rank of its weights, index, payload and
+    projection, then ``steps`` greedy steps, each rank taking its rows'
+    tokens (by ``argmax_over_model`` where the head splits the
+    vocabulary). Writes ``rank<r>.json``: the launches (and those of
+    each kernel's modes), the resident bytes beside the dry
+    run's per-device count of the same arguments, step ms and each
+    axis's collective MB and ms a step; rank 0 also ``out.pt``, every
+    step's whole log-probs and tokens."""
     import torch
     from repro_torch import tree as tree_lib
-    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.configs import SHAPES
     from repro_torch.kernels import _build
     from repro_torch.launch import dryrun, specs
     from repro_torch.launch import steps as steps_lib
@@ -3975,15 +4018,12 @@ def mesh_rank(group, argv):
                                              put_named, sanitize,
                                              shard_shape)
 
-    root = pathlib.Path(argv[0])
     case = torch.load(root / "case.pt", mmap=True, weights_only=False)
     B, S, T0, n = case["rows"], case["max_seq"], case["prompt_len"], \
         case["steps"]
     SHAPES["mesh_prefill"] = dict(kind="prefill", seq_len=S, global_batch=B)
     SHAPES["mesh_decode"] = dict(kind="decode", seq_len=S, global_batch=B)
-    spec = get_arch(case["arch"])
-    if case.get("reduced"):             # a rehearsal at the reduced widths
-        spec = dataclasses.replace(spec, model=spec.reduced)
+    spec = mesh_spec(case)
     cfg, mesh, dev = spec.model, group.mesh, group.device
 
     def sync():
@@ -3994,8 +4034,10 @@ def mesh_rank(group, argv):
     serve, shardings, (_, structs) = steps_lib.build_serve_step(
         spec, "mesh_decode", mesh, db=specs.ServeDBSpec(**case["db"]),
         group=group)
+    inputs = [k for k in ("db_params", "db_shard", "payload", "proj")
+              if k in shardings]
     held = {k: sanitize(shardings[k], structs[k], mesh)
-            for k in ("batch", "db_params", "db_shard", "payload")}
+            for k in ["batch"] + inputs}
 
     def put(tree, spec_tree):
         return put_named(tree, spec_tree, mesh, group)
@@ -4009,9 +4051,7 @@ def mesh_rank(group, argv):
         shard_shape(t.shape, sp, mesh), dtype=t.dtype, device=dev),
         c_specs, c_struct)
     params = put(case["params"], p_specs)
-    args = dict(db_params=put(case["db_params"], held["db_params"]),
-                db_shard=put(case["db_shard"], held["db_shard"]),
-                payload=put(case["payload"], held["payload"]))
+    args = {k: put(case[k], held[k]) for k in inputs}
     pos0 = torch.full((B,), T0 - 1, dtype=torch.int32)
     batch = put({"token": case["prompt"][:, T0 - 1:].contiguous(),
                  "position": pos0}, held["batch"])
@@ -4047,15 +4087,19 @@ def mesh_rank(group, argv):
         sync()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         stats.append(serve.stats())
-        tok = parallel.argmax_over_model(logp, group.axis("model"))
+        tok = (parallel.argmax_over_model(logp, group.axis("model"))
+               if logp.shape[-1] != cfg.vocab_size
+               else logp.argmax(-1, keepdim=True).int())
         whole = gather_named(logp, out_spec, mesh, group)
         if group.rank == 0:
             logps.append(whole.float().cpu())
     launches = {k: kern.launches for k, kern in _build.kernels().items()}
+    modes = {k: kern.mode_launches for k, kern in _build.kernels().items()
+             if kern.mode_launches}
     (root / f"rank{group.rank}.json").write_text(json.dumps(dict(
-        launches=launches, resident=resident, dryrun_count=count,
-        prefill_ms=prefill_ms, prefill_stats=pre_stats, step_ms=step_ms,
-        stats=stats, coords=group.coords)))
+        launches=launches, modes=modes, resident=resident,
+        dryrun_count=count, prefill_ms=prefill_ms, prefill_stats=pre_stats,
+        step_ms=step_ms, stats=stats, coords=group.coords)))
     if group.rank == 0:
         logp = torch.stack(logps, 1)
         torch.save(dict(logp=logp, gen=logp.argmax(-1).int()),
@@ -4063,19 +4107,21 @@ def mesh_rank(group, argv):
 
 
 def kernel_decode_attn_partial(torch, dev, timer, report, W, H, KV, D, S,
-                               R, positions):
-    """The partial mode at the mesh step's shapes: a rank's ``W`` rows
-    over its ``S`` slots of a cache split in ``R`` ranges, one launch
-    per range with its slot offset, merged (``merge_partials``) and held
-    against the plain version (2^-5 of the output range) and a float32
-    oracle over the whole cache (2^-8); timed on range 0 (every slot
-    valid) beside its plain version and the library's one call for the
-    same function (memory-efficient SDPA with its log-sum-exp, the
-    validity as a -inf bias: the normalised form of the partial), the
-    last range logged."""
+                               R, positions, window=0, ring=False,
+                               key="decode_attn_partial"):
+    """The partial mode at a mesh step's shapes: a rank's ``W`` rows
+    over its ``S`` slots of a cache (a ring when ``ring``, with a
+    ``window``) split in ``R`` ranges, one launch per range with its slot
+    offset, merged (``merge_partials``) and held against the plain
+    version (2^-5 of the output range) and a float32 oracle over the
+    whole cache (2^-8); timed on range 0 beside its plain version and the
+    library's one call for the same function (memory-efficient SDPA with
+    its log-sum-exp, the G query heads of a KV head as its G query rows,
+    the validity as a -inf bias: the normalised form of the partial), the
+    last range logged. The report row is ``report[key]``."""
     from repro_torch.kernels.decode_attn import ops as da
     from repro_torch.kernels.decode_attn.ref import (
-        merge_partials, ref_decode_attention_partial)
+        decode_validity, merge_partials, ref_decode_attention_partial)
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(5)
@@ -4083,66 +4129,70 @@ def kernel_decode_attn_partial(torch, dev, timer, report, W, H, KV, D, S,
     v = torch.randn((W, S * R, KV, D), generator=g, device=dev).bfloat16()
     q = torch.randn((W, 1, H, D), generator=g, device=dev).bfloat16()
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    ring_size = S * R if ring else None
     ranges = [(k[:, r * S:(r + 1) * S].contiguous(),
                v[:, r * S:(r + 1) * S].contiguous()) for r in range(R)]
-    parts = [da.decode_attention_partial(q, kr, vr, pos, slot_offset=r * S)
-             for r, (kr, vr) in enumerate(ranges)]
-    plain = [ref_decode_attention_partial(q, kr, vr, pos, r * S)
-             for r, (kr, vr) in enumerate(ranges)]
+
+    def kernel(r):
+        kr, vr = ranges[r]
+        return da.decode_attention_partial(q, kr, vr, pos, slot_offset=r * S,
+                                           window=window, ring_size=ring_size)
+
+    def plain(r):
+        kr, vr = ranges[r]
+        return ref_decode_attention_partial(q, kr, vr, pos, r * S, window,
+                                            ring_size)
+    parts = [kernel(r) for r in range(R)]
     out = merge_partials(*(torch.stack(t) for t in zip(*parts)))
-    want = merge_partials(*(torch.stack(t) for t in zip(*plain)))
-    exact = da.ref_decode_attention(q.float(), k.float(), v.float(), pos
-                                    )[:, 0]
+    want = merge_partials(*(torch.stack(t) for t in zip(
+        *(plain(r) for r in range(R)))))
+    exact = da.ref_decode_attention(q.float(), k.float(), v.float(), pos,
+                                    window=window, ring=ring)[:, 0]
     torch.cuda.synchronize()
     scale = exact.abs().max().item()
     err = (out - want).abs().max().item()
     err32 = (out - exact).abs().max().item()
     if not (err <= 2 ** -5 * scale + 1e-3 and err32 <= 2 ** -8 * scale +
             1e-5):
-        raise AssertionError(f"decode_attn_partial: err {err}, vs f32 "
-                             f"{err32} (range {scale})")
+        raise AssertionError(f"{key}: err {err}, vs f32 {err32} (range "
+                             f"{scale})")
+    valid = decode_validity(pos, S * R, window, ring)
     times = []
     for r in (0, R - 1):
-        kr, vr = ranges[r]
-        n_valid = int((pos[:, None] - r * S >= torch.arange(
-            S, device=dev)[None]).sum())
+        n_valid = int(valid[:, r * S:(r + 1) * S].sum())
         nbytes = 2 * n_valid * KV * D * 2 + q.numel() * 2 + W * 4 + \
             W * H * (D + 2) * 4
         times.append(dict(
-            ms=timer(lambda: da.decode_attention_partial(
-                q, kr, vr, pos, slot_offset=r * S)),
-            plain_ms=timer(lambda: ref_decode_attention_partial(
-                q, kr, vr, pos, r * S)),
+            ms=timer(lambda: kernel(r)), plain_ms=timer(lambda: plain(r)),
             bound=bound(nbytes, 4 * n_valid * H * D), nbytes=nbytes,
             valid=n_valid))
-    # the library's call on range 0: [W, H, 1, D] against [W, KV, S, D]
-    # (KV = H here, no head repeat), slots past a row's position masked
+    # the library's call on range 0: [W, KV, G, D] queries (a KV head's G
+    # query heads as its query rows) against [W, KV, S, D], invalid slots
+    # masked
+    G = H // KV
     kr, vr = (x.transpose(1, 2) for x in ranges[0])
-    if kr.shape[1] != H:
-        raise AssertionError("decode_attn_partial: the library call "
-                             "needs H = KV")
-    qt = q.transpose(1, 2)
-    bias = torch.zeros((W, H, 1, S), dtype=q.dtype, device=dev)
-    bias.masked_fill_((torch.arange(S, device=dev)[None] > pos[:, None])
-                      [:, None, None], float("-inf"))
+    qt = q.reshape(W, KV, G, D)
+    bias = torch.zeros((W, KV, G, S), dtype=q.dtype, device=dev)
+    bias.masked_fill_(~valid[:, None, None, :S], float("-inf"))
 
     def library():
         return torch.ops.aten._scaled_dot_product_efficient_attention(
             qt, kr, vr, bias, True, scale=D ** -0.5)
-    lib_out = library()[0][:, :, 0].float()
+    lib_out = library()[0].reshape(W, H, D).float()
     acc0, _, l0 = parts[0]
     lib_err = (lib_out - acc0 / l0[..., None]).abs().max().item()
     library_ms = timer(library)
     t = times[0]
-    report["decode_attn_partial"] = dict(
-        name="decode_attn_partial", route="cuda",
+    report[key] = dict(
+        name=key, route="cuda",
         source="src/repro_torch/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn/kernel.py:109",
         max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound"][0], bound_by=t["bound"][1],
         library_ms=library_ms)
-    log("kernel.decode_attn_partial", t0,
-        shape=f"W={W},H={H},KV={KV},D={D},S_local={S},ranges={R}",
+    log(f"kernel.{key}", t0,
+        shape=f"W={W},H={H},KV={KV},D={D},S_local={S},ranges={R},"
+              f"ring={ring},window={window}",
         max_abs_err=f"{err:.3e}", err_vs_f32=f"{err32:.3e}",
         ms=f"{t['ms']:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
         library_ms=f"{library_ms:.4f}",
@@ -4155,87 +4205,146 @@ def kernel_decode_attn_partial(torch, dev, timer, report, W, H, KV, D, S,
         last_range_valid_slots=times[1]["valid"])
 
 
-def steps_mesh(torch, dev, kept, card, ref, report):
-    """``build_prefill_step`` + ``build_serve_step`` with a rank group:
-    Dec-S at full width on a 2 x 2 mesh of 4 ranks sharing the card (gloo
-    through host memory), the smoke's weights, its 4 194 304-key index
-    (one shard per data coordinate) and the payload split over data x
-    model, ``steps.serve``'s 32 rows (447 prefilled, a cache of 512),
-    then ``steps`` greedy steps. Tokens held to ``steps.serve``'s first
-    steps by the near-tie rule (the ranks' GEMM shapes differ from one
-    process's); every rank's resident bytes equal to the dry run's count
-    of the same arguments; each rank launches decode attention's partial
-    mode once a layer a step, the IVF probe and the fused scan once a
-    step, the whole-wave decode attention never. The partial mode is
-    first held against its plain version and timed at the ranks'
-    shapes."""
-    import shutil
-
+def mesh_hymba_case(torch, dev, card, root):
+    """``MESH_HYMBA``'s case for ``steps.mesh``: seeded Hymba-1.5B weights
+    at full width cut to its depth, seeded documents, a seeded
+    projection, the index of the documents' projected hidden states
+    (their next tokens the payload, padded with seeded tokens to the
+    index's size) and prompts (the first documents' first tokens), saved
+    to ``root/case.pt``; the same prefill and greedy steps run here first
+    in one process without a group (the whole-wave decode attention,
+    once a layer a step), whose log-probs and tokens the ranks' are held
+    to. Returns them and the documents' continuation of the prompts."""
+    from repro_torch.configs import SHAPES
     from repro_torch.core.chamvs import stack_shards
-    from repro_torch.launch import dp
+    from repro_torch.kernels import _build
+    from repro_torch.launch import specs, steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import DatastoreBuilder
 
-    o = STEPS_MESH
-    D, M, n = o["data"], o["model"], o["steps"]
-    sizes, ds, cfg = kept["sizes"], kept["ds"], kept["arch"].model
-    W, S, T0 = sizes["requests"] * sizes["rows"], sizes["max_seq"], \
-        sizes["prompt_len"]
-    timer = Timer(torch)
-    kernel_decode_attn_partial(
-        torch, dev, timer, report, W // D, cfg.n_heads, cfg.n_kv_heads,
-        cfg.d_head, S // M, M, [T0 - 1 + s for s in range(W // D)])
-    del timer
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    root = ROOT / "build" / "mesh"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
+    o = MESH_HYMBA
+    case = dict(o, db=dict(o["db"], residual=True))
+    spec = mesh_spec(case)
+    cfg = spec.model
+    B, S, T0, n = o["rows"], o["max_seq"], o["prompt_len"], o["steps"]
+    SHAPES["mesh_prefill"] = dict(kind="prefill", seq_len=S, global_batch=B)
+    SHAPES["mesh_decode"] = dict(kind="decode", seq_len=S, global_batch=B)
+    db = specs.ServeDBSpec(**case["db"])
+    ccfg = db.for_model(cfg, STEPS_MESH["data"], spec.rag.k)
+    g = torch.Generator(device=dev).manual_seed(11)
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    docs = torch.randint(0, cfg.vocab_size, (o["n_docs"], T0 + n),
+                         generator=g, device=dev, dtype=torch.int32)
+    proj = torch.randn((cfg.d_model, ccfg.ivfpq.dim), generator=g,
+                       device=dev) * cfg.d_model ** -0.5
+    builder = DatastoreBuilder(
+        dim=ccfg.ivfpq.dim, nlist=ccfg.ivfpq.nlist, m=ccfg.ivfpq.m,
+        list_cap=ccfg.ivfpq.list_cap, residual=True,
+        num_shards=STEPS_MESH["data"], device=str(dev))
+    hidden, nxt = builder.corpus_keys(params, cfg, docs.cpu().numpy(),
+                                      batch=o["n_docs"] // 2)
+    ds = builder.build(hidden @ proj)
+    del hidden
+    stacked = stack_shards(ds.shards)
+    payload = torch.randint(0, cfg.vocab_size, (db.n_vectors,), generator=g,
+                            device=dev, dtype=torch.int32)
+    payload[:nxt.numel()] = nxt
+    prompt = docs[:B, :T0]
+    lens = stacked.list_len.float()
+    mesh = Mesh(("data", "model"), (1, 1), (str(dev),))
+    prefill, _ = steps.build_prefill_step(spec, "mesh_prefill", mesh)
+    serve, _, _ = steps.build_serve_step(spec, "mesh_decode", mesh, db=db)
+    caches = tf.init_cache(cfg, B, S, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t1 = time.perf_counter()
+    _, caches = prefill(params, caches, {
+        "tokens": prompt[:, :T0 - 1], "positions": torch.arange(
+            T0 - 1, device=dev)[None].expand(B, T0 - 1)})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    tok, logps, gens, step_ms = prompt[:, T0 - 1:], [], [], []
+    for s in range(n):
+        t1 = time.perf_counter()
+        logp, caches = serve(params, caches, {
+            "token": tok, "position": torch.full(
+                (B,), T0 - 1 + s, dtype=torch.int32, device=dev)},
+            ds.params, stacked, payload, proj)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        tok = logp.argmax(-1, keepdim=True).int()
+        logps.append(logp.float().cpu())
+        gens.append(tok.cpu())
+    launches = {k: kern.launches for k, kern in _build.kernels().items()
+                if kern.launches}
+    want = {"decode_attn_launch": cfg.n_layers * n, "ivf_scan_launch": n,
+            "chamvs_scan_launch": n}
+    if launches != want:
+        raise AssertionError(f"steps.mesh.{o['arch']} one process: "
+                             f"launches {launches} != {want}")
     torch.save(dict(
-        params=to_device(torch, kept["params"], "cpu"),
-        db=dict(n_vectors=ds.num_vectors, nlist=sizes["nlist"],
-                nprobe=sizes["nprobe"], residual=ds.index_cfg.residual),
+        case, params=to_device(torch, params, "cpu"),
         db_params=to_device(torch, ds.params, "cpu"),
-        db_shard=to_device(torch, stack_shards(ds.shards), "cpu"),
-        payload=ds.payload_tokens.cpu(),
-        prompt=torch.from_numpy(kept["corpus"][:W, :T0].copy()),
-        arch="dec_s", rows=W, max_seq=S, prompt_len=T0, steps=n),
-        root / "case.pt")
-    t_save = time.perf_counter() - t0
-    dp.launch(D * M, "chip_smoke:mesh_rank", [str(root)], device=dev.type,
-              timeout_s=300, model=M)
+        db_shard=to_device(torch, stacked, "cpu"), payload=payload.cpu(),
+        proj=proj.cpu(), prompt=prompt.cpu()), root / "case.pt")
+    log(f"steps.mesh.{o['arch']}.one_process", t0, card=card,
+        layers=cfg.n_layers, layer_pattern=",".join(
+            cfg.layer_classes()), d_model=cfg.d_model, heads=cfg.n_heads,
+        kv_heads=cfg.n_kv_heads, window=cfg.window, rows=B, prompt_len=T0,
+        cache=S, steps=n, docs=o["n_docs"], keys=nxt.numel(),
+        index=case["db"], list_cap=ccfg.ivfpq.list_cap,
+        mean_list_slice=round(float(lens.mean()), 1),
+        max_list_slice=int(lens.max()), prefill_ms=f"{prefill_ms:.1f}",
+        step_ms=",".join(f"{x:.1f}" for x in step_ms), launches=launches)
+    return dict(gen=torch.cat(gens, 1).numpy(),
+                logp=torch.stack(logps, 1), cfg=cfg,
+                truth=docs[:B, T0:T0 + n].cpu().numpy())
+
+
+def mesh_results(torch, root, label, cfg, n, ref, rows, D, M):
+    """Checks one case of the ranks' run in ``root``: every rank's
+    launches (decode attention's partial mode once an attention layer a
+    step, over a ring for each local layer, the IVF probe and the fused
+    scan once a step, nothing else) and resident bytes (the dry run's
+    count); finite log-probs whose tokens ``ref``'s equal by the
+    near-tie rule (``rows`` rows a request). Returns (ranks' json, rank
+    0's out, the near-tie verdict)."""
+    from repro_torch.models import transformer as tf
+
     ranks = [json.loads((root / f"rank{r}.json").read_text())
              for r in range(D * M)]
     out = torch.load(root / "out.pt", weights_only=False)
     want = dict.fromkeys(ranks[0]["launches"], 0)
-    want.update({"decode_attn_partial_launch": cfg.n_layers * n,
+    want.update({"decode_attn_partial_launch": tf.attention_layers(cfg) * n,
                  "ivf_scan_launch": n, "chamvs_scan_launch": n})
+    n_ring = sum(c == "local" for c in cfg.layer_classes()) * n
+    modes = {"linear": want["decode_attn_partial_launch"] - n_ring,
+             "ring": n_ring}
+    modes = {"decode_attn_partial_launch": {
+        k: v for k, v in modes.items() if v}}
     for r, rk in enumerate(ranks):
-        if rk["launches"] != want:
-            raise AssertionError(f"steps.mesh rank {r}: launches "
-                                 f"{rk['launches']} != {want}")
+        if rk["launches"] != want or rk["modes"] != modes:
+            raise AssertionError(f"{label} rank {r}: launches "
+                                 f"{rk['launches']} {rk['modes']} != "
+                                 f"{want} {modes}")
         if rk["resident"] != rk["dryrun_count"]:
-            raise AssertionError(f"steps.mesh rank {r}: resident bytes "
+            raise AssertionError(f"{label} rank {r}: resident bytes "
                                  f"{rk['resident']} != the dry run's "
                                  f"{rk['dryrun_count']}")
     if not bool(torch.isfinite(out["logp"]).all()):
-        raise AssertionError("steps.mesh: non-finite log-probs")
-    tie = near_tie_check(torch, "steps.mesh tokens", out["gen"].numpy(),
-                         out["logp"], ref["gen"], ref["logp"],
-                         sizes["rows"])
-    truth = kept["corpus"][:W, T0:T0 + n]
-    report["decode_attn_partial"].update(
-        launches=ranks[0]["launches"]["decode_attn_partial_launch"],
-        launches_in=f"steps.mesh (each of {D * M} ranks)")
-    for name, sym in (("ivf_scan", "ivf_scan_launch"),
-                      ("fused_scan", "chamvs_scan_launch")):
-        report[name].update(
-            launches_steps_mesh=[rk["launches"][sym] for rk in ranks],
-            launches_steps_mesh_in="steps.mesh (each rank)")
+        raise AssertionError(f"{label}: non-finite log-probs")
+    tie = near_tie_check(torch, f"{label} tokens", out["gen"].numpy(),
+                         out["logp"], ref["gen"], ref["logp"], rows)
+    return ranks, out, tie
 
+
+def mesh_log(label, t0, ranks, **kv):
+    """The ranks' step times and each axis's collective MB and ms."""
     def per_step(key):
         return ",".join(f"{st[key]:.1f}" for st in ranks[0]["stats"])
-    log("steps.mesh", t0, card=card, data=D, model=M,
-        backend=dp.backend_for(dev.type, D * M), rows=W, prompt_len=T0,
-        cache=S, steps=n, save_s=f"{t_save:.1f}",
+    log(label, t0, **kv,
         prefill_ms=f"{ranks[0]['prefill_ms']:.1f}",
         step_ms=",".join(f"{x:.1f}" for x in ranks[0]["step_ms"]),
         step_ms_median=f"{median(ranks[0]['step_ms']):.1f}",
@@ -4247,11 +4356,121 @@ def steps_mesh(torch, dev, kept, card, ref, report):
         mesh_ms=per_step("mesh_ms"),
         prefill_data_mb=f"{ranks[0]['prefill_stats']['data_mb']:.1f}",
         prefill_model_mb=f"{ranks[0]['prefill_stats']['model_mb']:.1f}",
+        prefill_data_ms=f"{ranks[0]['prefill_stats']['data_ms']:.1f}",
+        prefill_model_ms=f"{ranks[0]['prefill_stats']['model_ms']:.1f}",
         resident_mb=",".join(f"{rk['resident'] / 1e6:.2f}" for rk in ranks),
-        dryrun_per_dev_mb=f"{ranks[0]['dryrun_count'] / 1e6:.2f}",
-        launches={k: v for k, v in want.items() if v},
-        continuation_accuracy=f"{(out['gen'].numpy() == truth).mean():.4f}",
-        tokens_differ=tie["rows_differ"], near_tie_noise=f"{tie['noise']:.3g}")
+        dryrun_per_dev_mb=f"{ranks[0]['dryrun_count'] / 1e6:.2f}")
+
+
+def steps_mesh(torch, dev, kept, card, ref, report):
+    """``build_prefill_step`` + ``build_serve_step`` with a rank group on
+    a 2 x 2 mesh of 4 ranks sharing the card (gloo through host memory),
+    two cases in one launch of the ranks:
+
+      * Dec-S at full width, the smoke's weights, its 4 194 304-key index
+        (one shard per data coordinate) and the payload split over data
+        x model, ``steps.serve``'s 32 rows (447 prefilled, a cache of
+        512), then ``steps`` greedy steps, held to ``steps.serve``'s
+        first steps by the near-tie rule (the ranks' GEMM shapes differ
+        from one process's);
+      * Hymba-1.5B at full width cut to 4 layers (``MESH_HYMBA``): a
+        linear cache and three rings split over "model", the Mamba state
+        gathered over it, the query projected by the projection's column
+        shards, held to the same steps in one process
+        (``mesh_hymba_case``).
+
+    Each rank's resident bytes equal the dry run's count of the same
+    arguments; each rank launches decode attention's partial mode once an
+    attention layer a step, the IVF probe and the fused scan once a step,
+    the whole-wave decode attention never. The partial mode is first held
+    against its plain version and timed at each case's shapes."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.chamvs import stack_shards
+    from repro_torch.launch import dp
+
+    o = STEPS_MESH
+    D, M, n = o["data"], o["model"], o["steps"]
+    sizes, ds, cfg = kept["sizes"], kept["ds"], kept["arch"].model
+    W, S, T0 = sizes["requests"] * sizes["rows"], sizes["max_seq"], \
+        sizes["prompt_len"]
+    hy = MESH_HYMBA
+    timer = Timer(torch)
+    kernel_decode_attn_partial(
+        torch, dev, timer, report, W // D, cfg.n_heads, cfg.n_kv_heads,
+        cfg.d_head, S // M, M, [T0 - 1 + s for s in range(W // D)])
+    hcfg = get_arch(hy["arch"]).model
+    kernel_decode_attn_partial(
+        torch, dev, timer, report, hy["rows"] // D, hcfg.n_heads,
+        hcfg.n_kv_heads, hcfg.d_head, hcfg.window // M, M,
+        [hy["prompt_len"] - 1 + s for s in range(hy["rows"] // D)],
+        window=hcfg.window, ring=True, key="decode_attn_partial_ring")
+    del timer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = [root / "dec_s", root / hy["arch"]]
+    for d in dirs:
+        d.mkdir(parents=True)
+    torch.save(dict(
+        params=to_device(torch, kept["params"], "cpu"),
+        db=dict(n_vectors=ds.num_vectors, nlist=sizes["nlist"],
+                nprobe=sizes["nprobe"], residual=ds.index_cfg.residual),
+        db_params=to_device(torch, ds.params, "cpu"),
+        db_shard=to_device(torch, stack_shards(ds.shards), "cpu"),
+        payload=ds.payload_tokens.cpu(),
+        prompt=torch.from_numpy(kept["corpus"][:W, :T0].copy()),
+        arch="dec_s", rows=W, max_seq=S, prompt_len=T0, steps=n),
+        dirs[0] / "case.pt")
+    t_save = time.perf_counter() - t0
+    href = mesh_hymba_case(torch, dev, card, dirs[1])
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    dp.launch(D * M, "chip_smoke:mesh_rank", [str(d) for d in dirs],
+              device=dev.type, timeout_s=300, model=M)
+    ranks_s = time.perf_counter() - t1
+    backend = dp.backend_for(dev.type, D * M)
+    ranks, out, tie = mesh_results(
+        torch, dirs[0], "steps.mesh", cfg, n, ref, sizes["rows"], D, M)
+    dec_s = ranks[0]["modes"]["decode_attn_partial_launch"]["linear"]
+    for name, sym in (("ivf_scan", "ivf_scan_launch"),
+                      ("fused_scan", "chamvs_scan_launch")):
+        report[name].update(
+            launches_steps_mesh=[rk["launches"][sym] for rk in ranks],
+            launches_steps_mesh_in="steps.mesh (each rank)")
+    accuracy = (out["gen"].numpy() == kept["corpus"][:W, T0:T0 + n]).mean()
+    mesh_log("steps.mesh", t0, ranks, card=card, data=D, model=M,
+             backend=backend, rows=W, prompt_len=T0, cache=S, steps=n,
+             save_s=f"{t_save:.1f}", ranks_s=f"{ranks_s:.1f}",
+             continuation_accuracy=f"{accuracy:.4f}",
+             tokens_differ=tie["rows_differ"],
+             near_tie_noise=f"{tie['noise']:.3g}")
+    hcfg = href["cfg"]
+    ranks, out, tie = mesh_results(
+        torch, dirs[1], f"steps.mesh.{hy['arch']}", hcfg, n, href, 1, D, M)
+    hy_modes = ranks[0]["modes"]["decode_attn_partial_launch"]
+    report["decode_attn_partial"].update(
+        launches=dec_s + hy_modes["linear"],
+        launches_in=f"steps.mesh, each of {D * M} ranks: Dec-S's {dec_s} "
+                    f"and {hy['arch']}'s {hy_modes['linear']} on its global "
+                    "layer's linear cache")
+    report["decode_attn_partial_ring"].update(
+        launches=hy_modes["ring"],
+        launches_in=f"steps.mesh.{hy['arch']}, each of {D * M} ranks: its "
+                    "local layers' rings")
+    accuracy = [(gen == href["truth"]).mean()
+                for gen in (out["gen"].numpy(), href["gen"])]
+    mesh_log(f"steps.mesh.{hy['arch']}", t0, ranks, card=card, data=D,
+             model=M, backend=backend, layers=hcfg.n_layers,
+             rows=hy["rows"], prompt_len=hy["prompt_len"],
+             cache=hy["max_seq"], ring=hcfg.window, steps=n,
+             partial_launches=hy_modes,
+             continuation_accuracy=f"{accuracy[0]:.4f}",
+             one_process_continuation_accuracy=f"{accuracy[1]:.4f}",
+             tokens_differ=tie["rows_differ"],
+             near_tie_noise=f"{tie['noise']:.3g}")
 
 
 def search_tools(torch, dev, arch, sizes, keys, queries, ds, card):
@@ -4382,8 +4601,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     quickstart_phase(torch, card)
     kernels = [report[k] for k in ("decode_attn", "decode_attn_partial",
-                                   "ivf_scan", "fused_scan", "adc_scan",
-                                   "shared_scan", "hierarchical_topk")]
+                                   "decode_attn_partial_ring", "ivf_scan",
+                                   "fused_scan", "adc_scan", "shared_scan",
+                                   "hierarchical_topk")]
     log("total", t_all,
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -57,14 +57,18 @@
 // reference kernel (kernel.py:101-104).
 //
 // Partial mode (decode_attn_partial_launch): the cache holds one rank's
-// range of a sequence split over ranks, local slot i at absolute position
-// slot_offset + i, so validity is slot_offset + i <= pos. The launch
-// writes the rank's merged float32 partial instead of the bf16 output:
-// the unnormalised acc [W, H, D] with its running max m and sum l
-// [W, H], which the caller merges across ranks. A rank with no valid
-// slot writes l = 0, acc = 0 and m = -1e30: finite, and weightless in
-// the merge. Linear caches without a window; wave row w reads cache row
-// w (the wrapper passes identity slots).
+// slot range of a cache split over ranks, local slot i being global slot
+// g = slot_offset + i. A linear cache holds position g there (valid iff
+// g <= pos, and g > pos - window with a window). A ring of ring_S slots
+// in all holds pos - ((pos - g) mod ring_S), valid iff that is >= 0 and,
+// with a window, > pos - window: validity is computed in the ring's
+// global slot space, so a rank's range may wrap or hold nothing valid.
+// The launch writes the rank's merged float32 partial instead of the
+// bf16 output: the unnormalised acc [W, H, D] with its running max m and
+// sum l [W, H], which the caller merges across ranks. A rank with no
+// valid slot writes l = 0, acc = 0 and m = -1e30: finite, and weightless
+// in the merge. Wave row w reads cache row w (the wrapper passes
+// identity slots).
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -89,7 +93,8 @@ struct Args {
   __nv_bfloat16* out;
   int S_pool, S, KV, G, window, ring, split_len, NS;
   float scale;
-  int slot_offset;   // absolute position of slot 0 (partial mode)
+  int slot_offset;   // global slot (and linear position) of slot 0
+  int ring_S;        // a ring's slots in all (read only when ring is set)
   float* out_m;      // partial mode: [W, H] running max, else null
   float* out_l;      // [W, H] sum of exp
   float* out_acc;    // [W, H, D] unnormalised P.V
@@ -121,11 +126,14 @@ struct Shape {
   static_assert(PAIRS <= kThreads, "a head row's pairs fit the block");
 };
 
-__device__ __forceinline__ bool slot_valid(int s, int p, int S, int window,
-                                           int ring) {
+// Local slot s against p, the row's position less the slot offset. A
+// ring slot's position (relative to the offset as well) is p less
+// (p - s) mod ring_S; it must be a real position, >= -slot_offset.
+__device__ __forceinline__ bool slot_valid(int s, int p, int window, int ring,
+                                           int ring_S, int slot_offset) {
   if (ring) {
-    const int ps = p - floor_mod(p - s, S);
-    return ps >= 0 && (window <= 0 || ps > p - window);
+    const int ps = p - floor_mod(p - s, ring_S);
+    return ps >= -slot_offset && (window <= 0 || ps > p - window);
   }
   return s <= p && (window <= 0 || s > p - window);
 }
@@ -180,7 +188,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
       const int j = c / CH, cc = c % CH;
       __nv_bfloat16* dk = sk + st * kStage + j * D + cc * 8;
       __nv_bfloat16* dv = sv + st * kStage + j * D + cc * 8;
-      if (!ring || slot_valid(lo + j0 + j, p, S, window, 1)) {
+      if (!ring ||
+          slot_valid(lo + j0 + j, p, window, 1, a.ring_S, a.slot_offset)) {
         const long long src = first + (j0 + j) * ws + cc * 8;
         cp_async16(dk, a.kc + src);
         cp_async16(dv, a.vc + src);
@@ -238,7 +247,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
                   : make_uint4(0, 0, 0, 0),
               kf);
       const bool valid =
-          j < cnt && slot_valid(lo + j0 + j, p, S, window, ring);
+          j < cnt && slot_valid(lo + j0 + j, p, window, ring, a.ring_S,
+                                a.slot_offset);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         float dot = 0.f;
@@ -402,7 +412,8 @@ cudaError_t launch_d(dim3 grid, cudaStream_t st, const Args& a) {
 // The launch of either mode over the grid (splits, KV, W).
 static int run(const Args& a, int W, int D, void* stream) {
   if (a.G < 1 || a.G > 16 || a.split_len < 1 ||
-      (long long)a.split_len * a.NS < a.S || a.S < 1)
+      (long long)a.split_len * a.NS < a.S || a.S < 1 ||
+      (a.ring && a.ring_S < a.S))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(a.NS, a.KV, W);
@@ -443,19 +454,20 @@ RT_EXPORT int decode_attn_launch(const void* q, const void* kc, const void* vc,
                static_cast<int*>(counters),
                static_cast<__nv_bfloat16*>(out),
                S_pool, S, KV, G, window, ring, split_len, NS, scale,
-               0, nullptr, nullptr, nullptr};
+               0, S, nullptr, nullptr, nullptr};
   return run(a, W, D, stream);
 }
 
-// The partial mode: as above over a linear cache whose slot 0 holds
-// absolute position slot_offset, writing out_m / out_l [W, KV*G] and
-// out_acc [W, KV*G, D] float32 instead of a bf16 output.
+// The partial mode: as above over a cache whose slot 0 is global slot
+// slot_offset (of a ring of ring_S slots in all when ring is set),
+// writing out_m / out_l [W, KV*G] and out_acc [W, KV*G, D] float32
+// instead of a bf16 output.
 RT_EXPORT int decode_attn_partial_launch(
     const void* q, const void* kc, const void* vc, const void* slots,
     const void* pos, void* part_m, void* part_l, void* part_acc,
     void* counters, void* out_m, void* out_l, void* out_acc, int W,
-    int S_pool, int S, int KV, int G, int D, int slot_offset, int split_len,
-    int NS, float scale, void* stream) {
+    int S_pool, int S, int KV, int G, int D, int slot_offset, int window,
+    int ring, int ring_S, int split_len, int NS, float scale, void* stream) {
   if (out_m == nullptr || out_l == nullptr || out_acc == nullptr)
     return cudaErrorInvalidValue;
   const Args a{static_cast<const __nv_bfloat16*>(q),
@@ -468,7 +480,8 @@ RT_EXPORT int decode_attn_partial_launch(
                static_cast<float*>(part_acc),
                static_cast<int*>(counters),
                nullptr,
-               S_pool, S, KV, G, 0, 0, split_len, NS, scale, slot_offset,
+               S_pool, S, KV, G, window, ring, split_len, NS, scale,
+               slot_offset, ring_S,
                static_cast<float*>(out_m), static_cast<float*>(out_l),
                static_cast<float*>(out_acc)};
   return run(a, W, D, stream);

@@ -139,16 +139,18 @@ class Kernel:
 
     ``launches`` is bumped once per successful call — the wrappers call
     it exactly where they launch their kernel, and nowhere else, so a
-    run can show that its main path went through the kernel."""
+    run can show that its main path went through the kernel. A call
+    with a ``mode`` also bumps ``mode_launches[mode]``."""
 
     def __init__(self, symbol: str, argtypes: Sequence):
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.mode_launches: Dict[str, int] = {}
         self._fn = None
         _kernels[symbol] = self
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, mode: Optional[str] = None) -> None:
         if self._fn is None:
             fn = getattr(library(), self.symbol)
             fn.argtypes = self.argtypes
@@ -159,6 +161,8 @@ class Kernel:
             msg = library().rt_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
         self.launches += 1
+        if mode is not None:
+            self.mode_launches[mode] = self.mode_launches.get(mode, 0) + 1
 
 
 def kernels() -> Dict[str, Kernel]:
@@ -169,6 +173,7 @@ def kernels() -> Dict[str, Kernel]:
 def reset_launches() -> None:
     for k in _kernels.values():
         k.launches = 0
+        k.mode_launches = {}
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -9,9 +9,10 @@ through ``slots`` itself and merges its splits inside the one launch, or
 raises.
 
 ``decode_attention_partial`` is the same kernel's partial mode, for a
-cache that holds one rank's slot range of a sequence split over ranks:
-it returns the range's float32 (acc, m, l), which the caller merges
-across ranks (``ref.merge_partials``).
+cache that holds one rank's slot range of a cache split over ranks (a
+linear cache, or a ring, with or without a window): it returns the
+range's float32 (acc, m, l), which the caller merges across ranks
+(``ref.merge_partials``).
 """
 from __future__ import annotations
 
@@ -31,9 +32,9 @@ _P, _I, _F = _build.P, _build.I, _build.F
 KERNEL = _build.Kernel("decode_attn_launch",
                        [_P] * 10 + [_I] * 10 + [_F, _P])
 #: the partial mode's entry point; ``PARTIAL_KERNEL.launches`` counts its
-#: launches
+#: launches, ``mode_launches`` those over a "ring" and a "linear" cache
 PARTIAL_KERNEL = _build.Kernel("decode_attn_partial_launch",
-                               [_P] * 12 + [_I] * 9 + [_F, _P])
+                               [_P] * 12 + [_I] * 12 + [_F, _P])
 TILE = 32          # slots the kernel stages at a time (kTile)
 HEAD_DIMS = (16, 64, 96, 128, 256)   # the instances the kernel has
 MAX_G = 16         # query heads a KV head, at most
@@ -83,22 +84,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, position: torch.Tensor,
-                             slot_offset: int = 0,
+                             slot_offset: int = 0, window: int = 0,
+                             ring_size: Optional[int] = None,
                              spec: registry.KernelSpec = registry.DEFAULT):
-    """One decode token's attention over one rank's slot range of a
-    sequence split over ranks: q [W, 1, H, D]; linear caches
-    [W, S, KV, D] whose slot ``i`` holds absolute position
-    ``slot_offset + i``; position [W] absolute. Returns float32
-    (acc [W, H, D], m [W, H], l [W, H]); a row with no valid slot in the
-    range gives l = 0, acc = 0 and a finite m."""
+    """One decode token's attention over one rank's slot range of a cache
+    split over ranks: q [W, 1, H, D]; caches [W, S, KV, D] whose slot
+    ``i`` is global slot ``slot_offset + i``; position [W] absolute.
+    Linear caches (``ring_size=None``) hold that position there; a ring
+    of ``ring_size`` slots in all holds ``pos - ((pos - g) mod
+    ring_size)`` at global slot ``g``. ``window`` also rejects positions
+    ``<= pos - window``. Returns float32 (acc [W, H, D], m [W, H],
+    l [W, H]); a row with no valid slot in the range gives l = 0,
+    acc = 0 and a finite m."""
     if q.is_cuda:
         return _launch_partial(q, k_cache, v_cache, position,
-                               int(slot_offset), spec)
+                               int(slot_offset), int(window), ring_size,
+                               spec)
     if q.device.type not in PLAIN_DEVICES:
         raise RuntimeError(f"decode_attention_partial: no kernel for "
                            f"{q.device}")
     return ref_decode_attention_partial(q, k_cache, v_cache, position,
-                                        slot_offset)
+                                        slot_offset, window, ring_size)
 
 
 def pick_split(W: int, KV: int, S: int, sms: int,
@@ -190,10 +196,15 @@ def _launch(q, k_cache, v_cache, position, window, ring, slots, kv_len,
     return out
 
 
-def _launch_partial(q, k_cache, v_cache, position, slot_offset, spec):
+def _launch_partial(q, k_cache, v_cache, position, slot_offset, window,
+                    ring_size, spec):
+    ring = ring_size is not None
     (W, H, D, KV, G, S_pool, S, slots, pos, split, NS, part_m, part_l,
-     part_acc) = _prepare(q, k_cache, v_cache, position, False, None, None,
+     part_acc) = _prepare(q, k_cache, v_cache, position, ring, None, None,
                           spec)
+    if ring and not slot_offset + S <= ring_size:
+        raise ValueError(f"slots {slot_offset}..{slot_offset + S - 1} lie "
+                         f"outside a ring of {ring_size}")
     counters = _build.merge_counters(PARTIAL_KERNEL.symbol, q, W * KV)
     out_m = torch.empty((W, H), device=q.device, dtype=torch.float32)
     out_l = torch.empty_like(out_m)
@@ -203,7 +214,9 @@ def _launch_partial(q, k_cache, v_cache, position, slot_offset, spec):
                    part_l.data_ptr(), part_acc.data_ptr(),
                    counters.data_ptr(), out_m.data_ptr(), out_l.data_ptr(),
                    out_acc.data_ptr(), W, S_pool, S, KV, G, D, slot_offset,
-                   split, NS, float(D ** -0.5), _build.stream_ptr(q))
+                   window, int(ring), int(ring_size) if ring else 0, split,
+                   NS, float(D ** -0.5), _build.stream_ptr(q),
+                   mode="ring" if ring else "linear")
     return out_acc, out_m, out_l
 
 

@@ -12,10 +12,10 @@ until its final division, as the reference's Pallas kernel does; the
 two differ by those bf16 roundings.
 
 ``ref_decode_attention_partial`` is the plain version of the kernel's
-partial mode, for a cache that holds one rank's range of a sequence split
-over ranks, and ``merge_partials`` the cross-rank merge of those
-partials: float32 throughout (the scores rounded to the cache dtype as
-above), normalised only by the merge.
+partial mode, for a cache that holds one rank's slot range of a linear
+or ring cache split over ranks, and ``merge_partials`` the cross-rank
+merge of those partials: float32 throughout (the scores rounded to the
+cache dtype as above), normalised only by the merge.
 """
 from __future__ import annotations
 
@@ -69,10 +69,13 @@ def ref_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def ref_decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
                                  v_cache: torch.Tensor,
                                  position: torch.Tensor,
-                                 slot_offset: int = 0):
+                                 slot_offset: int = 0, window: int = 0,
+                                 ring_size=None):
     """One rank's share of a decode step's attention: q [B, 1, H, D];
-    caches [B, S, KV, D] whose slot ``i`` holds absolute position
-    ``slot_offset + i`` (a linear cache); position [B]. Returns float32
+    caches [B, S, KV, D] whose slot ``i`` is global slot
+    ``slot_offset + i`` of a linear cache (``ring_size=None``) or of a
+    ring of ``ring_size`` slots; position [B]. Validity is
+    ``decode_validity``'s over the global slots. Returns float32
     (acc [B, H, D], m [B, H], l [B, H]): the running max of the valid
     scores, the sum of their exponentials against it, and the weighted
     sum of the values. A row with no valid slot gives m = NEG_INF, l = 0
@@ -84,8 +87,10 @@ def ref_decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q.reshape(B, KV, G, D).float()
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
     s = s.to(dt).float() * D ** -0.5
-    valid = decode_validity(position.long() - int(slot_offset), S, 0,
-                            False)[:, None, None, :]
+    off = int(slot_offset)
+    ring = ring_size is not None
+    valid = decode_validity(position, int(ring_size) if ring else off + S,
+                            window, ring)[:, None, None, off:off + S]
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(-1)
     p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)

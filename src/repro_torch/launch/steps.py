@@ -38,20 +38,25 @@ It returns its shards under the reference's out specs: the logits
 ``P(dp, "model")`` (sanitised: this rank's rows and vocabulary columns)
 and the caches; ``gather_named`` reassembles them. The layers read each
 parameter through ``models.parallel.leaf`` (gathered over "data",
-computed split over "model" where ``TP_GROUPS`` allows), the caches hold
-a range of the sequence (over "model" at a batch of 8 or more, whose
-rows split over the data axes; over data x model below that, every rank
-holding every row), and decode attention merges the ranks' partial
-softmaxes. The serve step's search is ``retrieval.router``'s mesh
+computed split over "model" where ``TP_GROUPS`` allows), the K/V caches
+hold a range of the slots, a linear cache's or a local layer's ring's
+(over "model" at a batch of 8 or more, whose rows split over the data
+axes; over data x model below that, every rank holding every row), and
+decode attention merges the ranks' partial softmaxes. The Mamba and
+RWKV-6 state splits its heads or channels over "model" and its rows as
+the K/V's; a layer gathers it whole over "model", computes it
+replicated and keeps its own part. The MoE FFN routes the global batch,
+its input rows all-gathered over the data axes where they are split
+(the reference's capacity counts every token of the batch). The serve
+step's search is ``retrieval.router``'s mesh
 search (one DB shard per data rank), its payload gather sums the ranks'
 slices of the table, and the kNN-LM mix runs on the vocabulary columns
 of the rank. Each step's collectives add their bytes and host
 milliseconds to the group's ``stats`` (``step.stats()`` after a step:
 ``data_mb`` / ``data_ms``, ``model_mb`` / ``model_ms``, ``mesh_mb`` /
-``mesh_ms`` for those over the whole mesh). Dense decoders and
-encoder-decoders with linear caches only: a hybrid, RWKV-6 or MoE model,
-or a ring (windowed) cache, raises ``NotImplementedError`` on a mesh of
-more than one position (ROADMAP Queue 1 item 25).
+``mesh_ms`` for those over the whole mesh). Every block family is
+served: dense, hybrid (Hymba), RWKV-6 and MoE decoders, with linear and
+ring caches, and dense encoder-decoders.
 """
 from __future__ import annotations
 
@@ -309,23 +314,14 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
 # serving on a mesh of ranks
 # ---------------------------------------------------------------------------
 
-def _serving_group(cfg: ModelConfig, mesh, group):
+def _serving_group(mesh, group):
     """``group`` when it spans more than one rank (checked against
-    ``mesh``), else None. Raises ``NotImplementedError`` for what the
-    sharded steps do not split."""
+    ``mesh``), else None."""
     if group is None or group.size == 1:
         return None
     if dict(mesh.shape) != dict(group.shape):
         raise ValueError(f"mesh {dict(mesh.shape)} is not the rank group's "
                          f"{group.shape}")
-    if cfg.block != "dense":
-        raise NotImplementedError(
-            f"the sharded prefill and serve steps run dense blocks; "
-            f"{cfg.name} is {cfg.block!r} (ROADMAP Queue 1 item 25)")
-    if cfg.window > 0 and "local" in cfg.pattern_classes():
-        raise NotImplementedError(
-            f"{cfg.name} has ring (windowed) caches, which the sharded "
-            "steps do not split (ROADMAP Queue 1 item 25)")
     return group
 
 
@@ -375,10 +371,11 @@ def _axes(spec, dim: int = 0) -> tuple:
 
 
 def _cache_rows(c_specs) -> tuple:
-    """The axes the caches' K/V split their batch rows over."""
+    """The axes the caches split their batch rows over: the K/V's, or
+    RWKV-6's state's (it has no K/V)."""
     keyed = keyed_specs(c_specs)
     return next((_axes(v, 1) for k, v in keyed.items()
-                 if k.endswith("/k")), ())
+                 if k.endswith(("/k", "/wkv"))), ())
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +395,7 @@ def build_prefill_step(spec: ArchSpec, shape_name: str, mesh, group=None):
     cfg = spec.model
     sh = SHAPES[shape_name]
     dp = dp_axes(mesh)
-    group = _serving_group(cfg, mesh, group)
+    group = _serving_group(mesh, group)
 
     kv_batch = "dp" if sh["global_batch"] >= 8 else None
     kv_seq = "model" if sh["global_batch"] >= 8 else ("dp", "model")
@@ -505,7 +502,7 @@ def build_serve_step(spec: ArchSpec, shape_name: str, mesh,
     dq = ccfg.ivfpq.dim
     needs_proj = cfg.d_model != dq
     retro = rag.mode == "retro" and cfg.arch == "encdec"
-    group = _serving_group(cfg, mesh, group)
+    group = _serving_group(mesh, group)
 
     kv_batch = "dp" if B >= 8 else None
     kv_seq = "model" if B >= 8 else ("dp", "model")

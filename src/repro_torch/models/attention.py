@@ -167,34 +167,38 @@ def flash_attention(q, k, v, q_positions, k_positions, causal=True,
 
 
 def prefill_cache(k_cache, v_cache, k_new, v_new, ring: bool = False,
-                  slot_offset: int = 0):
+                  slot_offset: int = 0, ring_size=None):
     """Write prefill K/V of positions 0..T-1 into [B, S, KV, D] caches,
     in place (linear: slots 0..T-1; ring: the last S positions, each at
-    slot p % S). ``slot_offset``: the linear cache is one rank's range of
-    a sequence split over ranks, its slot 0 at that position; it keeps
-    the positions in its range."""
+    slot p % S).
+
+    ``slot_offset``: the cache is one rank's slot range of a cache split
+    over ranks, its slot ``i`` being global slot ``slot_offset + i``; it
+    keeps the positions that land in its range. A ring split so has
+    ``ring_size`` slots in all (position p lands in global slot
+    p % ring_size, the last such position of the prompt kept)."""
     S = k_cache.shape[1]
     T = k_new.shape[1]
-    if slot_offset:
-        n = max(0, min(T - slot_offset, S))
-        k_cache[:, :n] = k_new[:, slot_offset:slot_offset + n].to(
-            k_cache.dtype)
-        v_cache[:, :n] = v_new[:, slot_offset:slot_offset + n].to(
-            v_cache.dtype)
+    if ring:
+        # global slot g holds the prompt's last position p = g mod R
+        R = S if ring_size is None else int(ring_size)
+        g = torch.arange(slot_offset, slot_offset + S)
+        p = (T - 1) - torch.remainder(T - 1 - g, R)
+        held = (p >= 0).nonzero()[:, 0]
+        src = p[held].to(k_new.device)
+        dst = held.to(k_new.device)
+        k_cache[:, dst] = k_new[:, src].to(k_cache.dtype)
+        v_cache[:, dst] = v_new[:, src].to(v_cache.dtype)
         return k_cache, v_cache
-    if not ring or T <= S:
-        n = min(T, S)
-        k_cache[:, :n] = k_new[:, :n].to(k_cache.dtype)
-        v_cache[:, :n] = v_new[:, :n].to(v_cache.dtype)
-        return k_cache, v_cache
-    shift = (T - S) % S
-    k_cache.copy_(torch.roll(k_new[:, T - S:].to(k_cache.dtype), shift, 1))
-    v_cache.copy_(torch.roll(v_new[:, T - S:].to(v_cache.dtype), shift, 1))
+    n = max(0, min(T - slot_offset, S))
+    k_cache[:, :n] = k_new[:, slot_offset:slot_offset + n].to(k_cache.dtype)
+    v_cache[:, :n] = v_new[:, slot_offset:slot_offset + n].to(v_cache.dtype)
     return k_cache, v_cache
 
 
 def update_cache(k_cache, v_cache, k_new, v_new, position,
-                 ring: bool = False, slots=None, slot_offset=None):
+                 ring: bool = False, slots=None, slot_offset=None,
+                 ring_size=None):
     """Write [B,Tn,KV,D] new keys/values at ``position`` ([B] or scalar),
     in place. Full cache: slot = position + t; ring: (position + t) % S.
     With ``slots``, row ``w`` of the wave goes to cache row ``slots[w]``
@@ -203,9 +207,10 @@ def update_cache(k_cache, v_cache, k_new, v_new, position,
     reference's scatter would drop such writes, an index past the end
     here is an error.
 
-    ``slot_offset`` (an int): the linear cache is one rank's range of a
-    sequence split over ranks, slot ``i`` holding position
-    ``slot_offset + i``; a position outside the range writes nothing
+    ``slot_offset`` (an int): the cache is one rank's slot range of a
+    cache split over ranks, slot ``i`` being global slot
+    ``slot_offset + i`` (of a ring of ``ring_size`` slots in all, when
+    ``ring``); a write to a global slot outside the range writes nothing
     (its slot is rewritten with what it holds, so no host sync decides
     which rows write)."""
     S = k_cache.shape[1]
@@ -214,7 +219,7 @@ def update_cache(k_cache, v_cache, k_new, v_new, position,
     pos = pos.expand(B) if pos.ndim == 0 else pos
     seq_idx = pos[:, None] + torch.arange(Tn, device=pos.device)[None, :]
     if ring:
-        seq_idx = seq_idx % S
+        seq_idx = seq_idx % (S if ring_size is None else int(ring_size))
     rows = (torch.arange(B, device=pos.device) if slots is None
             else torch.as_tensor(slots, device=pos.device).long())
     bidx = rows[:, None].expand(B, Tn)

@@ -17,7 +17,11 @@ same whole gradient from the same replicated activations). The
 reductions of gradients run in float32.
 
 Serving (the sharded prefill and serve steps, no autograd):
-``seq_shard`` says where a cache's K/V sequence is split over ranks,
+``seq_shard`` says where a cache's K/V slots are split over ranks,
+``state_shard`` where a recurrent state's heads, channels or rows are
+(the Mamba and RWKV-6 state, gathered whole for a layer computed
+replicated and cut back after), ``rows_group`` over which ranks the
+step's batch rows are split (the MoE routes the whole batch),
 ``gather_model`` / ``model_chunk`` move a small activation's heads
 between the model ranks, and ``argmax_over_model`` picks a greedy token
 from vocabulary-split logits.
@@ -173,31 +177,90 @@ def split_on(key: str, dim: int, ndim: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class SeqShard:
-    """A cache whose sequence is split over ``group``: this rank holds
-    chunk ``index`` (its slot 0 is absolute position ``index * S_local``)."""
+    """A cache whose slots are split over ``group``: this rank holds
+    chunk ``index`` (its slot 0 is global slot ``index * S_local``: that
+    absolute position in a linear cache)."""
     group: Any
     index: int
 
     def offset(self, local_len: int) -> int:
         return self.index * local_len
 
+    def where(self, local_len: int, ring: bool = False) -> dict:
+        """The cache writers' and the partial mode's keywords for this
+        rank's ``local_len`` slots: its slot offset and, for a ``ring``,
+        the ring's slots in all."""
+        return dict(ring=ring, slot_offset=self.offset(local_len),
+                    ring_size=local_len * self.group.size)
 
-def seq_shard(key: str) -> Optional[SeqShard]:
-    """Where the cache leaf ``key`` ([n, B, S, ...]) splits its sequence
-    (dim 2) over ranks in the context in force, or None (not split, or
-    no sharded serving context)."""
+
+def _cache_splits(key: str) -> list:
+    """(dim, group) of every dim of the cache leaf ``key`` split over
+    live axes in the context in force (dims of the stacked leaf), or []
+    (no split, or no sharded serving context)."""
     ctx = ctx_lib.current()
     if not sharded() or not ctx.caches or key not in ctx.caches:
+        return []
+    out = []
+    for dim, entry in enumerate(tuple(ctx.caches[key])):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        if any(ctx.size(a) > 1 for a in axes):
+            out.append((dim, ctx.group.over(axes)))
+    return out
+
+
+def seq_shard(key: str) -> Optional[SeqShard]:
+    """Where the cache leaf ``key`` ([n, B, S, ...]) splits its slots
+    (dim 2) over ranks in the context in force, or None (not split, or
+    no sharded serving context)."""
+    g = dict(_cache_splits(key)).get(2)
+    return None if g is None else SeqShard(g, g.rank)
+
+
+@dataclasses.dataclass(frozen=True)
+class StateShard:
+    """A layer's recurrent-state cache leaf ([B, ...]: rows first) split
+    over ranks: ``splits``, (dim, group) of each split dim. A layer that
+    computes the state replicated reads it ``whole`` and writes back its
+    ``mine``."""
+    splits: tuple
+
+    def whole(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        """Every split dim of the rank's ``x`` all-gathered, but the rows
+        where ``x`` already holds the ``rows`` the layer computes (its
+        activations' rows, split as the state's)."""
+        for dim, g in self.splits:
+            if dim == 0 and x.shape[0] == rows:
+                continue
+            x = g.all_gather(x.contiguous(), dim)
+        return x
+
+    def mine(self, x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """The rank's chunk of ``whole``'s ``x``, shaped as ``like``."""
+        for dim, g in self.splits:
+            n = like.shape[dim]
+            if x.shape[dim] != n:
+                x = x.narrow(dim, g.rank * n, n)
+        return x
+
+
+def state_shard(key: str) -> StateShard:
+    """Where the cache leaf ``key`` ([n, B, ...], the layer axis first)
+    splits a layer's state over ranks (no splits: whole)."""
+    return StateShard(tuple((dim - 1, g) for dim, g in _cache_splits(key)
+                            if dim))
+
+
+def rows_group():
+    """In a sharded serving step whose activations hold this rank's rows
+    of a batch split over the data axes: those axes' group, else None
+    (training, one process, or rows not split)."""
+    ctx = ctx_lib.current()
+    if not sharded() or ctx.caches is None or ctx.batch is None:
         return None
-    spec = tuple(ctx.caches[key]) + (None,) * 3
-    entry = spec[2]
-    if entry is None:
-        return None
-    axes = entry if isinstance(entry, tuple) else (entry,)
-    if all(ctx.size(a) == 1 for a in axes):
-        return None
-    g = ctx.group.over(axes)
-    return SeqShard(g, g.rank)
+    g = ctx.group.over(ctx.dp)
+    return g if g.size > 1 else None
 
 
 def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:

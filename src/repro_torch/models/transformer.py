@@ -56,14 +56,23 @@ leaves' shapes.
 
 Sharded prefill and serving (``launch.steps``' builders with a rank
 group of more than one): the leaves are read as in training, and each
-rank's caches hold a range of the sequence (``parallel.seq_shard``), all
-KV heads. A layer gathers the new token's K/V heads (and its query's)
-over the model axis, writes the K/V into the rank that owns the
-position, attends over its own slots in the decode kernel's partial mode
-and merges the ranks' float32 partials (``_split_attention``), then
-keeps its own heads for the row-split ``wo``. Prefill computes a layer's
-K/V as in training and keeps the rank's slot range; RETRO's cross K/V
-are split and read the same way, every slot valid.
+rank's caches hold a range of the slots (``parallel.seq_shard``), all KV
+heads: a linear cache's range of positions, or a local layer's range of
+its ring's slots. A layer gathers the new token's K/V heads (and its
+query's) over the model axis, writes the K/V into the rank that owns its
+slot, attends over its own slots in the decode kernel's partial mode
+(validity in the whole cache's slot space, the window applied) and
+merges the ranks' float32 partials (``_split_attention``), then keeps
+its own heads for the row-split ``wo``. Prefill computes a layer's K/V
+as in training and keeps what lands in the rank's slot range; RETRO's
+cross K/V are split and read the same way, every slot valid. The Mamba
+state of a hybrid block and RWKV-6's state (heads or channels over
+"model", rows over the data axes; ``parallel.state_shard``) are gathered
+whole over "model" for a layer that computes them replicated, and the
+rank keeps its own heads and channels after. The MoE routes the global
+batch, as the reference's capacity counts its tokens: where the rows are
+split over the data axes the FFN's input rows are all-gathered over
+them, and the rank keeps its rows of the output.
 """
 from __future__ import annotations
 
@@ -349,15 +358,15 @@ def _proj_qkv(cfg, p, x):
     return q, k, v
 
 
-def _split_attention(q, k_cache, v_cache, position, seq):
-    """Decode attention over a cache whose sequence is split over
-    ``seq.group``: this rank's partial over its slot range, every rank's
-    partial all-gathered (one [R, W, H, D + 2] float32 buffer), merged in
-    rank order. q [W, 1, H, D] (all heads) -> [W, 1, H, D] in the cache
-    dtype."""
-    off = seq.offset(k_cache.shape[1])
-    acc, m, l = decode_attention_partial(q, k_cache, v_cache, position,
-                                         slot_offset=off)
+def _split_attention(q, k_cache, v_cache, position, seq, window, where):
+    """Decode attention over a cache whose slots are split over
+    ``seq.group`` (``where``: ``seq.where``'s slot offset and ring): this
+    rank's partial over its slot range, every rank's partial all-gathered
+    (one [R, W, H, D + 2] float32 buffer), merged in rank order.
+    q [W, 1, H, D] (all heads) -> [W, 1, H, D] in the cache dtype."""
+    acc, m, l = decode_attention_partial(
+        q, k_cache, v_cache, position, slot_offset=where["slot_offset"],
+        window=window, ring_size=where["ring_size"] if where["ring"] else None)
     D = acc.shape[-1]
     buf = torch.cat([acc, m[..., None], l[..., None]], -1)[None]
     every = seq.group.all_gather(buf.contiguous(), 0)
@@ -376,8 +385,8 @@ def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
     masks follow the first (temporal) stream, as in the reference.
 
     ``seq`` (``parallel.SeqShard``): the cache holds this rank's range of
-    a sequence split over ranks, every KV head (a linear cache, no
-    window, not the pool)."""
+    the slots of a cache split over ranks (linear or ring), every KV head,
+    not the pool."""
     B, T, _ = h.shape
     tp = p["wq"].shape[-1] != cfg.n_heads * cfg.d_head
     q, k, v = _proj_qkv(cfg, p, _tp_in(h, tp))
@@ -386,20 +395,20 @@ def _self_attention(cfg, p, h, positions, mode, cache, window, slots=None,
     k = positional_rotate(k, positions, cfg, rope)
     ring = window > 0
     if seq is not None:
-        off = seq.offset(cache["k"].shape[1])
+        where = seq.where(cache["k"].shape[1], ring)
         if mode != "decode":
             out = flash_attention(q, k, v, pos1d, pos1d, causal=True,
                                   window=window)
         if tp:          # every head's K/V (and the query) on every rank
             k, v = parallel.gather_model(k, 2), parallel.gather_model(v, 2)
         if mode == "decode":
-            update_cache(cache["k"], cache["v"], k, v, pos1d[:, 0],
-                         slot_offset=off)
+            update_cache(cache["k"], cache["v"], k, v, pos1d[:, 0], **where)
             out = _split_attention(parallel.gather_model(q, 2) if tp else q,
-                                   cache["k"], cache["v"], pos1d[:, 0], seq)
+                                   cache["k"], cache["v"], pos1d[:, 0], seq,
+                                   window, where)
             out = parallel.model_chunk(out, 2) if tp else out
         else:
-            prefill_cache(cache["k"], cache["v"], k, v, slot_offset=off)
+            prefill_cache(cache["k"], cache["v"], k, v, **where)
         return _tp_out(out.reshape(B, T, -1) @ p["wo"], tp)
     if mode == "decode":
         update_cache(cache["k"], cache["v"], k, v, pos1d[:, 0],
@@ -433,7 +442,7 @@ def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None,
         last = torch.full((B,), xk.shape[1] * seq.group.size - 1,
                           dtype=torch.int32, device=hn.device)
         out = _split_attention(parallel.gather_model(q, 2) if tp else q,
-                               xk, xv, last, seq)
+                               xk, xv, last, seq, 0, seq.where(xk.shape[1]))
         out = parallel.model_chunk(out, 2) if tp else out
         return _tp_out(out.reshape(B, T, -1) @ p["xwo"], tp)
     if mode == "decode" and cache is not None and "xk" in cache:
@@ -465,12 +474,18 @@ def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None,
 
 def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """The block's FFN: the gated MLP, or the MoE over the flattened
-    tokens (the capacity follows B * T)."""
+    tokens (the capacity follows B * T, of the global batch: rows split
+    over ranks are all-gathered first, ``parallel.rows_group``)."""
     if cfg.block == "moe":
         B, T, d = x.shape
-        out = moe_lib.moe_ffn(x.reshape(B * T, d), p["router"], p["wg"],
+        rows = parallel.rows_group()
+        xs = x if rows is None else rows.all_gather(x.contiguous(), 0)
+        out = moe_lib.moe_ffn(xs.reshape(-1, d), p["router"], p["wg"],
                               p["wu"], p["wd"], cfg.top_k, act=cfg.act)
-        return out.reshape(B, T, d).to(x.dtype)
+        out = out.reshape(-1, T, d)
+        if rows is not None:
+            out = out[rows.rank * B:(rows.rank + 1) * B]
+        return out.to(x.dtype)
     return _mlp(cfg, p, x)
 
 
@@ -516,14 +531,31 @@ def _residual_norm(cfg: ModelConfig, h: torch.Tensor, y: torch.Tensor,
     return add_norm(h, y, scale, cfg.norm_eps)
 
 
+def _state_in(cache: Params, keys, slots, state, rows: int) -> list:
+    """The state rows of ``cache[key]`` for a layer computing ``rows``
+    rows, each leaf split over ranks (``state``: leaf name -> its
+    ``parallel.StateShard``) gathered whole."""
+    return [state[k].whole(x, rows) if k in state else x
+            for k, x in zip(keys, _rows(cache, keys, slots))]
+
+
+def _state_out(cache: Params, new: Dict[str, torch.Tensor], slots,
+               state) -> None:
+    """Write a layer's new state back: the rank's chunk of each split
+    leaf."""
+    _write_rows(cache, {k: state[k].mine(x, cache[k]) if k in state else x
+                        for k, x in new.items()}, slots)
+
+
 def _rwkv6_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
-                 cache: Optional[Params], slots) -> torch.Tensor:
+                 cache: Optional[Params], slots, state) -> torch.Tensor:
     """RWKV-6: time mix then channel mix, each pre-normed and residual;
     the state starts from the cache's rows (zeros without a cache) and
     goes back into them."""
     rp = ssm_lib.RWKV6Params(**{f: p[f] for f in ssm_lib.RWKV6Params._fields})
     if cache is not None:
-        st = ssm_lib.RWKVState(*_rows(cache, ("wkv", "st", "sc"), slots))
+        st = ssm_lib.RWKVState(*_state_in(cache, ("wkv", "st", "sc"), slots,
+                                          state, h.shape[0]))
     else:
         st = ssm_lib.rwkv6_init_state(h.shape[0], cfg.n_heads, cfg.d_head,
                                       cfg.d_model, h.dtype, h.device)
@@ -532,35 +564,37 @@ def _rwkv6_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
     h, hn = _residual_norm(cfg, h, y, p["ln2"])
     y2, sh_c = ssm_lib.rwkv6_channel_mix(rp, hn, st.shift_c)
     if cache is not None:
-        _write_rows(cache, dict(wkv=wkv, st=sh_t, sc=sh_c), slots)
+        _state_out(cache, dict(wkv=wkv, st=sh_t, sc=sh_c), slots, state)
     return h + y2
 
 
 def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
                 positions: torch.Tensor, mode: str, cache: Optional[Params],
                 window: int, slots=None, kv_len=None, rope=None,
-                enc_states=None, seq=None) -> torch.Tensor:
+                enc_states=None, seq=None, state=None) -> torch.Tensor:
     """One layer: pre-norm self-attention (a hybrid block also runs the
     normed input through the Mamba head and averages the two normed
     outputs), the cross-attention when the layer has one and
     ``enc_states`` are given, the FFN (gated MLP or MoE). RWKV-6 layers
     are ``_rwkv6_block``. ``seq``: cache leaf name -> its
-    ``parallel.SeqShard`` (a sequence split over ranks)."""
+    ``parallel.SeqShard`` (slots split over ranks); ``state``: cache leaf
+    name -> its ``parallel.StateShard`` (a recurrent state split over
+    ranks)."""
+    seq, state = seq or {}, state or {}
     if cfg.block == "rwkv6":
-        return _rwkv6_block(cfg, p, h, cache, slots)
-    seq = seq or {}
+        return _rwkv6_block(cfg, p, h, cache, slots, state)
     hn = rms_norm(h, p["ln1"], cfg.norm_eps)
     attn_out = _self_attention(cfg, p, hn, positions, mode, cache, window,
                                slots=slots, kv_len=kv_len, rope=rope,
                                seq=seq.get("k"))
     if cfg.block == "hybrid":
-        state = (None if cache is None
-                 else tuple(_rows(cache, ("ssm", "conv"), slots)))
-        ssm_out, (ssm_s, conv_s) = ssm_lib.mamba_scan(p["mamba"], hn, state)
+        prev = (None if cache is None else tuple(_state_in(
+            cache, ("ssm", "conv"), slots, state, hn.shape[0])))
+        ssm_out, (ssm_s, conv_s) = ssm_lib.mamba_scan(p["mamba"], hn, prev)
         attn_out = 0.5 * (rms_norm(attn_out, p["ln_attn_out"], cfg.norm_eps)
                           + rms_norm(ssm_out, p["ln_ssm_out"], cfg.norm_eps))
         if cache is not None:
-            _write_rows(cache, dict(ssm=ssm_s, conv=conv_s), slots)
+            _state_out(cache, dict(ssm=ssm_s, conv=conv_s), slots, state)
     if enc_states is not None and "xwq" in p:
         h, hx = _residual_norm(cfg, h, attn_out, p["lnx"])
         attn_out = _cross_attention(cfg, p, hx, enc_states, mode, cache,
@@ -595,12 +629,16 @@ def apply_stack(cfg: ModelConfig, classes_params: Params, h: torch.Tensor,
                      {name: a[idx]
                       for name, a in caches["classes"][cls].items()})
             window = cfg.window if cls == "local" else 0
-            seq = None if cache is None or not parallel.sharded() else {
-                name: parallel.seq_shard(f"classes/{cls}/{name}")
-                for name in ("k", "xk") if name in cache}
+            seq = state = None
+            if cache is not None and parallel.sharded():
+                seq = {name: parallel.seq_shard(f"classes/{cls}/{name}")
+                       for name in ("k", "xk") if name in cache}
+                state = {name: parallel.state_shard(f"classes/{cls}/{name}")
+                         for name in ("ssm", "conv", "wkv", "st", "sc")
+                         if name in cache}
             h = apply_block(cfg, p, h, positions, mode, cache, window,
                             slots=slots, kv_len=kv_len, rope=rope,
-                            enc_states=enc_states, seq=seq)
+                            enc_states=enc_states, seq=seq, state=state)
             ctx_lib.constrain(h, "dp", None, None,
                               full=(None, None, cfg.d_model))
         return h

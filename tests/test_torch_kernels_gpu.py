@@ -1557,12 +1557,13 @@ def test_shared_scan_above_shared_memory(dev, q):
 # decode attention's partial mode: a sequence split over ranks
 # ---------------------------------------------------------------------------
 
-def _check_partial(dev, g, H, KV, D, S, R, pos, tile_n=None):
-    """The cache's S slots cut into R ranges, each attended by one launch
-    in partial mode with its slot offset, merged by ``merge_partials``:
-    against a float32 oracle over the whole cache (2^-8 of the output
-    range) and the bf16-rounding plain version (2^-5). Returns each
-    range's l."""
+def _check_partial(dev, g, H, KV, D, S, R, pos, tile_n=None, window=0,
+                   ring=False):
+    """The cache's S slots (a linear cache, or a ring of S) cut into R
+    ranges, each attended by one launch in partial mode with its slot
+    offset, merged by ``merge_partials``: against a float32 oracle over
+    the whole cache (2^-8 of the output range) and the bf16-rounding
+    plain version (2^-5). Returns each range's l."""
     from repro_torch.kernels.decode_attn.ref import merge_partials
     W = pos.shape[0]
     k = torch.randn((W, S, KV, D), generator=g, device=dev).bfloat16()
@@ -1576,15 +1577,17 @@ def _check_partial(dev, g, H, KV, D, S, R, pos, tile_n=None):
         kr = k[:, r * n:(r + 1) * n].contiguous()
         vr = v[:, r * n:(r + 1) * n].contiguous()
         parts.append(da.decode_attention_partial(
-            q, kr, vr, pos, slot_offset=r * n, spec=spec))
+            q, kr, vr, pos, slot_offset=r * n, window=window,
+            ring_size=S if ring else None, spec=spec))
     torch.cuda.synchronize()
     assert da.PARTIAL_KERNEL.launches == before + R
     acc, m, l = (torch.stack(t) for t in zip(*parts))
     assert bool(torch.isfinite(acc).all() and torch.isfinite(m).all())
     out = merge_partials(acc, m, l)
     exact = da.ref_decode_attention(q.float(), k.float(), v.float(),
-                                    pos)[:, 0]
-    plain = da.ref_decode_attention(q, k, v, pos)[:, 0]
+                                    pos, window=window, ring=ring)[:, 0]
+    plain = da.ref_decode_attention(q, k, v, pos, window=window,
+                                    ring=ring)[:, 0]
     scale = exact.abs().max().item()
     assert (out - exact).abs().max().item() <= 2 ** -8 * scale + 1e-5
     assert (out - plain.float()).abs().max().item() <= 2 ** -5 * scale + 1e-3
@@ -1617,6 +1620,23 @@ def test_decode_attention_partial_splits(dev, tile_n):
     _check_partial(dev, g, 8, 8, 64, 400, 2, pos, tile_n=tile_n)
 
 
+@pytest.mark.parametrize("window", [1024, 300])
+@pytest.mark.parametrize("R", [2, 4])
+@pytest.mark.parametrize("H,KV,D", [(25, 5, 64), (8, 4, 256)])
+def test_decode_attention_partial_ring(dev, H, KV, D, R, window):
+    """Hymba's and Gemma-3's heads over a ring of 1024 slots cut in R
+    ranges (a local layer's ring on a mesh), with their window (1024) and
+    a shorter one: rows whose ring has wrapped, rows not yet full, one at
+    position 0 (one valid slot: the other ranges weigh nothing)."""
+    g = _gen(dev, 100 + R + window)
+    pos = torch.randint(0, 3000, (12,), generator=g, device=dev).int()
+    pos[0], pos[1], pos[2], pos[3] = 0, 700, 1023, 1040
+    l = _check_partial(dev, g, H, KV, D, 1024, R, pos, window=window,
+                       ring=True)
+    assert bool((l[1:, 0] == 0).all())
+    assert bool((l.sum(0) > 0).all())
+
+
 # ---------------------------------------------------------------------------
 # the sharded serve steps on the card
 # ---------------------------------------------------------------------------
@@ -1634,6 +1654,20 @@ def test_sharded_serve_steps_on_the_card_match_the_cpu(dev, tmp_path,
     (``ivfpq.id_swaps``), and rank 0's launches: decode attention's
     partial mode once a layer a step, the IVF probe and the fused scan
     once a step."""
+    _sharded_steps_on_the_card(dev, tmp_path, monkeypatch, "dec_s")
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "rwkv6_3b",
+                                  "phi3_5_moe_42b"])
+def test_sharded_nondense_steps_on_the_card_match_the_cpu(
+        dev, tmp_path, monkeypatch, arch):
+    """As the Dec-S test, for reduced Hymba (a linear and two ring
+    caches, the Mamba state split over "model"), RWKV-6 (no decode
+    attention) and Phi-3.5-MoE (the MoE over the global batch)."""
+    _sharded_steps_on_the_card(dev, tmp_path, monkeypatch, arch)
+
+
+def _sharded_steps_on_the_card(dev, tmp_path, monkeypatch, arch):
     import os
 
     import torch_serve_ranks
@@ -1644,7 +1678,7 @@ def test_sharded_serve_steps_on_the_card_match_the_cpu(dev, tmp_path,
     from repro_torch.models import transformer as tf
     from repro_torch.serve import DatastoreBuilder
 
-    spec = torch_serve_ranks.spec_of("dec_s", "bfloat16")
+    spec = torch_serve_ranks.spec_of(arch, "bfloat16")
     cfg = spec.model
     B, S, T0 = 8, 32, 16
     db = dict(n_vectors=4096, nlist=16, nprobe=4)
@@ -1659,7 +1693,7 @@ def test_sharded_serve_steps_on_the_card_match_the_cpu(dev, tmp_path,
         return torch.randint(0, cfg.vocab_size, shape, generator=g,
                              dtype=torch.int32)
     case = dict(
-        arch="dec_s", dtype="bfloat16",
+        arch=arch, dtype="bfloat16",
         params=tf.init_params(torch.Generator().manual_seed(0), cfg),
         shapes=dict(prefill=dict(seq_len=S, global_batch=B),
                     decode=dict(seq_len=S, global_batch=B)),
@@ -1678,9 +1712,10 @@ def test_sharded_serve_steps_on_the_card_match_the_cpu(dev, tmp_path,
               [str(tmp_path / "cases.pt"), str(tmp_path)], device="cuda",
               timeout_s=600, model=2)
     card = torch.load(tmp_path / "result.pt", weights_only=False)[0]
+    want = {"decode_attn_partial_launch": tf.attention_layers(cfg) * 3,
+            "ivf_scan_launch": 3, "chamvs_scan_launch": 3}
     assert {k: v for k, v in card["launches"].items() if v} == {
-        "decode_attn_partial_launch": cfg.n_layers * 3,
-        "ivf_scan_launch": 3, "chamvs_scan_launch": 3}
+        k: v for k, v in want.items() if v}
     cpu = torch_serve_ranks.run_case(
         dp.Group.single("cpu"), case, queries=card["queries"],
         mesh=Mesh(("data", "model"), (1, 1), ("cpu",)))

@@ -23,13 +23,18 @@ their parts:
     ``merge_partials``, against ``ref_decode_attention`` over the whole
     cache at M 2 and 4, grouped (4:2) and not (4:4), with ragged
     positions and ranges holding no valid slot (finite, l = 0): within
-    1e-6;
+    1e-6; the same over a ring cut into 2 and 4 ranges, with and without
+    a window, rows whose ring has wrapped, is not yet full, or holds one
+    valid slot;
   * ``update_cache`` / ``prefill_cache`` with a slot offset write only
-    the rank's range;
+    the rank's range, of a linear cache and of a ring (a prompt shorter
+    than the ring and one that wraps it);
+  * the MoE FFN with its rows split over 2 and 4 data ranks (gathered,
+    routed as one batch, the rank's rows kept) equals the one-process
+    FFN over the whole batch bit for bit where the capacity drops
+    assignments, which routing each rank's rows alone does not;
   * the vocabulary-split kNN-LM mix and greedy argmax against the whole
-    mix;
-  * on a 1 x 2 mesh the builders raise ``NotImplementedError`` for
-    Hymba (a hybrid block) and for Gemma-3's ring caches.
+    mix.
 """
 import os
 import pathlib
@@ -47,8 +52,9 @@ from repro_torch.kernels.decode_attn import ops as da
 from repro_torch.kernels.decode_attn.ref import merge_partials
 from repro_torch.launch import dp
 from repro_torch.launch import specs as specs_lib
-from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import Mesh, make_mesh_for
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import ctx as ctx_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import prefill_cache, update_cache
 from repro_torch.retrieval.service import search_stacked
@@ -224,6 +230,107 @@ def test_partial_attention_merge_equals_whole(R, KV):
     assert (out - want).abs().max().item() <= 1e-6
 
 
+@pytest.mark.parametrize("window", [0, 6])
+@pytest.mark.parametrize("R", [2, 4])
+def test_partial_attention_ring_merge_equals_whole(R, window):
+    """A ring of 16 slots cut into ``R`` ranges: rows whose ring has
+    wrapped (positions 20, 37, 50), is not yet full (3, 9, 15) or holds
+    one valid slot (0)."""
+    g = torch.Generator().manual_seed(R + window)
+    Sc, D, H, KV = 16, 16, 4, 2
+    pos = torch.tensor([20, 37, 50, 3, 9, 15, 0])
+    W = pos.shape[0]
+    q = torch.randn(W, 1, H, D, generator=g)
+    k = torch.randn(W, Sc, KV, D, generator=g)
+    v = torch.randn(W, Sc, KV, D, generator=g)
+    n = Sc // R
+    parts = [da.decode_attention_partial(
+        q, k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n], pos,
+        slot_offset=r * n, window=window, ring_size=Sc) for r in range(R)]
+    acc, m, l = (torch.stack(t) for t in zip(*parts))
+    assert bool(torch.isfinite(acc).all() and torch.isfinite(m).all())
+    empty = l == 0
+    assert int(empty[:, -1].all(-1).sum()) == R - 1   # position 0
+    assert bool((acc[empty] == 0).all())
+    out = merge_partials(acc, m, l)
+    want = da.ref_decode_attention(q, k, v, pos, window=window,
+                                   ring=True)[:, 0]
+    assert (out - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("T", [5, 23])
+@pytest.mark.parametrize("R", [2, 4])
+def test_ring_writers_keep_the_rank_range(R, T):
+    """Each of ``R`` ranks' ranges of a ring of 8 slots, written by
+    ``prefill_cache`` (a prompt of ``T``) and ``update_cache`` (two more
+    steps), equals its slice of the whole ring written the same way."""
+    Sc, n = 8, 8 // R
+    new = torch.arange(2 * T * 2, dtype=torch.float32).view(2, T, 1, 2) + 1
+    whole_k, whole_v = torch.zeros(2, Sc, 1, 2), torch.zeros(2, Sc, 1, 2)
+    prefill_cache(whole_k, whole_v, new, new, ring=True)
+    mine = [(torch.zeros(2, n, 1, 2), torch.zeros(2, n, 1, 2))
+            for _ in range(R)]
+    for r, (kc, vc) in enumerate(mine):
+        prefill_cache(kc, vc, new, new, ring=True, slot_offset=r * n,
+                      ring_size=Sc)
+    for step in range(2):
+        tok = torch.full((2, 1, 1, 2), -1.0 - step)
+        pos = torch.tensor([T + step, T + 3 + step])
+        update_cache(whole_k, whole_v, tok, tok, pos, ring=True)
+        for r, (kc, vc) in enumerate(mine):
+            update_cache(kc, vc, tok, tok, pos, ring=True, slot_offset=r * n,
+                         ring_size=Sc)
+    for r, (kc, vc) in enumerate(mine):
+        assert torch.equal(kc, whole_k[:, r * n:(r + 1) * n])
+        assert torch.equal(vc, whole_v[:, r * n:(r + 1) * n])
+
+
+class _RowGroup:
+    """Rank ``rank`` of ``size`` data ranks whose all-gather returns the
+    whole batch (the one-process stand-in of the rows' group)."""
+
+    def __init__(self, rank, size, whole):
+        self.rank, self.size, self.whole = rank, size, whole
+        self.shape = {"data": size, "model": 1}
+
+    def over(self, axes):
+        return self
+
+    def all_gather(self, x, dim):
+        n = self.whole.shape[0] // self.size
+        assert torch.equal(x, self.whole[self.rank * n:(self.rank + 1) * n])
+        return self.whole.clone()
+
+
+@pytest.mark.parametrize("R", [2, 4])
+def test_moe_rows_split_over_data_equal_the_whole_batch(R):
+    import torch_serve_ranks
+    cfg = torch_serve_ranks.spec_of("phi3_5_moe_42b").model
+    p = tf._layer_params(cfg, "classes/global", tf.init_params(
+        torch.Generator().manual_seed(1), cfg)["classes"]["global"], 0)
+    g = torch.Generator().manual_seed(R)
+    B, T = 8, 16
+    # tokens near one point: the routing piles up on a few experts
+    x = torch.randn(1, 1, cfg.d_model, generator=g) + 0.3 * torch.randn(
+        B, T, cfg.d_model, generator=g)
+    E, k = cfg.n_experts, cfg.top_k
+    _, ids = moe_lib.route_topk(x.reshape(B * T, -1), p["router"], k)
+    assert int(torch.bincount(ids.reshape(-1), minlength=E).max()) > \
+        moe_lib.capacity(B * T, E, k)
+    whole = tf._ffn(cfg, p, x)
+    n = B // R
+    parts, alone = [], []
+    for r in range(R):
+        rows = x[r * n:(r + 1) * n]
+        with ctx_lib.activation_sharding(
+                ("data",), "model", group=_RowGroup(r, R, x), specs={},
+                batch=B, caches={}):
+            parts.append(tf._ffn(cfg, p, rows))
+        alone.append(tf._ffn(cfg, p, rows))
+    assert torch.equal(torch.cat(parts), whole)
+    assert not torch.equal(torch.cat(alone), whole)
+
+
 def test_cache_writers_keep_the_rank_range():
     k = torch.zeros(3, 8, 1, 2)
     v = torch.zeros(3, 8, 1, 2)
@@ -260,16 +367,3 @@ def test_split_knnlm_mix_and_argmax_equal_the_whole():
     from repro_torch.models import parallel
     assert torch.equal(parallel.argmax_over_model(whole),
                        whole.argmax(-1, keepdim=True).int())
-
-
-@pytest.mark.parametrize("arch", ["hymba_1_5b", "gemma3_4b"])
-def test_mesh_refuses_what_it_does_not_split(arch):
-    import dataclasses
-    spec = get_arch(arch)
-    spec = dataclasses.replace(spec, model=spec.reduced)
-    group = dp.Group(0, 2, "cpu", model=2)
-    mesh = make_mesh_for(["cpu", "cpu"], data=1, model=2)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        steps_lib.build_prefill_step(spec, "prefill_32k", mesh, group=group)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        steps_lib.build_serve_step(spec, "decode_32k", mesh, group=group)

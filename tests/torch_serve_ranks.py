@@ -17,6 +17,7 @@ specs): each step's logits, each search's query and (dists, ids), the
 final caches, and this rank's held bytes, collective stats and kernel
 launches.
 """
+import contextlib
 import dataclasses
 import pathlib
 
@@ -42,13 +43,35 @@ def n_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree))
 
 
+@contextlib.contextmanager
+def _case_shapes(case):
+    """The case's shapes registered in ``SHAPES`` as ``prefill_case`` /
+    ``decode_case`` while it runs (a test process's other tests walk
+    ``SHAPES``)."""
+    names = {"prefill_case": "prefill", "decode_case": "decode"}
+    saved = {name: SHAPES.get(name) for name in names}
+    for name, kind in names.items():
+        SHAPES[name] = dict(case["shapes"][kind], kind=kind)
+    try:
+        yield
+    finally:
+        for name, old in saved.items():
+            if old is None:
+                SHAPES.pop(name, None)
+            else:
+                SHAPES[name] = old
+
+
 def run_case(group, case, mesh=None, queries=None):
     """The case on ``group`` (a one-rank group runs the one-position
     steps); returns whole tensors on every rank. ``queries``: one per
     serve step, searched instead of the step's own (to hold one device's
     steps to another's, whose hidden states round apart)."""
-    SHAPES["prefill_case"] = dict(case["shapes"]["prefill"], kind="prefill")
-    SHAPES["decode_case"] = dict(case["shapes"]["decode"], kind="decode")
+    with _case_shapes(case):
+        return _run_case(group, case, mesh, queries)
+
+
+def _run_case(group, case, mesh, queries):
     spec = spec_of(case["arch"], case.get("dtype", "float32"))
     cfg = spec.model
     mesh = mesh or group.mesh
