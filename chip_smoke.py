@@ -105,7 +105,7 @@ failure raises, so the run exits non-zero):
   6. the paper's other three RALMs (paper.*), after Dec-S's engines and
      index are freed, each at full published width with seeded weights,
      one after the other: Dec-L (24 of its 96 layers, d_model 1024,
-     kNN-LM), EncDec-S and EncDec-L (2 encoder layers + 24 or 72 of 96
+     kNN-LM), EncDec-S and EncDec-L (2 encoder layers + 24 or 48 of 96
      decoder layers, RETRO at K 10, chunks of 64 tokens; xwv and xwo
      scaled by RETRO_XSCALE so that retrieval moves tokens). Each builds
      its own index from its own hidden states over Dec-S's corpus
@@ -166,16 +166,16 @@ failure raises, so the run exits non-zero):
      call): train.dec_s trains Dec-S at full width (101.2M parameters,
      bf16, seeded weights) on a seeded Markov-chain corpus read through
      MemmapTokens (400 windows of 513 tokens under build/train/): seq
-     512, global batch 16 in 2 micro-batches, remat, AdamW, 20 steps
-     through the TrainController with a checkpoint every 5; it prints
-     the median step ms over steps 5-20, tokens/s, the share of the
+     512, global batch 16 in 2 micro-batches, remat, AdamW, 12 steps
+     through the TrainController with a checkpoint every 4; it prints
+     the median step ms over steps 5-12, tokens/s, the share of the
      bf16 dense peak (989 TFLOP/s) that 6 x N x tokens a step reaches,
      peak memory, a synchronous checkpoint's write ms, and the losses,
      which must fall. train.dec_s.resume runs it again crashed after
-     step 10 (SimulatedFailure) and resumed from the checkpoint with
+     step 8 (SimulatedFailure) and resumed from the checkpoint with
      fresh weights: every loss must equal the straight run's bit for
      bit. train.encdec_s runs examples.train_retro --full (EncDec-S,
-     seq 512, batch 64, 640 encoder rows; steps cut from 200 to 8),
+     seq 512, batch 64, 640 encoder rows; steps cut from 200 to 6),
      whose loss must fall. train.dp trains Dec-S on 2 data-parallel
      ranks sharing the card (gloo, staged through host memory) for 4
      steps with a checkpoint at 3; each of the first 3 losses must be
@@ -189,6 +189,16 @@ failure raises, so the run exits non-zero):
      rank's resident parameter and moment bytes must equal the dry
      run's count for one device of the mesh; it prints them beside one
      rank's, the step ms and each axis's collective MB and ms a step.
+     train.ep.f32 and train.ep.bf16 (in the same launch of the ranks)
+     train Phi-3.5-MoE at full width on that mesh with expert
+     parallelism (8 experts a data rank, half of each expert's f a
+     model rank), 3 steps of 8 x 512 tokens from 4 token ids: float32
+     at 1 layer and bf16 at 2 of 32 layers; resident bytes must equal
+     the dry run's, the one-process run of the same global batch must
+     drop assignments past the capacity, and the float32 run's losses
+     must be within 1e-3 of its (the bf16 run's gaps are printed: there
+     the two runs' routing parts at near ties); it prints step ms, each
+     axis's collective MB and ms and each rank's peak memory.
      train.flash_attn holds the FA2
      autograd Function at Dec-S's and EncDec-S's training shapes
      against autograd through the plain masked softmax in float32 (out,
@@ -2787,16 +2797,16 @@ REFERENCE_PARAMS = {"dec_l": 1260732416, "encdec_s": 132661248,
 # rule's quarter admits one, EncDec-L's for 16 steps (two retrievals).
 # Every model generates ``short_steps`` tokens a row (EncDec-L's four
 # runs of 64 took 66.8 s), Dec-L runs ``n_layers`` 24 of its 96 layers
-# (its phase took 66.7 s at 96, 25.4-27.2 s at 48) and EncDec-L 72 of
-# its 96 decoder layers (125.9-135.4 s at 96, 62.3-65.9 s at 48), for
-# the script's time.
+# (its phase took 66.7 s at 96, 25.4-27.2 s at 48) and EncDec-L 48 of
+# its 96 decoder layers (125.9-135.4 s at 96, 99.7 s at 72, 62.3-65.9 s
+# at 48), for the script's time.
 PAPER = (("dec_l", dict(m=64, n_docs=512, intervals=(1,), kernels=True,
                         profile_steps=4, n_layers=24)),
          ("encdec_s", dict(m=32, n_docs=2048, intervals=(8, 64),
                            profile_steps=3,
                            twin=dict(per_seq_requests=4))),
          ("encdec_l", dict(m=64, n_docs=2048, intervals=(8,),
-                           profile_steps=3, n_layers=72,
+                           profile_steps=3, n_layers=48,
                            twin=dict(per_seq_requests=4, steps=16))))
 # The seeded cross-attention is too weak for retrieval to move a greedy
 # token; xwv and xwo are scaled by this factor so that it does (the
@@ -3449,16 +3459,32 @@ def nondense_phases(torch, dev, sizes, report):
 # ---------------------------------------------------------------------------
 
 BF16_FLOPS = 989e12              # H100 SXM bf16 dense, tensor cores
-# 20 steps, crashed after step 10 and resumed from its checkpoint (cut
-# for the script's time from 30 steps crashed after 20)
-TRAIN_DEC_S = dict(seq_len=512, batch=16, microbatches=2, steps=20,
-                   ckpt_every=5, fail_at=10, windows=400, lr=1e-3,
+# 12 steps, crashed after step 8 and resumed from its checkpoint (cut
+# for the script's time from 30 steps crashed after 20, then 20 after 10)
+TRAIN_DEC_S = dict(seq_len=512, batch=16, microbatches=2, steps=12,
+                   ckpt_every=4, fail_at=8, windows=400, lr=1e-3,
                    warmup=5)
-TRAIN_RETRO_STEPS = 8            # examples.train_retro --full, cut from 200
+TRAIN_RETRO_STEPS = 6            # examples.train_retro --full, cut from 200
 TRAIN_DP = dict(ranks=2, steps=3, seq_len=512, batch=8)
 TRAIN_TP = dict(data=2, model=2, steps=3, seq_len=512, batch=8)
+#: Phi-3.5-MoE at full width (d 4096, 32:8 heads of 128, 16 experts top-2,
+#: d_ff 6400, vocab 32 064, bf16 moments) on 2 x 2 ranks: each holds 8
+#: experts and half of each expert's f. Batches of 8 x 512 from a corpus
+#: of 4 token ids, so that the routing piles up and the global batch
+#: drops assignments; 3 steps.
+TRAIN_EP = dict(arch="phi3_5_moe_42b", data=2, model=2, steps=3,
+                seq_len=512, batch=8, n_ids=4, lr=1e-4, warmup=1)
+#: its two runs, in one launch of the ranks: "bf16", the model's dtype,
+#: cut to 2 of 32 layers (the one-process run holds the same model and
+#: its moments on the card after the ranks exit); "f32", float32
+#: parameters at 1 layer, which the one-process run holds to 1e-3 (in
+#: bf16 the two runs' routing parts at near ties: a few of 4096 tokens
+#: move the mean loss by ~1.5e-3 at step 0, and Adam's first, sign-like
+#: update carries it on)
+TRAIN_EP_RUNS = {"f32": dict(n_layers=1, dtype="float32"),
+                 "bf16": dict(n_layers=2)}
 #: the training phases that run (tools/model_phases.py narrows them)
-TRAIN_PHASES = ("dec_s", "encdec_s", "dp", "tp", "flash_attn")
+TRAIN_PHASES = ("dec_s", "encdec_s", "dp", "tp", "ep", "flash_attn")
 FLASH_SHAPES = (   # name, B, T, S, H, KV, causal: the training shapes
     ("dec_s", 8, 512, 512, 8, 8, True),            # a micro-batch of 8
     ("encdec_s.cross", 64, 512, 640, 8, 8, False),
@@ -3672,18 +3698,13 @@ def train_tp(torch, dev, root, card):
     o = TRAIN_TP
     D, M = o["data"], o["model"]
     t0 = time.perf_counter()
-    args = ["--arch", "dec_s", "--seq-len", str(o["seq_len"]),
-            "--batch", str(o["batch"]), "--steps", str(o["steps"] + 1),
-            "--ckpt-every", str(o["steps"]), "--ckpt-dir", str(root / "tp"),
-            "--device", dev.type, "--data", str(D), "--model", str(M)]
-    lines = dp.launch(D * M, "repro_torch.launch.train:run", args,
-                      device=dev.type, timeout_s=600, model=M)
+    args = tp_args(dev, root)
+    lines, t_ranks = train_mesh(dev, root)
     ranks = {m["step"]: m for m in (json.loads(ln.split(" ", 3)[3])
                                     for ln in lines
                                     if ln.startswith("[train] step "))}
     held = json.loads(next(ln for ln in lines if ln.startswith(
         "[train] resident ")).split(" ", 2)[2])
-    t_ranks = time.perf_counter() - t0
     ns = train.parser().parse_args(args)
     cfg, ocfg, params, opt, data = train.build(ns, dev)
     mesh = make_mesh_for([str(dev)] * (D * M), data=D, model=M)
@@ -3724,6 +3745,276 @@ def train_tp(torch, dev, root, card):
         data_mb=f"{ranks[0]['data_mb']:.1f}", data_ms=per_step("data_ms"),
         model_mb=f"{ranks[0]['model_mb']:.1f}",
         model_ms=per_step("model_ms"))
+
+
+def tp_args(dev, root):
+    """``train.tp``'s launcher arguments."""
+    o = TRAIN_TP
+    return ["--arch", "dec_s", "--seq-len", str(o["seq_len"]),
+            "--batch", str(o["batch"]), "--steps", str(o["steps"] + 1),
+            "--ckpt-every", str(o["steps"]), "--ckpt-dir", str(root / "tp"),
+            "--device", dev.type, "--data", str(o["data"]),
+            "--model", str(o["model"])]
+
+
+_TRAIN_MESH = {}
+
+
+def train_mesh(dev, root):
+    """One launch of the 2 x 2 ranks for ``train.tp`` (the launcher's
+    ``run``) and ``train.ep`` (``ep_rank``), those of the two in
+    ``TRAIN_PHASES``, in turn (``train_rank``); the first caller
+    launches, the other reads the same run. Returns (rank 0's lines,
+    the launch's seconds)."""
+    from repro_torch.launch import dp
+
+    if "lines" not in _TRAIN_MESH:
+        D, M = TRAIN_TP["data"], TRAIN_TP["model"]
+        assert (D, M) == (TRAIN_EP["data"], TRAIN_EP["model"])
+        cases = []
+        if "tp" in TRAIN_PHASES:
+            cases.append(json.dumps(dict(kind="tp",
+                                         args=tp_args(dev, root))))
+        if "ep" in TRAIN_PHASES:
+            cases += [json.dumps(dict(kind="ep",
+                                      root=str(ep_prepare(root, name))))
+                      for name in TRAIN_EP_RUNS]
+        t0 = time.perf_counter()
+        _TRAIN_MESH["lines"] = dp.launch(D * M, "chip_smoke:train_rank",
+                                         cases, device=dev.type,
+                                         timeout_s=600, model=M)
+        _TRAIN_MESH["s"] = time.perf_counter() - t0
+    return _TRAIN_MESH["lines"], _TRAIN_MESH["s"]
+
+
+def train_rank(group, argv):
+    """One rank of ``train.tp`` and ``train.ep`` (``launch.dp``'s entry
+    ``chip_smoke:train_rank``; argv: one JSON case each), each case in
+    turn."""
+    import gc
+
+    import torch
+    from repro_torch.launch import train
+
+    for arg in argv:
+        case = json.loads(arg)
+        if case["kind"] == "tp":
+            train.run(group, case["args"])
+        else:
+            ep_rank(group, pathlib.Path(case["root"]))
+        gc.collect()
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def ep_setup(root, o):
+    """(cfg, AdamW config, data source) of ``train.ep``: ``o``'s arch
+    (``reduced``: its reduced widths, for a rehearsal) cut to
+    ``n_layers``, bf16 moments, ``MemmapTokens`` over the case's
+    corpus."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, MemmapTokens
+    from repro_torch.optim import adamw
+
+    spec = get_arch(o["arch"])
+    cfg = spec.reduced if o.get("reduced") else spec.model
+    cfg = dataclasses.replace(cfg, n_layers=o["n_layers"],
+                              dtype=o.get("dtype", cfg.dtype))
+    ocfg = adamw.AdamWConfig(lr=o["lr"], warmup_steps=o["warmup"],
+                             total_steps=o["steps"],
+                             state_dtype="bfloat16")
+    data = MemmapTokens(root / "corpus.bin", DataConfig(
+        seq_len=o["seq_len"], global_batch=o["batch"],
+        vocab_size=cfg.vocab_size))
+    return cfg, ocfg, data
+
+
+def ep_prepare(root, name):
+    """The directory of ``train.ep``'s run ``name``: its case (``TRAIN_EP``
+    with the run's ``TRAIN_EP_RUNS`` entry) and its corpus."""
+    from repro_torch.data.pipeline import MemmapTokens
+
+    o = dict(TRAIN_EP, **TRAIN_EP_RUNS[name])
+    ep = root / f"ep_{name}"
+    ep.mkdir(exist_ok=True)
+    (ep / "case.json").write_text(json.dumps(o))
+    MemmapTokens.write_corpus(ep / "corpus.bin", train_corpus(
+        (o["steps"] * o["batch"] + 1) * (o["seq_len"] + 1), o["n_ids"]))
+    return ep
+
+
+def ep_rank(group, root):
+    """One rank of ``train.ep``: the sharded step (expert parallelism over
+    "data", each expert's f over "model") on the rank's shards of the
+    seeded weights (``put_named``; moments made on the shards) and its
+    rows of each batch. Writes ``rank<r>.json``: resident parameter and
+    moment bytes, each step's metrics and ms, peak memory."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import put_named
+    from repro_torch.optim import adamw
+
+    o = json.loads((root / "case.json").read_text())
+    t_case = time.perf_counter()
+    cfg, ocfg, data = ep_setup(root, o)
+    dev = group.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+    step = build_train_step(cfg, ocfg, group=group)
+    whole = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    params = put_named(whole, step.layout.specs, group.mesh, group)
+    del whole
+    opt = adamw.init_opt_state(params, ocfg)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    held = [sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree))
+            for tree in (params, opt)]
+    row, rows = group.coords["data"], group.shape["data"]
+    metrics = []
+    for s in range(o["steps"]):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.host_batch(s, row, rows).items()}
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        sync()
+        metrics.append(dict({k: float(v) for k, v in m.items()},
+                            step_ms=(time.perf_counter() - t0) * 1e3))
+    (root / f"rank{group.rank}.json").write_text(json.dumps(dict(
+        held=held, metrics=metrics, coords=group.coords,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+        else None, case_s=time.perf_counter() - t_case)))
+
+
+def moe_drops(torch, cfg, params, batch):
+    """Assignments past capacity in the routing of ``batch`` (the global
+    batch), summed over the MoE layers: one forward in this process."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    plain, drops = moe.moe_ffn, []
+
+    def counting(x, router_w, w_gate, w_up, w_down, top_k, **kw):
+        E = router_w.shape[-1]
+        _, ids = moe.route_topk(x, router_w, top_k)
+        counts = torch.bincount(ids.reshape(-1), minlength=E)
+        C = moe.capacity(x.shape[0], E, top_k)
+        drops.append(int((counts - C).clamp(min=0).sum()))
+        return plain(x, router_w, w_gate, w_up, w_down, top_k, **kw)
+    moe.moe_ffn = counting
+    try:
+        with torch.no_grad():
+            tf.forward(params, cfg, batch["tokens"])
+    finally:
+        moe.moe_ffn = plain
+    return drops
+
+
+def train_ep(torch, dev, root, card):
+    """Phi-3.5-MoE at full width (``TRAIN_EP``) on a 2 x 2 mesh of ranks
+    sharing the card (gloo, staged through host memory): each rank keeps
+    8 of the 16 experts and half of each one's f and routes the global
+    batch's tokens (``ep_rank``), in each of ``TRAIN_EP_RUNS`` (bf16 at 2
+    layers, float32 at 1), against a one-rank run of the same global
+    batch in this process. Every rank's resident parameter and moment
+    bytes must equal the dry run's count for one device, and the
+    one-process routing must drop assignments past the capacity (else
+    the case shows nothing about it); the float32 run's losses must be
+    within 1e-3 of one process's (the bf16 run's gaps are logged). Logs
+    step ms, each axis's collective MB and ms a step, each rank's peak
+    memory."""
+    import gc
+
+    failed = []
+    _, t_launch = train_mesh(dev, root)
+    for name in TRAIN_EP_RUNS:
+        failed += ep_compare(torch, dev, root, name, card, t_launch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("train.ep: " + "; ".join(failed))
+
+
+def ep_compare(torch, dev, root, name, card, t_launch):
+    """``train.ep``'s run ``name`` against one rank in this process: logs
+    ``train.ep.<name>``, returns what failed."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dp, dryrun
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+
+    o = dict(TRAIN_EP, **TRAIN_EP_RUNS[name])
+    D, M = o["data"], o["model"]
+    t0 = time.perf_counter()
+    ep = root / f"ep_{name}"
+    ranks = [json.loads((ep / f"rank{r}.json").read_text())
+             for r in range(D * M)]
+    cfg, ocfg, data = ep_setup(ep, o)
+    mesh = make_mesh_for([str(dev)] * (D * M), data=D, model=M)
+    want = list(dryrun.state_bytes_per_dev(cfg, mesh, ocfg))
+    got = [r["held"] for r in ranks]
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = adamw.init_opt_state(params, ocfg)
+    step = build_train_step(cfg, ocfg)
+
+    def batch(s):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.host_batch(s).items()}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    drops = moe_drops(torch, cfg, params, batch(0))
+    gaps, one_ms = [], []
+    for s in range(o["steps"]):
+        sync()
+        ts = time.perf_counter()
+        params, opt, m = step(params, opt, batch(s))
+        sync()
+        one_ms.append((time.perf_counter() - ts) * 1e3)
+        gaps.append(abs(float(m["loss"]) - ranks[0]["metrics"][s]["loss"]))
+    whole = sum(t.numel() * t.element_size()
+                for t in tree_lib.leaves((params, opt)))
+    del params, opt
+    m0 = ranks[0]["metrics"]
+
+    def per_step(key):
+        return ",".join(f"{m[key]:.1f}" for m in m0)
+    log(f"train.ep.{name}", t0, card=f"'{card}'", arch=o["arch"],
+        dtype=cfg.dtype,
+        layers=f"{o['n_layers']}/{get_arch(o['arch']).model.n_layers}",
+        data=D, model=M, backend=dp.backend_for(dev.type, D * M),
+        seq=o["seq_len"], global_batch=o["batch"], steps=o["steps"],
+        n_ids=o["n_ids"], lr=o["lr"], drops=",".join(map(str, drops)),
+        loss_gaps=",".join(f"{g:.2e}" for g in gaps),
+        losses=",".join(f"{m['loss']:.4f}" for m in m0),
+        resident_param_mb=f"{want[0] / 1e6:.2f}",
+        resident_moment_mb=f"{want[1] / 1e6:.2f}",
+        one_rank_mb=f"{whole / 1e6:.2f}", step_ms=per_step("step_ms"),
+        data_mb=f"{m0[0]['data_mb']:.1f}", data_ms=per_step("data_ms"),
+        model_mb=f"{m0[0]['model_mb']:.1f}", model_ms=per_step("model_ms"),
+        peak_mem_gb=",".join(f"{r['peak_mem_gb'] or 0:.2f}" for r in ranks),
+        one_rank_step_ms=",".join(f"{x:.1f}" for x in one_ms),
+        ranks_case_s=f"{max(r['case_s'] for r in ranks):.1f}",
+        launch_s=f"{t_launch:.1f}")
+    failed = []
+    if got != [want] * (D * M):
+        failed.append(f"{name}: resident bytes {got} != the dry run's "
+                      f"{want} on every rank")
+    if not sum(drops) > 0:
+        failed.append(f"{name}: no assignment dropped {drops}")
+    if cfg.dtype == "float32" and not max(gaps) < 1e-3:
+        failed.append(f"{name}: loss gaps {gaps} (bound 1e-3)")
+    return failed
 
 
 def train_flash_attn(torch, dev, root, card):
@@ -3796,7 +4087,8 @@ def train_phases(torch, dev):
     import gc
 
     phases = {"dec_s": train_dec_s, "encdec_s": train_encdec_s,
-              "dp": train_dp, "tp": train_tp, "flash_attn": train_flash_attn}
+              "dp": train_dp, "tp": train_tp, "ep": train_ep,
+              "flash_attn": train_flash_attn}
     card = nvidia_smi()
     root = train_root()
     for name in TRAIN_PHASES:

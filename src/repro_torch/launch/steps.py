@@ -5,18 +5,24 @@ and the dry run's prefill and serve steps.
 forward, backward through ``transformer.lm_loss`` (the FA2 attention
 backward, ``remat`` per layer cycle), gradient accumulation over
 micro-batches, and AdamW, updating the parameter and moment tensors in
-place. The reference's step is one jitted, GSPMD-sharded program; here
-it runs eagerly on each rank, and the parallelism is explicit. With a
-``group`` (``launch.dp.Group``) of more than one rank and a model axis
-of 1, every rank holds every parameter and the step all-reduces the
-summed loss, the valid-token count and every gradient, so the mean is
-the global batch's mean even where labels are masked. With a model axis
-of more than 1 the step is sharded (``_sharded_train_step``): each rank
-holds the shard of every parameter and moment that the reference's
-``sanitize(param_specs(...))`` gives its mesh position (``TrainLayout``),
-the layers gather each leaf over "data" as they run and split their
-matmuls over "model" (``models.transformer``), gradients come back
-reduce-scattered into the shards, and AdamW updates the shards.
+place. The reference's step is one jitted, GSPMD-sharded program over
+the global batch; here it runs eagerly on each rank, and the
+parallelism is explicit. With a ``group`` (``launch.dp.Group``) of more
+than one rank and a model axis of 1, every rank holds every parameter
+and the step all-reduces the summed loss, the valid-token count and
+every gradient, so the mean is the global batch's mean even where
+labels are masked. With a model axis of more than 1 the step is sharded
+(``_sharded_train_step``): each rank holds the shard of every parameter
+and moment that the reference's ``sanitize(param_specs(...))`` gives
+its mesh position (``TrainLayout``), the layers gather each leaf over
+"data" as they run (a MoE's experts stay on their owners: expert
+parallelism) and split their matmuls over "model"
+(``models.transformer``), gradients come back reduce-scattered into the
+shards, and AdamW updates the shards. In both, each rank holds its rows
+of the global batch, and the step's context names the data group, so
+a MoE routes the global (micro-)batch as the reference's program does;
+micro-batch i is the reference's, the global rows [i B/m, (i+1) B/m),
+of which each data rank computes its 1/D (``_split``).
 
 ``build_prefill_step`` (the full-sequence forward that fills the KV
 cache) and ``build_serve_step`` (one retrieval-augmented decode step,
@@ -44,14 +50,15 @@ hold a range of the slots, a linear cache's or a local layer's ring's
 axes; over data x model below that, every rank holding every row), and
 decode attention merges the ranks' partial softmaxes. The Mamba and
 RWKV-6 state splits its heads or channels over "model" and its rows as
-the K/V's; a layer gathers it whole over "model", computes it
-replicated and keeps its own part. The MoE FFN routes the global batch,
-its input rows all-gathered over the data axes where they are split
-(the reference's capacity counts every token of the batch). The serve
-step's search is ``retrieval.router``'s mesh
-search (one DB shard per data rank), its payload gather sums the ranks'
-slices of the table, and the kNN-LM mix runs on the vocabulary columns
-of the rank. Each step's collectives add their bytes and host
+the K/V's; a layer computed split over "model" keeps it there, one
+computed replicated (Hymba's 25 heads over 2 ranks) gathers it whole
+over "model" and keeps its own part. The MoE FFN routes the global
+batch, its input rows all-gathered over the data axes where they are
+split (the reference's capacity counts every token of the batch), each
+data rank running its own experts. The serve step's search is
+``retrieval.router``'s mesh search (one DB shard per data rank), its
+payload gather sums the ranks' slices of the table, and the kNN-LM mix
+runs on the vocabulary columns of the rank. Each step's collectives add their bytes and host
 milliseconds to the group's ``stats`` (``step.stats()`` after a step:
 ``data_mb`` / ``data_ms``, ``model_mb`` / ``model_ms``, ``mesh_mb`` /
 ``mesh_ms`` for those over the whole mesh). Every block family is
@@ -104,12 +111,38 @@ def default_microbatches(spec: ArchSpec, shape_name: str,
     return micro
 
 
-def _split(batch: Dict[str, torch.Tensor], n: int):
-    """``n`` micro-batches of consecutive rows ([3, B, T] positions split
-    on their batch axis)."""
-    parts = {k: torch.chunk(v, n, dim=1 if k == "positions" and v.ndim == 3
-                            else 0) for k, v in batch.items()}
-    return [{k: parts[k][i] for k in batch} for i in range(n)]
+def _rows_dim(key: str, v: torch.Tensor) -> int:
+    """A batch tensor's rows dim ([3, B, T] positions: 1)."""
+    return 1 if key == "positions" and v.ndim == 3 else 0
+
+
+def _split(batch: Dict[str, torch.Tensor], n: int, rows=None):
+    """``n`` micro-batches, the i-th the rows [i B/n, (i+1) B/n) of the
+    global batch. ``rows``: the data axes' group where each rank holds
+    its B/D consecutive rows of it: at n > 1 the batch is all-gathered
+    over it first and each rank keeps its 1/D of every micro-batch."""
+    D = 1 if rows is None else rows.size
+    if n > 1 and D > 1:
+        batch = {k: rows.all_gather(v.contiguous(), _rows_dim(k, v))
+                 for k, v in batch.items()}
+    parts = []
+    for i in range(n):
+        mb = {}
+        for k, v in batch.items():
+            v = torch.chunk(v, n, dim=_rows_dim(k, v))[i]
+            if n > 1 and D > 1:
+                v = torch.chunk(v, D, dim=_rows_dim(k, v))[rows.rank]
+            mb[k] = v
+        parts.append(mb)
+    return parts
+
+
+def _counts(parts, group, dev) -> torch.Tensor:
+    """Each micro-batch's valid labels over the global batch (summed over
+    ``group``, the data ranks), at least 1: [n] float32."""
+    n = torch.stack([(mb["labels"] >= 0).sum() for mb in parts])
+    n = n.float().to(dev)
+    return (n if group is None else group.all_reduce(n)).clamp(min=1)
 
 
 def _grad(loss: torch.Tensor, leaves):
@@ -201,15 +234,24 @@ def build_train_step(cfg: ModelConfig,
             p.requires_grad_(True)
         metrics = {}
         if dp:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            dev = leaves[0].device
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
                    for p in leaves]
-            total = torch.zeros((), dtype=torch.float32,
-                                device=leaves[0].device)
+            total = torch.zeros((), dtype=torch.float32, device=dev)
             count = torch.zeros_like(total)
-            for mb in _split(batch, microbatches):
-                s, n = tf.nll_sum(params, cfg, mb, remat=remat)
-                for a, g in zip(acc, _grad(s, leaves)):
-                    a += g.float()
+            parts = _split(batch, microbatches, group)
+            # m > 1: the mean of the global micro-batches' means
+            counts = _counts(parts, group, dev) if microbatches > 1 \
+                else None
+            for i, mb in enumerate(parts):
+                rows = mb["labels"].shape[0]
+                with activation_sharding(("data",), "model", group=group,
+                                         batch=rows * group.size):
+                    s, n = tf.nll_sum(params, cfg, mb, remat=remat)
+                    if counts is not None:
+                        s = s / counts[i]
+                    for a, g in zip(acc, _grad(s, leaves)):
+                        a += g.float()
                 total += s.detach()
                 count += n
             flat = torch.cat([total.reshape(1), count.reshape(1)]
@@ -220,7 +262,7 @@ def build_train_step(cfg: ModelConfig,
             _sync(flat)
             metrics["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
             metrics["allreduce_bytes"] = flat.numel() * flat.element_size()
-            denom = flat[1].clamp(min=1)
+            denom = flat[1].clamp(min=1) if counts is None else microbatches
             loss = flat[0] / denom
             grads, off = [], 2
             for a in acc:
@@ -255,9 +297,10 @@ def build_train_step(cfg: ModelConfig,
 def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                         remat: bool, microbatches: int, group):
     """The step on this rank's shards (see the module docstring). The
-    loss is the global batch's summed NLL over its global valid-token
-    count: the count is all-reduced over "data" first, each
-    micro-batch's local sum over it is differentiated (the data axis's
+    loss is the reference's, the mean over micro-batches of each global
+    micro-batch's summed NLL over its global valid-token count: the
+    counts are all-reduced over "data" first, each micro-batch's local
+    sum over its count is differentiated (the data axis's
     reduce-scatters add the rows' shares), and the gradients of leaves
     replicated over "data" are all-reduced over it in one float32
     buffer beside the loss."""
@@ -274,18 +317,18 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         for p in leaves:
             p.requires_grad_(True)
         dev = leaves[0].device
-        parts = _split(batch, microbatches)
-        count = sum((mb["labels"] >= 0).sum() for mb in parts).float()
-        count = data.all_reduce(count.reshape(1).to(dev)).clamp(min=1)[0]
+        parts = _split(batch, microbatches, data)
+        counts = _counts(parts, data, dev) * microbatches
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
                for p in leaves]
         total = torch.zeros((), dtype=torch.float32, device=dev)
-        for mb in parts:
+        for i, mb in enumerate(parts):
             rows = mb["labels"].shape[0]
             with activation_sharding(dp, "model", group=group,
                                      specs=layout.keyed, batch=rows * D):
                 s, _ = tf.nll_sum(params, cfg, mb, remat=remat)
-                for a, g in zip(acc, _grad(s / count, leaves)):
+                s = s / counts[i]
+                for a, g in zip(acc, _grad(s, leaves)):
                     a += g.float()
             total += s.detach()
         if D > 1:
@@ -300,7 +343,7 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         params, opt_state, m = adamw.apply_updates(
             params, grads, opt_state, opt_cfg, group=group,
             counted=layout.counted)
-        metrics = dict(m, loss=total / count)
+        metrics = dict(m, loss=total)
         for name, g in (("data", data), ("model", model)):
             metrics[f"{name}_mb"] = g.stats["bytes"] / 1e6
             metrics[f"{name}_ms"] = g.stats["ms"]

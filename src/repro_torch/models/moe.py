@@ -15,6 +15,14 @@ spare buffer row instead of being filtered out. The combine adds each
 token's k weighted expert rows in ascending expert order, one rounding
 at a time, which is the order of the reference's scatter-add; it uses
 no atomics, so it is deterministic on the card.
+
+Sharded (the reference's specs: the experts over "data", each expert's
+``f`` over "model"; ``models.parallel``): every rank routes the same
+global tokens (the same ``C``, the same drops), fills and runs only its
+own experts' [E / D, C, d] rows, each expert's ``f`` columns between
+``copy_to_model`` and ``reduce_from_model`` where ``f`` is split, and
+all-gathers the experts' outputs over "data" into [E, C, d] for the
+combine. An expert's gradient stays on its owner.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.models import parallel
 from repro_torch.models.layers import activation
 
 
@@ -66,14 +75,17 @@ def capacity(N: int, E: int, top_k: int, capacity_factor: float = 1.25
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
-            capacity_factor: float = 1.25, act: str = "silu"
-            ) -> torch.Tensor:
+            capacity_factor: float = 1.25, act: str = "silu",
+            split_f: bool = False) -> torch.Tensor:
     """Top-k expert FFN with capacity dropping: x [N, d], router_w
     [d, E], w_gate / w_up [E, d, f], w_down [E, f, d] -> [N, d] in the
-    experts' dtype."""
+    experts' dtype. Experts ``w_gate.shape[0] < E``: this rank's shard
+    of experts split over "data" (expert parallelism); ``split_f``: its
+    ``f`` columns of each, split over "model"."""
     N, d = x.shape
-    E = router_w.shape[-1]
+    E, El = router_w.shape[-1], w_gate.shape[0]
     C = capacity(N, E, top_k, capacity_factor)
+    first = 0 if El == E else parallel.expert_rank() * El
     dev = x.device
 
     gate_w, expert_ids = route_topk(x, router_w, top_k)      # [N, k] each
@@ -93,11 +105,19 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     # spare row E*C, so the kept rows are written once each
     row = torch.where(keep, se * C + slot, E * C)
 
-    buf = x.new_zeros((E * C + 1, d))
-    buf[row] = x[flat_t[order]]
-    xb = buf[:E * C].view(E, C, d)
+    # this rank's experts' rows, the others' to the spare row El*C
+    mine = keep & (se >= first) & (se < first + El)
+    buf = x.new_zeros((El * C + 1, d))
+    buf[torch.where(mine, row - first * C, El * C)] = x[flat_t[order]]
+    xb = buf[:El * C].view(El, C, d)
+    if split_f:
+        xb = parallel.copy_to_model(xb)
     g = activation(torch.bmm(xb, w_gate), act)
-    y_e = torch.bmm(g * torch.bmm(xb, w_up), w_down)          # [E, C, d]
+    y_e = torch.bmm(g * torch.bmm(xb, w_up), w_down)          # [El, C, d]
+    if split_f:
+        y_e = parallel.reduce_from_model(y_e)
+    if El != E:
+        y_e = parallel.gather_experts(y_e)                    # [E, C, d]
 
     # combine: each assignment's expert row (the spare row is zero),
     # weighted in the experts' dtype, then each token's k rows added in

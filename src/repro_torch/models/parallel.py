@@ -1,30 +1,43 @@
-"""Autograd collectives of the sharded training step, over the mesh
-group of the context in force (``models.ctx``).
+"""Autograd collectives of the sharded steps, over the mesh group of the
+context in force (``models.ctx``).
 
 Tensor parallelism over "model" (Megatron's pair): ``copy_to_model`` is
 the identity forward and an all-reduce of the gradient backward (the
 input of a column-split matmul, replicated over the model axis);
 ``reduce_from_model`` all-reduces forward and passes the gradient
 through (the output of a row-split matmul, a partial sum on each rank).
+``scatter_to_model`` / ``gather_from_model`` move an activation between
+a partial sum and this rank's columns (RWKV-6's channel mix), and
+``model_chunk`` keeps this rank's heads of a replicated tensor.
 
 Parameters: ``leaf`` turns a rank's shard of a parameter into what the
 layer computes with. A dimension split over a data axis is all-gathered
 forward and its gradient reduce-scattered backward (FSDP: each data row
-saw other rows of the batch, so the gradients add up); a dimension split
-over "model" that the layer does not compute split is all-gathered
+saw other rows of the batch, so the gradients add up), but a MoE's
+expert dimension that the layer keeps (expert parallelism); a dimension
+split over "model" that the layer does not compute split is all-gathered
 forward and its gradient sliced backward (every model rank computed the
-same whole gradient from the same replicated activations). The
-reductions of gradients run in float32.
+same whole gradient from the same replicated activations).
+``gather_model_shared`` all-gathers a leaf whose whole each model rank
+reads a part of (Mamba's ``w_in``: its x and z columns of its own
+channels) and reduce-scatters its gradient. The reductions of gradients
+run in float32.
+
+Rows: ``rows_group`` says over which ranks the step's batch rows are
+split (training, and the sharded prefill and serve steps); the MoE
+gathers them (``gather_rows``, the reference's capacity counts the
+global batch), and under expert parallelism every rank's experts'
+outputs are gathered over "data" (``gather_experts``).
 
 Serving (the sharded prefill and serve steps, no autograd):
 ``seq_shard`` says where a cache's K/V slots are split over ranks,
 ``state_shard`` where a recurrent state's heads, channels or rows are
-(the Mamba and RWKV-6 state, gathered whole for a layer computed
-replicated and cut back after), ``rows_group`` over which ranks the
-step's batch rows are split (the MoE routes the whole batch),
-``gather_model`` / ``model_chunk`` move a small activation's heads
-between the model ranks, and ``argmax_over_model`` picks a greedy token
-from vocabulary-split logits.
+(the Mamba and RWKV-6 state: a layer computed split over "model" keeps
+its heads and channels, ``StateShard.rows_only``; one computed
+replicated gathers them whole and cuts them back after),
+``gather_model`` moves a small activation's heads between the model
+ranks, and ``argmax_over_model`` picks a greedy token from
+vocabulary-split logits.
 
 Outside a sharded context every function returns its input, so the
 one-process paths do not move.
@@ -72,6 +85,17 @@ class _GatherData(torch.autograd.Function):
         return out, None, None
 
 
+class _ScatterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.reduce_scatter(x.float(), dim).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g.contiguous(), ctx.dim), None, None
+
+
 class _GatherModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -90,52 +114,77 @@ def sharded() -> bool:
     return ctx is not None and ctx.sharded
 
 
-def _model_group():
-    """The rank's model-axis group in a sharded context, else None."""
+def _group(axis: Optional[str] = None):
+    """The rank's group along ``axis`` (default: the model axis) in a
+    sharded context, else None (also where the axis has one rank)."""
     ctx = ctx_lib.current()
-    if not sharded() or ctx.size(ctx.model) == 1:
+    if not sharded():
         return None
-    return ctx.axis(ctx.model)
+    axis = ctx.model if axis is None else axis
+    return None if ctx.size(axis) == 1 else ctx.axis(axis)
 
 
 def model_size() -> int:
     """The model axis's size in the sharded context in force (1 outside
     one)."""
-    g = _model_group()
+    g = _group()
     return 1 if g is None else g.size
 
 
 def model_rank() -> int:
     """This rank's coordinate on the model axis (0 outside a context)."""
-    g = _model_group()
+    g = _group()
     return 0 if g is None else g.rank
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
-    g = _model_group()
+    g = _group()
     return x if g is None else _CopyToModel.apply(x, g)
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
-    g = _model_group()
+    g = _group()
     return x if g is None else _ReduceFromModel.apply(x, g)
+
+
+def scatter_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of every model rank's
+    partial ``x`` (a reduce-scatter; the gradient all-gathered)."""
+    g = _group()
+    return x if g is None else _ScatterModel.apply(x, g, dim)
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every model rank's chunk ``x`` concatenated along ``dim``, for a
+    replicated computation (the gradient: this rank's chunk of it)."""
+    g = _group()
+    return x if g is None else _GatherModel.apply(x, g, dim)
+
+
+def gather_model_shared(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A leaf's model-split shard ``x`` all-gathered along ``dim`` for a
+    layer whose model ranks each read a part of the whole: the gradient,
+    partial on each rank, is summed and reduce-scattered back."""
+    g = _group()
+    return x if g is None else _GatherData.apply(x, g, dim)
 
 
 def max_over_model(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max over the model axis, outside autograd."""
-    g = _model_group()
+    g = _group()
     return x.detach() if g is None else g.all_reduce(
         x.detach().contiguous().clone(), "max")
 
 
 def leaf(key: str, x: torch.Tensor, keep_model: bool = False,
-         stacked: bool = False) -> torch.Tensor:
+         keep_data: bool = False, stacked: bool = False) -> torch.Tensor:
     """The tensor a layer computes with from this rank's shard ``x`` of
     parameter ``key`` (a layer's slice of it when ``stacked``: the spec's
     first entry, the unsharded layer axis, is dropped). Every split dim
     is gathered, except a "model" split when ``keep_model`` (the layer
-    computes split over the model axis). Outside a sharded context:
-    ``x``."""
+    computes split over the model axis) and a data-axis split when
+    ``keep_data`` (a MoE's experts under expert parallelism). Outside a
+    sharded context: ``x``."""
     if not sharded():
         return x
     ctx = ctx_lib.current()
@@ -155,20 +204,57 @@ def leaf(key: str, x: torch.Tensor, keep_model: bool = False,
             if not keep_model:
                 x = _GatherModel.apply(x, ctx.axis(ctx.model), dim)
         elif live[0] in ctx.dp:
-            x = _GatherData.apply(x, ctx.axis(live[0]), dim)
+            if not keep_data:
+                x = _GatherData.apply(x, ctx.axis(live[0]), dim)
         else:
             raise NotImplementedError(f"{key}: axis {live[0]!r}")
     return x
 
 
-def split_on(key: str, dim: int, ndim: int) -> bool:
-    """Whether parameter ``key`` (``ndim`` dims) is split over the model
-    axis at ``dim`` in the context in force."""
+def split_on(key: str, dim: int, ndim: int, axis: Optional[str] = None
+             ) -> bool:
+    """Whether parameter ``key`` (``ndim`` dims) is split over ``axis``
+    (default: the model axis), one of more than one rank, at ``dim`` in
+    the context in force."""
     ctx = ctx_lib.current()
-    if _model_group() is None:
+    if _group(axis) is None:
         return False
     spec = tuple(ctx.spec(key)) + (None,) * ndim
-    return spec[dim % ndim] == ctx.model
+    return spec[dim % ndim] == (ctx.model if axis is None else axis)
+
+
+def rows_group():
+    """Where the step's activations hold this rank's rows of a batch
+    split over the data axes (the context's ``batch`` is the global
+    rows): those axes' group, else None (one process, or rows not
+    split)."""
+    ctx = ctx_lib.current()
+    if ctx is None or ctx.group is None or ctx.batch is None:
+        return None
+    g = ctx.group.over(ctx.dp)
+    return g if g.size > 1 else None
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's rows of ``x`` over ``group`` (``rows_group``) in rank
+    order, the global batch's order; the gradient of each rank's rows
+    summed back to it."""
+    return _GatherData.apply(x, group, 0)
+
+
+def expert_rank() -> int:
+    """This rank's shard of a MoE's experts split over "data" (its data
+    coordinate; 0 outside a sharded context)."""
+    g = _group("data")
+    return 0 if g is None else g.rank
+
+
+def gather_experts(y: torch.Tensor) -> torch.Tensor:
+    """Every data rank's experts' outputs ``y`` [E / D, C, d] in rank
+    order: [E, C, d] (the gradient reduce-scattered back to each
+    expert's owner)."""
+    g = _group("data")
+    return y if g is None else _GatherData.apply(y, g, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +322,11 @@ class StateShard:
             x = g.all_gather(x.contiguous(), dim)
         return x
 
+    def rows_only(self) -> "StateShard":
+        """The splits of the rows alone: a layer computed split over
+        "model" keeps the rank's heads and channels as they are."""
+        return StateShard(tuple(s for s in self.splits if s[0] == 0))
+
     def mine(self, x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         """The rank's chunk of ``whole``'s ``x``, shaped as ``like``."""
         for dim, g in self.splits:
@@ -252,21 +343,10 @@ def state_shard(key: str) -> StateShard:
                             if dim))
 
 
-def rows_group():
-    """In a sharded serving step whose activations hold this rank's rows
-    of a batch split over the data axes: those axes' group, else None
-    (training, one process, or rows not split)."""
-    ctx = ctx_lib.current()
-    if not sharded() or ctx.caches is None or ctx.batch is None:
-        return None
-    g = ctx.group.over(ctx.dp)
-    return g if g.size > 1 else None
-
-
 def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Every model rank's ``x`` concatenated along ``dim`` (contiguous),
     outside autograd; ``x`` without a model axis."""
-    g = _model_group()
+    g = _group()
     if g is None:
         return x
     return g.all_gather(x.detach().contiguous(), dim).contiguous()
@@ -274,8 +354,8 @@ def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def model_chunk(x: torch.Tensor, dim: int) -> torch.Tensor:
     """This model rank's chunk of ``x`` along ``dim`` (``gather_model``'s
-    inverse)."""
-    g = _model_group()
+    inverse; under autograd the gradient of the other chunks is 0)."""
+    g = _group()
     if g is None:
         return x
     n = x.shape[dim] // g.size
@@ -288,7 +368,7 @@ def argmax_over_model(logits: torch.Tensor, group=None) -> torch.Tensor:
     whole vocabulary without one): the largest value over every rank's
     columns, ties to the lower id. ``group``: the model axis's ranks
     (default: the context's)."""
-    g = _model_group() if group is None else group
+    g = _group() if group is None else group
     idx = logits.argmax(-1)
     vals = torch.gather(logits, -1, idx[..., None])[..., 0]
     if g is None or g.size == 1:

@@ -14,6 +14,19 @@ one fused multiply-add on the state and one product for the readout.
 per-chunk products (the reference's GLA-style form, with each pair's
 decay kept within float32: see its docstring), and falls back to the
 scan where T is not a multiple of the chunk or fits in one.
+
+``split=True``: the layer runs split over the model axis of a sharded
+step (``models.parallel``), on leaves cut on head or channel boundaries.
+Mamba: the rank's channels of ``w_in``'s x and z, of ``conv_w``, of
+``w_bcdt``'s rows (the partial B, C and dt summed over "model", dt of
+its heads kept) and of ``w_out``'s rows, its heads of ``a_log`` /
+``dt_bias`` / ``d_skip``; the state holds its heads and channels.
+RWKV-6's time mix: the rank's heads (columns of ``w_r`` / ``w_k`` /
+``w_v`` / ``w_g`` / ``w_lora_b``, of ``w0`` and ``ln_x``, ``bonus_u``'s
+rows, rows of ``w_o``; the ``wkv`` state of its heads). The channel mix:
+the rank's ``f`` columns of ``w_ck`` and rows of ``w_cv``, and its ``d``
+columns of ``w_cr``: the partial ``kk @ w_cv`` is reduce-scattered to
+the rank's columns, gated there, and all-gathered.
 """
 from __future__ import annotations
 
@@ -22,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel
 from repro_torch.models.layers import sigmoid, silu
 
 
@@ -43,15 +57,20 @@ SCAN_BLOCK = 32     # mamba_scan's steps a block of precomputed terms
 
 
 def mamba_scan(p: MambaParams, x: torch.Tensor,
-               state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               split: bool = False
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """x [B, T, d_model] -> (y [B, T, d_model], (ssm [B, H, dh, ds]
     float32, conv [B, conv_w - 1, d_in])). ``state``: (ssm, conv) to
-    resume from; None starts from zeros."""
+    resume from; None starts from zeros. ``split``: ``p`` holds the
+    rank's heads (the module docstring); so do ``state`` and the
+    returned state."""
     B, T, _ = x.shape
     cw, d_in = p.conv_w.shape
     H, ds = p.a_log.shape
     dh = d_in // H
+    if split:
+        x = parallel.copy_to_model(x)
     xi, z = (x @ p.w_in).chunk(2, dim=-1)                     # [B, T, d_in]
 
     conv_prev = (x.new_zeros((B, cw - 1, d_in)) if state is None
@@ -62,6 +81,10 @@ def mamba_scan(p: MambaParams, x: torch.Tensor,
     xc = F.silu(xc)
 
     bcdt = xc @ p.w_bcdt
+    if split:           # B and C whole, dt of the rank's heads
+        bcdt = parallel.copy_to_model(parallel.reduce_from_model(bcdt))
+        bcdt = torch.cat([bcdt[..., :2 * ds],
+                          parallel.model_chunk(bcdt[..., 2 * ds:], -1)], -1)
     b_t = bcdt[..., :ds].float()                             # [B, T, ds]
     c_t = bcdt[..., ds:2 * ds].float()
     dt = F.softplus(bcdt[..., 2 * ds:] + p.dt_bias).float()  # [B, T, H]
@@ -84,6 +107,8 @@ def mamba_scan(p: MambaParams, x: torch.Tensor,
     y = torch.stack(ys, dim=1).reshape(B, T, d_in)
     y = y + xc * p.d_skip.repeat_interleave(dh)[None, None]
     y = (y.to(x.dtype) * F.silu(z)) @ p.w_out
+    if split:
+        y = parallel.reduce_from_model(y)
     conv_state = xi_pad[:, T:] if cw > 1 else conv_prev
     return y, (h, conv_state)
 
@@ -152,24 +177,26 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, H: int
 
 
 def _time_mix_inputs(p: RWKV6Params, x: torch.Tensor, state: RWKVState,
-                     H: int):
+                     H: int, split: bool = False):
     """The token-shifted projections of the time mix: (r, k, v [B, T, H,
     dh] in x's dtype, the gate g [B, T, D], the decays w [B, T, H, dh]
-    float32, clamped to w >= e^-8)."""
+    float32, clamped to w >= e^-8). ``split``: H and D are the rank's."""
     B, T, _ = x.shape
     D = p.w_r.shape[-1]
     dh = D // H
     x_prev = torch.cat([state.shift_t[:, None], x[:, :-1]], dim=1)
+    tp = parallel.copy_to_model if split else (lambda t: t)
 
     def mix(mu):
-        return x + (x_prev - x) * mu[None, None]
+        return tp(x + (x_prev - x) * mu[None, None])
     r = (mix(p.mu_r) @ p.w_r).reshape(B, T, H, dh)
     k = (mix(p.mu_k) @ p.w_k).reshape(B, T, H, dh)
     v = (mix(p.mu_v) @ p.w_v).reshape(B, T, H, dh)
     g = silu(mix(p.mu_g) @ p.w_g)
     # the reference adds w0 in float32: XLA does not round the bf16 sum
     # that feeds the float32 exp
-    w_log = p.w0.float() + (torch.tanh(mix(p.mu_w) @ p.w_lora_a)
+    x_w = x + (x_prev - x) * p.mu_w[None, None]
+    w_log = p.w0.float() + (tp(torch.tanh(x_w @ p.w_lora_a))
                             @ p.w_lora_b).float()
     # decay clamp w >= e^-8: keeps the chunked form's within-chunk decay
     # products inside float32 range
@@ -178,12 +205,14 @@ def _time_mix_inputs(p: RWKV6Params, x: torch.Tensor, state: RWKVState,
 
 
 def rwkv6_time_mix(p: RWKV6Params, x: torch.Tensor, state: RWKVState,
-                   H: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   H: int, split: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B, T, d] -> (y [B, T, d], wkv state' [B, H, dh, dh] float32,
-    shift' [B, d]). Any T; T = 1 is the decode step."""
+    shift' [B, d]). Any T; T = 1 is the decode step. ``split``: ``p``,
+    H and the wkv state are the rank's heads (the module docstring)."""
     B, T, _ = x.shape
     D = p.w_r.shape[-1]
-    r, k, v, g, w = _time_mix_inputs(p, x, state, H)
+    r, k, v, g, w = _time_mix_inputs(p, x, state, H, split)
     r, k, v = r.float(), k.float(), v.float()
     u = p.bonus_u[None, :, :, None]                          # [1, H, dh, 1]
     s = state.wkv
@@ -194,11 +223,20 @@ def rwkv6_time_mix(p: RWKV6Params, x: torch.Tensor, state: RWKVState,
         s = w[:, t, :, :, None] * s + kv
     y = torch.cat(ys, dim=2).transpose(1, 2).reshape(B, T, D).to(x.dtype)
     y = _group_norm(y, p.ln_x, H)
-    return (y * g.to(y.dtype)) @ p.w_o, s, x[:, -1]
+    return _time_mix_out(y * g.to(y.dtype), p.w_o, split), s, x[:, -1]
+
+
+def _time_mix_out(y: torch.Tensor, w_o: torch.Tensor, split: bool
+                  ) -> torch.Tensor:
+    """The time mix's output projection (the rank's rows of ``w_o``,
+    summed over "model", when ``split``)."""
+    y = y @ w_o
+    return parallel.reduce_from_model(y) if split else y
 
 
 def rwkv6_time_mix_chunked(p: RWKV6Params, x: torch.Tensor,
-                           state: RWKVState, H: int, chunk: int = 32
+                           state: RWKVState, H: int, chunk: int = 32,
+                           split: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Chunked-parallel RWKV-6: the math of ``rwkv6_time_mix`` with the
@@ -215,13 +253,14 @@ def rwkv6_time_mix_chunked(p: RWKV6Params, x: torch.Tensor,
     log w_i} around the chunk's middle; under the clamp w >= e^-8 a
     half chunk spans up to 16 x 8 = 128 in log, over float32's range
     (e^88), and at full width that gives inf and NaN. Here each pair's
-    factor is one exp of a non-positive exponent, chunk by chunk."""
+    factor is one exp of a non-positive exponent, chunk by chunk.
+    ``split``: as ``rwkv6_time_mix``'s."""
     B, T, _ = x.shape
     D = p.w_r.shape[-1]
     dh = D // H
     if T % chunk != 0 or T <= chunk:
-        return rwkv6_time_mix(p, x, state, H)
-    r, k, v, g, w = _time_mix_inputs(p, x, state, H)
+        return rwkv6_time_mix(p, x, state, H, split)
+    r, k, v, g, w = _time_mix_inputs(p, x, state, H, split)
     u = p.bonus_u.float()                                    # [H, dh]
 
     C, n = chunk, T // chunk
@@ -252,14 +291,22 @@ def rwkv6_time_mix_chunked(p: RWKV6Params, x: torch.Tensor,
             "bchk,bchv->bhkv", k_s[:, j], vc[:, j])
     y = torch.stack(ys, dim=1).reshape(B, T, D)
     y = _group_norm(y.to(x.dtype), p.ln_x, H)
-    return (y * g.to(y.dtype)) @ p.w_o, S, x[:, -1]
+    return _time_mix_out(y * g.to(y.dtype), p.w_o, split), S, x[:, -1]
 
 
-def rwkv6_channel_mix(p: RWKV6Params, x: torch.Tensor, shift: torch.Tensor
+def rwkv6_channel_mix(p: RWKV6Params, x: torch.Tensor, shift: torch.Tensor,
+                      split: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, T, d] -> (out [B, T, d], shift' [B, d])."""
+    """x [B, T, d] -> (out [B, T, d], shift' [B, d]). ``split``: the
+    rank's columns (the module docstring)."""
     x_prev = torch.cat([shift[:, None], x[:, :-1]], dim=1)
     xk = x + (x_prev - x) * p.mu_ck[None, None]
     xr = x + (x_prev - x) * p.mu_cr[None, None]
+    if not split:
+        kk = torch.square(torch.relu(xk @ p.w_ck))
+        return sigmoid(xr @ p.w_cr) * (kk @ p.w_cv), x[:, -1]
+    xk, xr = parallel.copy_to_model(xk), parallel.copy_to_model(xr)
     kk = torch.square(torch.relu(xk @ p.w_ck))
-    return sigmoid(xr @ p.w_cr) * (kk @ p.w_cv), x[:, -1]
+    v = parallel.scatter_to_model(kk @ p.w_cv, -1)
+    return parallel.gather_from_model(sigmoid(xr @ p.w_cr) * v, -1), \
+        x[:, -1]

@@ -44,15 +44,22 @@ Sharded training (a ``models.ctx`` context with a mesh group and the
 parameters' specs; ``launch.steps.build_train_step`` sets it): every
 leaf is read through ``parallel.leaf``, so a layer gathers its leaves
 over the data axis when it runs (and, under remat, again in the
-backward) and frees them after. Over the model axis a layer computes
-split where its leaves are split on head or column boundaries
-(``TP_GROUPS``): the attention by heads, the gated MLP by ``d_ff``
-columns, each between ``copy_to_model`` and ``reduce_from_model``; the
-embedding and the head by vocabulary rows, with the cross-entropy from
-all-reduced maxima and sums. Any other leaf split over "model" (a head
-cut in two, Mamba's, RWKV-6's and the MoE's leaves) is gathered whole
-and computed replicated. The layers read the layout they got from their
-leaves' shapes.
+backward) and frees them after, but a MoE's experts split over "data"
+(expert parallelism: each rank runs its own experts on the global
+batch's tokens routed to them, ``moe.moe_ffn``). Over the model axis a
+layer computes split where its leaves are split on head or column
+boundaries (``TP_GROUPS``): the attention and RWKV-6's time mix by
+heads, the gated MLP, each expert and RWKV-6's channel mix by ``d_ff``
+columns, the Mamba head by heads and channels (``ssm``), each between
+``copy_to_model`` and ``reduce_from_model``; the embedding and the head
+by vocabulary rows, with the cross-entropy from all-reduced maxima and
+sums. Any other leaf split over "model" (a head cut in two: Hymba's 25
+heads over 2 ranks) is gathered whole and computed replicated. The
+layers read the layout they got from their leaves' shapes. The MoE
+routes the global batch, as the reference's capacity counts its
+tokens: where the rows are split over the data axes (training, and the
+serving steps below) the FFN's input rows are all-gathered over them in
+rank order, and the rank keeps its rows of the output.
 
 Sharded prefill and serving (``launch.steps``' builders with a rank
 group of more than one): the leaves are read as in training, and each
@@ -67,12 +74,9 @@ its own heads for the row-split ``wo``. Prefill computes a layer's K/V
 as in training and keeps what lands in the rank's slot range; RETRO's
 cross K/V are split and read the same way, every slot valid. The Mamba
 state of a hybrid block and RWKV-6's state (heads or channels over
-"model", rows over the data axes; ``parallel.state_shard``) are gathered
-whole over "model" for a layer that computes them replicated, and the
-rank keeps its own heads and channels after. The MoE routes the global
-batch, as the reference's capacity counts its tokens: where the rows are
-split over the data axes the FFN's input rows are all-gathered over
-them, and the rank keeps its rows of the output.
+"model", rows over the data axes; ``parallel.state_shard``) stay on the
+rank where the layer computes split; a layer computed replicated gathers
+them whole over "model" and keeps its own heads and channels after.
 """
 from __future__ import annotations
 
@@ -101,14 +105,26 @@ BLOCKS = ("dense", "moe", "hybrid", "rwkv6")
 #: leaves the reference keeps in float32 whatever ``cfg.dtype`` is
 FLOAT32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip"})
 #: leaves a layer computes split over the model axis, by group: (split
-#: by column, the output dim; split by row, the input dim). A group runs
-#: split only when every leaf of it is split so (attention: also on head
-#: boundaries); else its leaves are gathered.
+#: by column, the output dim; split by row, the input dim; a NamedTuple's
+#: field as "<leaf>/<field>"). A group runs split only when every leaf of
+#: it is split so (the groups of ``HEAD_GROUPS``: also on head
+#: boundaries); else its leaves are gathered. "mlp" is a MoE's experts'
+#: ``f`` too.
 TP_GROUPS = {
     "attn": (("wq", "wk", "wv", "bq", "bk", "bv"), ("wo",)),
     "xattn": (("xwq", "xwk", "xwv"), ("xwo",)),
     "mlp": (("wg", "wu"), ("wd",)),
+    "mamba": (("mamba/w_in", "mamba/conv_w"),
+              ("mamba/w_bcdt", "mamba/w_out")),
+    "time_mix": (("w_r", "w_k", "w_v", "w_g", "w0", "w_lora_b", "ln_x"),
+                 ("w_o",)),
+    "channel_mix": (("w_ck", "w_cr"), ("w_cv",)),
 }
+#: the groups split by heads, and the head counts that must divide the
+#: model axis for them to split
+HEAD_GROUPS = {"attn": ("n_heads", "n_kv_heads"),
+               "xattn": ("n_heads", "n_kv_heads"),
+               "mamba": ("n_heads",), "time_mix": ("n_heads",)}
 
 
 def _check_block(cfg: ModelConfig) -> None:
@@ -290,23 +306,40 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int,
     return caches
 
 
-def _tp_leaves(cfg: ModelConfig, prefix: str, stacked: Params) -> set:
-    """The leaves of ``stacked`` (at tree key ``prefix``) that the layer
-    computes split over the model axis (``TP_GROUPS``)."""
+def _named_leaves(stacked: Params) -> Dict[str, torch.Tensor]:
+    """The stacked leaves by name, a NamedTuple's fields as
+    "<leaf>/<field>"."""
+    out = {}
+    for name, a in stacked.items():
+        if isinstance(a, tuple):
+            out.update({f"{name}/{f}": x for f, x in zip(a._fields, a)})
+        else:
+            out[name] = a
+    return out
+
+
+def _split_leaves(cfg: ModelConfig, prefix: str, stacked: Params):
+    """(the leaves of ``stacked``, at tree key ``prefix``, that the layer
+    computes split over the model axis (``TP_GROUPS``); those it keeps
+    split over "data": a MoE's experts where each rank runs its own),
+    by ``_named_leaves``' names."""
+    leaves = _named_leaves(stacked)
     M = parallel.model_size()
-    if M == 1:
-        return set()
-    heads = cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0
-    keep = set()
-    for group, (cols, rows) in TP_GROUPS.items():
-        names = [n for n in cols + rows if n in stacked]
-        if not names or (group == "mlp" and cfg.block == "moe") or \
-                (group != "mlp" and not heads):
+    model = set()
+    for group, (cols, rows) in TP_GROUPS.items() if M > 1 else ():
+        names = [n for n in cols + rows if n in leaves]
+        if not names or any(getattr(cfg, h) % M
+                            for h in HEAD_GROUPS.get(group, ())):
             continue
         if all(parallel.split_on(f"{prefix}/{n}", -1 if n in cols else -2,
-                                 stacked[n].dim()) for n in names):
-            keep.update(names)
-    return keep
+                                 leaves[n].dim()) for n in names):
+            model.update(names)
+    experts = [n for n in ("wg", "wu", "wd") if n in leaves] \
+        if cfg.block == "moe" else []
+    data = set(experts) if experts and all(
+        parallel.split_on(f"{prefix}/{n}", 1, 4, axis="data")
+        for n in experts) else set()
+    return model, data
 
 
 def _layer_params(cfg: ModelConfig, prefix: str, stacked: Params,
@@ -319,17 +352,16 @@ def _layer_params(cfg: ModelConfig, prefix: str, stacked: Params,
         return {name: type(a)(*(x[idx] for x in a))
                 if isinstance(a, tuple) else a[idx]
                 for name, a in stacked.items()}
-    keep = _tp_leaves(cfg, prefix, stacked)
-    out = {}
-    for name, a in stacked.items():
-        if isinstance(a, tuple):        # a NamedTuple of stacked leaves
-            out[name] = type(a)(*(
-                parallel.leaf(f"{prefix}/{name}/{f}", x[idx], stacked=True)
-                for f, x in zip(a._fields, a)))
-        else:
-            out[name] = parallel.leaf(f"{prefix}/{name}", a[idx],
-                                      keep_model=name in keep, stacked=True)
-    return out
+    model, data = _split_leaves(cfg, prefix, stacked)
+
+    def leaf(name, x):
+        return parallel.leaf(f"{prefix}/{name}", x[idx],
+                             keep_model=name in model,
+                             keep_data=name in data, stacked=True)
+    return {name: type(a)(*(leaf(f"{name}/{f}", x)
+                            for f, x in zip(a._fields, a)))
+            if isinstance(a, tuple) else leaf(name, a)
+            for name, a in stacked.items()}
 
 
 def _tp_in(x: torch.Tensor, tp: bool) -> torch.Tensor:
@@ -475,13 +507,15 @@ def _cross_attention(cfg, p, hn, enc_states, mode, cache, slots=None,
 def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """The block's FFN: the gated MLP, or the MoE over the flattened
     tokens (the capacity follows B * T, of the global batch: rows split
-    over ranks are all-gathered first, ``parallel.rows_group``)."""
+    over ranks are all-gathered first, ``parallel.rows_group``; the
+    experts as the leaves hold them, ``moe.moe_ffn``)."""
     if cfg.block == "moe":
         B, T, d = x.shape
         rows = parallel.rows_group()
-        xs = x if rows is None else rows.all_gather(x.contiguous(), 0)
+        xs = x if rows is None else parallel.gather_rows(x, rows)
         out = moe_lib.moe_ffn(xs.reshape(-1, d), p["router"], p["wg"],
-                              p["wu"], p["wd"], cfg.top_k, act=cfg.act)
+                              p["wu"], p["wd"], cfg.top_k, act=cfg.act,
+                              split_f=p["wg"].shape[-1] != cfg.d_ff)
         out = out.reshape(-1, T, d)
         if rows is not None:
             out = out[rows.rank * B:(rows.rank + 1) * B]
@@ -531,6 +565,13 @@ def _residual_norm(cfg: ModelConfig, h: torch.Tensor, y: torch.Tensor,
     return add_norm(h, y, scale, cfg.norm_eps)
 
 
+def _kept(state, split: bool):
+    """The state shards a layer reads: only their rows' splits where the
+    layer computes split over "model" (it holds its heads and channels
+    of the state)."""
+    return {k: v.rows_only() for k, v in state.items()} if split else state
+
+
 def _state_in(cache: Params, keys, slots, state, rows: int) -> list:
     """The state rows of ``cache[key]`` for a layer computing ``rows``
     rows, each leaf split over ranks (``state``: leaf name -> its
@@ -551,21 +592,50 @@ def _rwkv6_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
                  cache: Optional[Params], slots, state) -> torch.Tensor:
     """RWKV-6: time mix then channel mix, each pre-normed and residual;
     the state starts from the cache's rows (zeros without a cache) and
-    goes back into them."""
+    goes back into them. A time mix split over "model" runs the rank's
+    heads (``bonus_u``'s rows cut here) on its heads of the state."""
     rp = ssm_lib.RWKV6Params(**{f: p[f] for f in ssm_lib.RWKV6Params._fields})
+    split = rp.w_r.shape[-1] != cfg.n_heads * cfg.d_head
+    H = cfg.n_heads // parallel.model_size() if split else cfg.n_heads
+    if split:
+        rp = rp._replace(bonus_u=parallel.model_chunk(
+            parallel.copy_to_model(rp.bonus_u), 0))
+    state = _kept(state, split)
     if cache is not None:
         st = ssm_lib.RWKVState(*_state_in(cache, ("wkv", "st", "sc"), slots,
                                           state, h.shape[0]))
     else:
-        st = ssm_lib.rwkv6_init_state(h.shape[0], cfg.n_heads, cfg.d_head,
+        st = ssm_lib.rwkv6_init_state(h.shape[0], H, cfg.d_head,
                                       cfg.d_model, h.dtype, h.device)
     y, wkv, sh_t = ssm_lib.rwkv6_time_mix_chunked(
-        rp, rms_norm(h, p["ln1"], cfg.norm_eps), st, cfg.n_heads)
+        rp, rms_norm(h, p["ln1"], cfg.norm_eps), st, H, split=split)
     h, hn = _residual_norm(cfg, h, y, p["ln2"])
-    y2, sh_c = ssm_lib.rwkv6_channel_mix(rp, hn, st.shift_c)
+    y2, sh_c = ssm_lib.rwkv6_channel_mix(
+        rp, hn, st.shift_c, split=rp.w_ck.shape[-1] != cfg.d_ff)
     if cache is not None:
         _state_out(cache, dict(wkv=wkv, st=sh_t, sc=sh_c), slots, state)
     return h + y2
+
+
+def _mamba_params(cfg: ModelConfig, mp: ssm_lib.MambaParams):
+    """(the Mamba leaves the layer computes with, whether split over
+    "model"). Split, the rank reads its channels' x and z columns of
+    ``w_in`` (the x columns come first: a column split gives one rank x
+    and the other z, so ``w_in`` is gathered whole and both halves cut)
+    and its heads of ``a_log`` / ``dt_bias`` / ``d_skip``."""
+    d_in = cfg.n_heads * cfg.d_head
+    n = mp.conv_w.shape[-1]
+    if n == d_in:
+        return mp, False
+    c = parallel.model_rank() * n
+    w_in = parallel.gather_model_shared(mp.w_in, -1)
+    w_in = torch.cat([w_in[:, c:c + n], w_in[:, d_in + c:d_in + c + n]], -1)
+
+    def heads(t):
+        return parallel.model_chunk(parallel.copy_to_model(t), 0)
+    return mp._replace(w_in=w_in, a_log=heads(mp.a_log),
+                       dt_bias=heads(mp.dt_bias),
+                       d_skip=heads(mp.d_skip)), True
 
 
 def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
@@ -588,13 +658,16 @@ def apply_block(cfg: ModelConfig, p: Params, h: torch.Tensor,
                                slots=slots, kv_len=kv_len, rope=rope,
                                seq=seq.get("k"))
     if cfg.block == "hybrid":
+        mp, split = _mamba_params(cfg, p["mamba"])
+        mstate = _kept(state, split)
         prev = (None if cache is None else tuple(_state_in(
-            cache, ("ssm", "conv"), slots, state, hn.shape[0])))
-        ssm_out, (ssm_s, conv_s) = ssm_lib.mamba_scan(p["mamba"], hn, prev)
+            cache, ("ssm", "conv"), slots, mstate, hn.shape[0])))
+        ssm_out, (ssm_s, conv_s) = ssm_lib.mamba_scan(mp, hn, prev,
+                                                      split=split)
         attn_out = 0.5 * (rms_norm(attn_out, p["ln_attn_out"], cfg.norm_eps)
                           + rms_norm(ssm_out, p["ln_ssm_out"], cfg.norm_eps))
         if cache is not None:
-            _state_out(cache, dict(ssm=ssm_s, conv=conv_s), slots, state)
+            _state_out(cache, dict(ssm=ssm_s, conv=conv_s), slots, mstate)
     if enc_states is not None and "xwq" in p:
         h, hx = _residual_norm(cfg, h, attn_out, p["lnx"])
         attn_out = _cross_attention(cfg, p, hx, enc_states, mode, cache,

@@ -1287,6 +1287,24 @@ def test_sharded_train_step_on_the_card_matches_the_cpu(dev, tmp_path):
     generator on the card draws other numbers): each loss within 2^-7
     relative, every parameter after them within 2^-5 of its range plus
     2 x lr a step (the bounds above)."""
+    sharded_train_against_the_cpu(tmp_path, "dec_s", 1, 2)
+
+
+@pytest.mark.parametrize("arch", ["phi3_5_moe_42b", "rwkv6_3b",
+                                  "hymba_1_5b"])
+def test_sharded_nondense_train_steps_on_the_card_match_the_cpu(dev, tmp_path,
+                                                                arch):
+    """As ``test_sharded_train_step_on_the_card_matches_the_cpu``, at
+    ``--data 2 --model 2`` on the reduced non-dense models: the MoE's
+    experts split over "data" (each rank routing the global batch), the
+    RWKV-6 block and Hymba's Mamba head split over "model"."""
+    sharded_train_against_the_cpu(tmp_path, arch, 2, 2)
+
+
+def sharded_train_against_the_cpu(tmp_path, arch, data, model):
+    """The launcher on ``data x model`` ranks sharing the card against
+    one rank on the CPU (``test_sharded_train_step_on_the_card_matches_
+    the_cpu``'s run and bounds)."""
     import json
     import os
     import subprocess
@@ -1299,18 +1317,19 @@ def test_sharded_train_step_on_the_card_matches_the_cpu(dev, tmp_path):
     from repro_torch.optim import adamw
 
     root = pathlib.Path(__file__).resolve().parents[1]
-    args = ["--arch", "dec_s", "--reduced", "--steps", "3", "--seq-len",
+    args = ["--arch", arch, "--reduced", "--steps", "3", "--seq-len",
             "32", "--batch", "4", "--ckpt-every", "3"]
     cpu_args = args + ["--device", "cpu", "--ckpt-dir", str(tmp_path / "cpu")]
     cfg, ocfg, _ = train.setup(train.parser().parse_args(cpu_args))
     ckpt_lib.save(tmp_path / "card", 0, train.init_state(cfg, ocfg, "cpu"))
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                        *args, "--model", "2", "--ckpt-dir",
-                        str(tmp_path / "card")], capture_output=True,
-                       text=True, timeout=600, env=env, cwd=str(root))
+                        *args, "--data", str(data), "--model", str(model),
+                        "--ckpt-dir", str(tmp_path / "card")],
+                       capture_output=True, text=True, timeout=600, env=env,
+                       cwd=str(root))
     assert p.returncode == 0, p.stdout + p.stderr
-    assert "mesh data 1 x model 2" in p.stdout
+    assert f"mesh data {data} x model {model}" in p.stdout
     card = [json.loads(ln.split(" ", 3)[3]) for ln in p.stdout.splitlines()
             if ln.startswith("[train] step ")]
     cpu = train.run(dp.Group.single("cpu"), cpu_args).metrics_log

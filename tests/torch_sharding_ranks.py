@@ -5,11 +5,13 @@ ranks' ``PYTHONPATH``), and the same training run in one process.
 ``train(group, argv)`` is ``launch.train.run`` with float32 parameters
 and moments and, for an encoder-decoder, seeded ``enc_embeds`` beside
 each batch (so that the encoder and the cross-attention train): argv is
-the launcher's, plus ``--enc-len S``. ``run(group, [out_dir, *argv])``
-trains on a rank and writes ``rank<r>.json`` (its metrics, the local
-shape of every leaf of its final trees, their bytes) and, on rank 0,
-``gathered/`` (``gather_named`` of the final shards, saved as a
-checkpoint).
+the launcher's, plus ``--enc-len S``, ``--microbatches m`` (the step's
+accumulation factor) and ``--few-ids n`` (n > 0: every token and label
+id taken mod n, so that a MoE's routing piles up). ``run(group,
+[out_dir, *argv])`` trains on a rank and writes ``rank<r>.json`` (its
+metrics, the local shape of every leaf of its final trees, their bytes)
+and, on rank 0, ``gathered/`` (``gather_named`` of the final shards,
+saved as a checkpoint).
 """
 import json
 import pathlib
@@ -40,9 +42,22 @@ class WithEncoder:
         return b
 
 
+class FewIds:
+    """A data source whose token and label ids are taken mod ``n``."""
+
+    def __init__(self, data, n: int):
+        self.data, self.n = data, n
+
+    def host_batch(self, step, host_id=0, num_hosts=1):
+        b = self.data.host_batch(step, host_id, num_hosts)
+        return {k: v % self.n for k, v in b.items()}
+
+
 def parser():
     ap = train_lib.parser()
     ap.add_argument("--enc-len", type=int, default=0)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--few-ids", type=int, default=0)
     return ap
 
 
@@ -52,7 +67,9 @@ def train(group, argv):
     cfg, ocfg, data = train_lib.setup(args)
     if args.enc_len:
         data = WithEncoder(data, args.enc_len, cfg.d_model)
-    step = build_train_step(cfg, ocfg,
+    if args.few_ids:
+        data = FewIds(data, args.few_ids)
+    step = build_train_step(cfg, ocfg, microbatches=args.microbatches,
                             group=group if group.size > 1 else None)
     ctl = TrainController(step, data, args.ckpt_dir,
                           ckpt_every=args.ckpt_every, group=group)
